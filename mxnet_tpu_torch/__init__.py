@@ -5,9 +5,9 @@ A second package beside the JAX one, which stays the reference. It imports
 ``cuda`` unless the caller passes ``device="cpu"``; with no GPU and no
 explicit device they raise.
 
-Ported so far: the flagship transformer LM forward (``models``), with the
-flash-attention forward as a hand-written Hopper kernel
-(``ops/csrc/flash_attention_fwd.cu``).
+Ported so far: the flagship transformer LM forward, loss and single-device
+train step (``models``), with flash attention's forward and backward as
+hand-written Hopper kernels (``ops/csrc/flash_attention_{fwd,bwd}.cu``).
 """
 from . import models
 

@@ -3,31 +3,37 @@
 Counterpart of ``mxnet_tpu/models/transformer_lm.py``, whose math it keeps:
 the same flat ``{name: Tensor}`` parameter dict (names, shapes, dtypes), the
 fp32 layer norm, the residual stream in ``cfg.dtype``, tanh-GELU, tied
-output head with fp32 logits, and the masked-LM loss. Attention goes
-through the hand-written flash-attention kernel
-(:func:`mxnet_tpu_torch.ops.cuda_kernels.flash_attention`) on CUDA.
+output head with fp32 logits, the masked-LM loss, and the train step's
+Adam(W)/LAMB arithmetic. Attention goes through the hand-written
+flash-attention kernels
+(:func:`mxnet_tpu_torch.ops.cuda_kernels.flash_attention`: forward, and
+the dq and dk/dv backward kernels) on CUDA.
 
-Ported so far: the single-device forward and loss. Mixture-of-experts
-layers, ring attention, a device mesh and rematerialisation raise
-``NotImplementedError``; the sharding plan, optimizer state, train step and
-pipeline stages are not ported yet.
+Ported so far: the single-device forward and loss, rematerialisation
+(``cfg.remat``), ``init_opt_state`` and the single-device
+``make_train_step`` with gradient accumulation. Mixture-of-experts layers,
+ring attention and a device mesh raise ``NotImplementedError``; the
+sharding plan and pipeline stages are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import telemetry as _telemetry
 from ..context import resolve_device
 from ..ops import cuda_kernels as _kernels
 
 __all__ = ["TransformerLMConfig", "param_shapes", "init_params", "forward",
-           "loss_fn", "flash_fallback_count"]
+           "loss_fn", "init_opt_state", "make_train_step",
+           "flash_fallback_count"]
 
 # Attention sites that wanted the flash kernel but took the O(S^2) einsum
 # path because the kernel does not take their head dim: counted at every
@@ -90,14 +96,10 @@ def _check_ported(cfg: TransformerLMConfig, mesh: Any = None) -> None:
     if cfg.use_ring_attention:
         raise NotImplementedError(
             "use_ring_attention is not ported to mxnet_tpu_torch yet")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is not ported to mxnet_tpu_torch yet (the port has no "
-            "training step yet)")
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh is not ported to mxnet_tpu_torch yet; the forward "
-            "runs on one device")
+            "and the train step run on one device")
 
 
 def param_shapes(cfg: TransformerLMConfig
@@ -232,8 +234,14 @@ def forward(params, tokens, cfg: TransformerLMConfig, mesh=None, *,
     S = tokens.shape[1]
     x = (params["embed.weight"][tokens] + params["pos_embed.weight"][:S]) \
         .to(cfg.dtype)
+    # remat: keep only each layer's input and recompute the layer in the
+    # backward, as jax.checkpoint does in the reference
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
-        x = _block(params, x, i, cfg)
+        if remat:
+            x = checkpoint(_block, params, x, i, cfg, use_reentrant=False)
+        else:
+            x = _block(params, x, i, cfg)
     x = _layer_norm(x, params["final_ln.gamma"], params["final_ln.beta"])
     logits = x @ params["embed.weight"].T.to(cfg.dtype)
     return logits.float(), torch.zeros((), dtype=torch.float32,
@@ -258,3 +266,135 @@ def loss_fn(params, tokens, labels, cfg: TransformerLMConfig, mesh=None,
     nll, valid = _masked_nll(logits, labels)
     denom = valid.sum().clamp(min=1)
     return nll.sum() / denom + aux_weight * aux
+
+
+def init_opt_state(params) -> Tuple[Dict[str, torch.Tensor],
+                                    Dict[str, torch.Tensor]]:
+    """Adam/LAMB first and second moments: two dicts of fp32 zeros with the
+    params' names, shapes and device."""
+    def zeros():
+        return {n: torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+                for n, w in params.items()}
+    return zeros(), zeros()
+
+
+def _grads(params, tokens, labels, cfg: TransformerLMConfig, grad_accum: int,
+           aux_weight: float, device):
+    """(loss, gradients in ``params``' order) of the masked-LM objective.
+
+    ``grad_accum == k > 1`` splits the batch into k micro-batches whose
+    objective is ``Σ nll / total_valid + aux_weight * aux / k``, with
+    ``total_valid`` counted over the whole batch, and sums the micro
+    gradients into fp32 buffers (not through ``.grad``, which would sum in
+    the params' dtype). The loss is the sum of the micro objectives."""
+    names = list(params)
+    leaves = [params[n].detach().requires_grad_() for n in names]
+    ps = dict(zip(names, leaves))
+    if grad_accum == 1:
+        loss = loss_fn(ps, tokens, labels, cfg, aux_weight=aux_weight,
+                       device=device)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+    B = tokens.shape[0]
+    if B % grad_accum:
+        raise ValueError(f"batch {B} must divide grad_accum {grad_accum}")
+    mb = B // grad_accum
+    total_valid = (labels >= 0).sum().clamp(min=1).float()
+    acc = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+           for w in leaves]
+    loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i in range(grad_accum):
+        logits, aux = forward(ps, tokens[i * mb:(i + 1) * mb], cfg,
+                              device=device)
+        nll, _ = _masked_nll(logits, labels[i * mb:(i + 1) * mb])
+        obj = nll.sum() / total_valid + aux_weight * aux / grad_accum
+        for a, g in zip(acc, torch.autograd.grad(obj, leaves)):
+            a.add_(g)
+        loss += obj.detach()
+    return loss, acc
+
+
+def make_train_step(cfg: TransformerLMConfig, mesh=None,
+                    optimizer: str = "adam", lr: float = 1e-4,
+                    beta1: float = 0.9, beta2: float = 0.999,
+                    epsilon: float = 1e-8, wd: float = 0.01,
+                    grad_accum: int = 1, aux_weight: float = 0.01, *,
+                    device=None) -> Callable:
+    """Build the single-device train step
+    ``step(params, opt_m, opt_v, tokens, labels, t) -> (params, opt_m,
+    opt_v, loss)``, with the reference's arithmetic:
+
+    - gradients of ``loss_fn``, or with ``grad_accum=k`` summed in fp32 over
+      k micro-batches normalised by the whole batch's valid-label count
+      (the batch must divide by k);
+    - ``optimizer="adam"``: Adam with decoupled decay, ``lr_t = lr *
+      sqrt(1 - beta2**t) / (1 - beta1**t)`` taken in fp32, ``w -= lr_t * m
+      / (sqrt(v) + epsilon) + lr * wd * w``;
+    - ``optimizer="lamb"``: ``upd = m / (sqrt(v) + epsilon) + wd * w``,
+      ``w -= lr * trust * upd`` with the per-tensor trust ratio
+      ``|w| / |upd|`` (1 where either norm is 0), no bias correction.
+
+    Weight decay applies to every param. Moments are fp32; the update is
+    computed in fp32 and cast back to each param's dtype (no fp32 master
+    copy). In place of the reference's buffer donation, the step updates the
+    caller's param and moment tensors in place and returns the same dicts;
+    the params keep ``requires_grad=False``. ``t`` is the step number, a
+    Python number. The step never waits for the device: ``loss`` is a 0-dim
+    fp32 tensor there. Runs on ``device`` (``cuda`` if None), where the
+    params must live; pass tokens and labels already on it to avoid a
+    host-to-device copy."""
+    _check_ported(cfg, mesh)
+    if optimizer not in ("adam", "lamb"):
+        raise ValueError(f"optimizer must be 'adam' or 'lamb', not "
+                         f"{optimizer!r}")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    dev = resolve_device(device)
+    f32 = np.float32
+
+    def step(params, opt_m, opt_v, tokens, labels, t):
+        tokens = _tokens_on(tokens, params, dev)
+        labels = torch.as_tensor(labels, device=tokens.device).long()
+        loss, grads = _grads(params, tokens, labels, cfg, grad_accum,
+                             aux_weight, dev)
+        names = list(params)
+        ws = [params[n] for n in names]
+        ms = [opt_m[n] for n in names]
+        vs = [opt_v[n] for n in names]
+        # fp32 temporaries (each as large as the params in fp32) are
+        # released as soon as they are used, to keep the step's peak memory
+        # low; the rounding steps are the reference's
+        with torch.no_grad():
+            g = [x.float() for x in grads]      # the step owns these
+            del grads
+            torch._foreach_mul_(ms, beta1)
+            torch._foreach_add_(ms, torch._foreach_mul(g, 1 - beta1))
+            torch._foreach_mul_(g, g)
+            torch._foreach_mul_(g, 1 - beta2)
+            torch._foreach_mul_(vs, beta2)
+            torch._foreach_add_(vs, g)
+            del g
+            denom = torch._foreach_sqrt(vs)
+            torch._foreach_add_(denom, epsilon)
+            upd = torch._foreach_div(ms, denom)
+            del denom
+            wf = [w.float() for w in ws]
+            if optimizer == "lamb":
+                torch._foreach_add_(upd, torch._foreach_mul(wf, wd))
+                r1 = torch.stack(torch._foreach_norm(wf))
+                r2 = torch.stack(torch._foreach_norm(upd))
+                trust = torch.where((r1 > 0) & (r2 > 0), r1 / r2,
+                                    torch.ones_like(r1))
+                new = [w - s * u for w, s, u in
+                       zip(wf, (lr * trust).unbind(0), upd)]
+            else:
+                # fp32, as the reference's jitted step takes it
+                lr_t = float(f32(lr) * np.sqrt(f32(1) - f32(beta2) ** f32(t))
+                             / (f32(1) - f32(beta1) ** f32(t)))
+                torch._foreach_mul_(upd, lr_t)
+                new = torch._foreach_sub(wf, upd)
+                del upd
+                torch._foreach_sub_(new, torch._foreach_mul(wf, lr * wd))
+            torch._foreach_copy_(ws, new)
+        return params, opt_m, opt_v, loss
+
+    return step

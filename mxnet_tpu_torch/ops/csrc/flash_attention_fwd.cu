@@ -40,55 +40,22 @@
 // This first version is plain: synchronous tile loads, no cp.async/TMA,
 // no wgmma, so it is expected to sit well above those bounds.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
+
+using mxt::kFull;
+using mxt::kLn2;
+using mxt::kLog2e;
+using mxt::Mma;
 
 constexpr int BM = 64;    // query rows per CTA (16 per warp)
 constexpr int BN = 64;    // keys per k-tile
 constexpr int NT = 128;   // threads per CTA
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
 
 // Two consecutive 16-bit elements of row `row`, columns col and col + 1
 // (col even, d % 8 == 0, so both lie inside or both outside the row).
@@ -228,10 +195,7 @@ fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t a[4];
-      a[0] = Mma<T>::pack(sc[2 * kk][0], sc[2 * kk][1]);
-      a[1] = Mma<T>::pack(sc[2 * kk][2], sc[2 * kk][3]);
-      a[2] = Mma<T>::pack(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      a[3] = Mma<T>::pack(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      mxt::pack_a<T>(a, sc[2 * kk], sc[2 * kk + 1]);
 #pragma unroll
       for (int dt = 0; dt < HDP / 8; ++dt) {
         const T* vr = &Vt[(dt * 8 + g) * VS + kk * 16 + c2];

@@ -1,13 +1,15 @@
-"""The port's flash-attention forward (mxnet_tpu_torch.ops.cuda_kernels)
-held against the JAX package's Pallas kernel (mxnet_tpu.ops.pallas_kernels),
-run in interpret mode on the CPU as tests/test_pallas.py runs it.
+"""The port's flash attention (mxnet_tpu_torch.ops.cuda_kernels), forward
+and backward, held against the JAX package's Pallas kernels
+(mxnet_tpu.ops.pallas_kernels), run in interpret mode on the CPU as
+tests/test_pallas.py runs them.
 
-On the CPU the port's wrapper runs its plain PyTorch version; the CUDA
-kernel itself is held against that plain version by the ``cuda``-marked
-tests (and by chip_smoke.py), which skip without a card.
+On the CPU the port's wrappers run their plain PyTorch versions; the CUDA
+kernels themselves are held against those plain versions by the
+``cuda``-marked tests (and by chip_smoke.py), which skip without a card.
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as onp
 import pytest
@@ -84,13 +86,81 @@ def test_flash_attention_bf16_matches_pallas():
                                 rtol=2e-2, atol=2e-2)
 
 
-def test_requires_grad_inputs_raise():
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("bh,seq,d,block", [
+    (2, 64, 16, 64),     # one block: _pick_block(64) == 64
+    (2, 256, 16, 128),   # _pick_block(256) == 128: the cross-block loops
+])
+def test_bwd_matches_pallas(causal, bh, seq, d, block):
+    rng = onp.random.RandomState(bh + seq + int(causal))
+    q, k, v, do = (rng.randn(bh, seq, d).astype(onp.float32)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(a) for a in (q, k, v, do))
+    j_out, j_lse = pk._fwd(jq, jk, jv, causal, scale, block, block)
+    j_grads = pk._bwd(jq, jk, jv, j_out, j_lse, jdo, causal, scale, block,
+                      block)
+    t_grads = ck._bwd(*(torch.from_numpy(onp.array(a)) for a in (
+        q, k, v, j_out, j_lse, do)), causal, scale)
+    for name, t, j in zip(("dq", "dk", "dv"), t_grads, j_grads):
+        assert t.dtype == torch.float32 and t.shape == (bh, seq, d)
+        onp.testing.assert_allclose(t.numpy(), onp.asarray(j), rtol=RTOL,
+                                    atol=ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_grad_matches_jax_grad(causal):
+    # as tests/test_pallas.py: a loss through the 4-D flash attention,
+    # differentiated by autograd (port) and jax.grad (Pallas custom VJP)
+    rng = onp.random.RandomState(11)
+    q, k, v, tgt = (rng.randn(1, 2, 64, 16).astype(onp.float32)
+                    for _ in range(4))
+
+    def j_loss(q, k, v):
+        return ((pk.flash_attention(q, k, v, causal=causal) - tgt) ** 2
+                ).mean()
+
+    j_grads = jax.grad(j_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    t_loss = ((ck.flash_attention(*leaves, causal=causal)
+               - torch.from_numpy(tgt)) ** 2).mean()
+    t_grads = torch.autograd.grad(t_loss, leaves)
+    for name, t, j in zip("qkv", t_grads, j_grads):
+        onp.testing.assert_allclose(t.numpy(), onp.asarray(j), rtol=RTOL,
+                                    atol=ATOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_reference_matches_autograd_through_plain_forward(causal):
+    # float64: the two differ only in the order of the same arithmetic
+    q, k, v = (torch.from_numpy(a).double() for a in _inputs(12, 2, 37, 8))
+    do = torch.from_numpy(_inputs(13, 2, 37, 8)[0]).double()
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out, lse = ck.flash_attention_fwd_reference(*leaves, causal, 0.3)
+    want = torch.autograd.grad(out, leaves, do)
+    got = ck.flash_attention_bwd_reference(q, k, v, out.detach(),
+                                           lse.detach(), do, causal, 0.3)
+    for g, w in zip(got, want):
+        # the plain version takes p and ds in fp32, as the TPU kernels do
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+def test_grad_call_saves_for_backward_and_no_grad_call_does_not():
     q, k, v = (torch.from_numpy(a) for a in _inputs(4, 2, 16, 8))
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ck.flash_attention(q, k, v)
-    with torch.no_grad():
-        assert ck.flash_attention(q, k, v).shape == (2, 16, 8)
+    packed = []
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: packed.append(t) or t, lambda t: t):
+        with torch.no_grad():
+            assert ck.flash_attention(q, k, v).grad_fn is None
+        assert packed == []
+        out = ck.flash_attention(q, k, v)
+    # the forward saves q, k, v, out and lse, as the reference's custom VJP
+    assert out.grad_fn is not None and len(packed) == 5
+    assert [tuple(t.shape) for t in packed] == [(2, 16, 8)] * 4 + [(2, 16, 1)]
+    out.sum().backward()
+    assert q.grad.shape == q.shape and k.grad is None
 
 
 def test_bad_inputs_raise():
@@ -101,6 +171,11 @@ def test_bad_inputs_raise():
         ck._fwd(q, k.double(), v, False, 1.0)
     with pytest.raises(ValueError, match="shape"):
         ck._fwd(q[0], k[0], v[0], False, 1.0)
+    out, lse = ck._fwd(q, k, v, False, 1.0)
+    with pytest.raises(ValueError, match="lse"):
+        ck._bwd(q, k, v, out, lse[:, :8], out, False, 1.0)
+    with pytest.raises(ValueError, match="shape"):
+        ck._bwd(q, k, v, out[:, :8], lse, out, False, 1.0)
 
 
 def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
@@ -109,6 +184,9 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     out, lse = ck._fwd(q, k, v, True, 0.2)
     ref_out, ref_lse = ck.flash_attention_fwd_reference(q, k, v, True, 0.2)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    grads = ck._bwd(q, k, v, out, lse, q, True, 0.2)
+    refs = ck.flash_attention_bwd_reference(q, k, v, out, lse, q, True, 0.2)
+    assert all(torch.equal(g, r) for g, r in zip(grads, refs))
     assert ck.launch_counts() == before
     assert _build._LIBS == libs
 
@@ -164,6 +242,37 @@ def test_kernel_matches_plain_on_card(cuda_device, bh, s, d, dtype, causal,
     torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
                                rtol=atol)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,dtype,causal,tol", [
+    (384, 128, 64, torch.bfloat16, False, 1e-2),
+    (8, 512, 64, torch.bfloat16, True, 1e-2),
+    (4, 200, 128, torch.float16, True, 2e-3),
+    (3, 200, 64, torch.float32, False, 1e-5),
+    (3, 65, 16, torch.float32, True, 1e-5),
+])
+def test_bwd_kernels_match_plain_on_card(cuda_device, bh, s, d, dtype,
+                                         causal, tol):
+    # max |kernel - plain| <= tol * max |plain|, as chip_smoke.py holds it
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, do = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+                   .to(dtype) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    out, lse = ck._fwd(q, k, v, causal, scale)
+    n0 = ck.launch_counts()
+    grads = ck._bwd(q, k, v, out, lse, do.transpose(0, 1).contiguous()
+                    .transpose(0, 1), causal, scale)
+    torch.cuda.synchronize()
+    n1 = ck.launch_counts()
+    assert n1["flash_attention_bwd_dq"] == n0["flash_attention_bwd_dq"] + 1
+    assert n1["flash_attention_bwd_dkv"] == n0["flash_attention_bwd_dkv"] + 1
+    refs = ck.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                            scale)
+    for got, want in zip(grads, refs):
+        assert got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item()
 
 
 @pytest.mark.cuda

@@ -82,6 +82,11 @@ cfg = models.TransformerLMConfig(vocab_size=64, num_layers=1, num_heads=2,
 p = models.init_params(cfg, device="cpu")
 logits, _ = models.forward(p, np.zeros((1, 8), np.int64), cfg, device="cpu")
 assert logits.shape == (1, 8, 64)
+m, v = models.init_opt_state(p)
+step = models.make_train_step(cfg, device="cpu")
+p, m, v, loss = step(p, m, v, np.zeros((1, 8), np.int64),
+                     np.ones((1, 8), np.int64), 1)
+assert loss.dim() == 0
 from mxnet_tpu_torch.ops import _build
 assert not _build._LIBS
 print("jax" in sys.modules, any(m == "mxnet_tpu" or m.startswith("mxnet_tpu.")
@@ -151,4 +156,6 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         models.loss_fn(p, toks, toks, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_numpy({k: v.numpy() for k, v in p.items()}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.make_train_step(cfg)
     assert resolve_device("cpu") == torch.device("cpu")
