@@ -39,12 +39,38 @@ Phases, in order; any failure exits non-zero before the result line:
    step at tokens (8, 512).
 4. Timings: each kernel, its plain version and the library call that
    computes the same function (``scaled_dot_product_attention`` and its
-   backward; never called by the port) at the main paths' shapes, timed the
-   same way in interleaved rounds, each beside its bound; median forward
-   time per request shape and median train-step time; ``torch.profiler``
-   traces of a few forwards and train steps (device-busy time, idle share,
-   top kernels).
-5. The kernels' JSON line, then the result line.
+   backward; never called by the port) at the main paths' shapes, each
+   timed as interleaved replays of a CUDA graph, beside its bound; median
+   forward time per request shape and median train-step time;
+   ``torch.profiler`` traces of a few forwards and train steps (device-busy
+   time, idle share, top kernels).
+5. Epilogue kernels vs. plain version: ``matmul_stats`` and
+   ``matmul_epilogue`` (``conv_bn_epilogue.cu``) against their plain
+   versions, bf16 and fp32, ragged M, K in {64, 256, 1024}, N in {64, 256,
+   2048}, with and without the residual and the ReLU, and at every distinct
+   site shape of the ResNet-50 step (bf16 at batch 128, fp32 at batch 32);
+   the statistics must also be bitwise repeatable.
+6. The ResNet train path (``MXNET_FUSED_EPILOGUE=1``): the Gluon
+   ResNet-50 v1 (NHWC, 1000 classes, Xavier from a seeded generator) takes
+   5 SGD-momentum steps (momentum 0.9, wd 1e-4: ``bench.py``'s ResNet lane,
+   at RESNET_LR) in pure bf16 on a fixed batch of 128 images of 224 x 224,
+   with the counts zeroed just before and read just after: falling finite
+   loss, exactly 36 launches of each epilogue kernel per step, no site
+   refused. Then in fp32 at batch 32: 3 steps fused, then the same 3 steps
+   unfused from the same weights, held to the distance between two
+   equivalent unfused runs. Step-1 gradients of every leaf at batch 128
+   from the same weights: fp32 fused vs unfused, held to the distance
+   between two unfused formulations; bf16 fused and unfused, each against
+   the fp32 gradients. Then the lane's own lr (REFERENCE_LR), recorded and
+   not gated.
+6b. The fused op's backward at every distinct site shape, bf16 and fp32:
+   its gradients and the unfused layers' against a plain fp64 conv + batch
+   norm on the same values.
+7. ResNet timings: both epilogue kernels, their plain versions and
+   ``torch.matmul`` of the same product at two site shapes, timed as CUDA
+   graph replays, each beside its bound; the bf16 step fused and unfused
+   (10 interleaved steps after 3 warm-up); a profile of each.
+8. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
 the ``mxnet_tpu_torch`` package is not beside this file.
@@ -164,10 +190,87 @@ QKV_GRAD_REL_L2 = 5e-2
 # micro-batches run the same per-sample math under other GEMM tilings, and
 # remat recomputes the same forward.
 TRAIN_LOSS_ATOL = 1e-2
-TIMING_ROUNDS = 5         # interleaved rounds of TIMING_ITERS launches each
+TIMING_ROUNDS = 5     # interleaved replays of a graph of TIMING_ITERS calls
 TIMING_ITERS = 50
 PROFILE_FORWARDS = 5
 PROFILE_STEPS = 3
+# -- the ResNet path --
+# (M, K, N) cases of the epilogue kernels vs their plain versions: M ragged
+# (not a multiple of either m-tile, 128 rows for bf16 and 64 for fp32)
+EPI_MS = (1000, 3001)
+EPI_KS = (64, 256, 1024)
+EPI_NS = (64, 256, 2048)
+# the ResNet-50 bf16 batch-128 sites that are timed: stage-1 conv3 and
+# stage-4 conv3, both with the residual
+EPI_SITES = [(401408, 64, 256), (6272, 512, 2048)]
+# matmul_stats vs plain: fp32 sums of the same exact products in another
+# order. |Δ Σz_j| <= STATS_RTOL * Σ|z_ij| and |Δ Σz²_j| <= STATS_RTOL * Σz²_j:
+# an order-of-summation error is a few hundred ulps (2^-24) of the sum of
+# magnitudes at most.
+STATS_RTOL = 1e-5
+# matmul_epilogue vs plain, max |kernel - plain| <= atol + rtol * |plain|.
+# bf16: each side rounds once to bf16 from fp32 values that differ in the
+# last fp32 bits, so the outputs may be one bf16 ulp (2^-7 relative) apart.
+# fp32: z sums K products in another order, ~sqrt(K) * 2^-24 * Σ|x w|,
+# about 1e-5 at K 1024, then scale (< 1.5) and shift.
+EPI_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 128, 224, 5
+# bench.py's lane_train recipe is SGD at lr 0.1. With the reference's
+# Xavier fans on OHWI weights (kh*kw*Cin in, Cout*kw*Cin out) the conv
+# weights start several times smaller than true fans would make them, and
+# every conv feeds a train-mode BN, whose gradient scales as 1/|w|: the
+# first lr-0.1 step moves a conv weight by several times its own norm, and
+# on a fixed batch the loss jumps about (PERF.md, the ResNet findings).
+# So the recipe's
+# lr is run and recorded ungated (REFERENCE_LR), and the gated run takes
+# RESNET_LR, where the first steps stay small against the weights.
+REFERENCE_LR = 0.1
+RESNET_LR = 1e-3
+RESNET_OPT = {"learning_rate": RESNET_LR, "momentum": 0.9, "wd": 1e-4}
+RESNET_SITES = 36          # fused 1x1 sites per ResNet-50 step
+FP32_BATCH, FP32_STEPS = 32, 3
+# Every distinct fused 1x1 site of ResNet-50 v1 as (side of the square
+# output, K, N, residual, relu), stage by stage: the first block's conv1
+# (strided from stage 2 on) and downsample, conv3 with the residual, and
+# the other blocks' conv1 (their conv3 repeats the first's). M is the batch
+# times side². 16 shapes for the 36 sites.
+RESNET_SITE_SHAPES = [
+    site for st, mid in enumerate((64, 128, 256, 512))
+    for side, cin in [(56 >> st, 64 if st == 0 else 2 * mid)]
+    for site in ((side, cin, mid, False, True),
+                 (side, cin, 4 * mid, False, False),
+                 (side, mid, 4 * mid, True, True),
+                 (side, 4 * mid, mid, False, True))]
+BN_EPS = 1e-5              # the zoo's BatchNorm epsilon
+# The fp32 fused-vs-unfused steps run at FP32_LR, where the first update
+# moves a 1x1 conv weight by about 1% of its norm: there the steps stay
+# close to linear, and a rounding difference stays small instead of being
+# amplified as at larger lr.
+FP32_LR = 1e-4
+# fused vs unfused fp32 steps. Step 1's loss is a forward of the same
+# weights: relative 1e-5 (fp32 sums in another order through 50 layers).
+# After an update the difference is set by how far fp32 rounding moves
+# this net's gradients, which is far: at this init, two equivalent unfused
+# formulations (single-pass and two-pass BN variance) already give
+# gradients measurably apart (PERF.md, the ResNet findings). So the later
+# losses and the
+# running statistics are held to FUSED_SPREAD times the distance between
+# those two unfused runs, measured in the same call, plus 1e-5 of the
+# value.
+FIRST_LOSS_RTOL = 1e-5
+FUSED_SPREAD = 3.0
+FUSED_SLACK = 1e-5
+# Gradients of the fused path and of the unfused layers are each held
+# against a more exact reference on the same values (fp64 at one site, the
+# fp32 unfused net for the bf16 net): the fused distance (relative L2 per
+# gradient) within FUSED_SPREAD x the unfused one plus a slack, FUSED_SLACK
+# in fp32 and BF16_SLACK in bf16, half a bf16 ulp (2^-8 relative), which a
+# correct backward that rounds dz to bf16 once may add on its own. At one
+# site the distances are set by rounding alone; through the whole net this
+# init amplifies them (to order 1 in bf16, PERF.md), so the net-level bf16
+# gate is weak and the per-site one is the strong check of the backward.
+BF16_SLACK = 2.0 ** -8
+RESNET_TIMED_STEPS = 10
 
 
 def fail(msg: str) -> None:
@@ -291,23 +394,42 @@ BWD_BOUND = {"flash_attention_bwd_dq": dict(products=3, tensors=5, vectors=2),
                                              vectors=2)}
 
 
+_CAPTURE_STREAM = []
+
+
+def capture_stream() -> torch.cuda.Stream:
+    """The side stream every timing graph is captured on. A backward timed
+    as a graph has its forward run on this stream, since autograd runs each
+    backward op on its forward op's stream."""
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    return _CAPTURE_STREAM[0]
+
+
 def time_ms(fns) -> dict:
-    """CUDA-event ms per call of each ``fns[name]``: TIMING_ROUNDS rounds,
-    each timing every function over TIMING_ITERS back-to-back calls, in an
-    order that alternates between rounds. Returns {name: sorted per-round
-    times}."""
+    """CUDA-event ms per call of each ``fns[name]``: its TIMING_ITERS
+    back-to-back calls are captured once into a CUDA graph, and
+    TIMING_ROUNDS rounds replay every graph, in an order that alternates
+    between rounds, so a slow host adds no gaps between launches. Returns
+    {name: sorted per-round times}."""
     names = list(fns)
     for name in names:
         for _ in range(5):
             fns[name]()
+    graphs = {}
+    for name in names:
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name], stream=capture_stream()):
+            for _ in range(TIMING_ITERS):
+                fns[name]()
     times = {name: [] for name in names}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     for rnd in range(TIMING_ROUNDS):
         for name in (names if rnd % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
             start.record()
-            for _ in range(TIMING_ITERS):
-                fns[name]()
+            graphs[name].replay()
             end.record()
             torch.cuda.synchronize()
             times[name].append(start.elapsed_time(end) / TIMING_ITERS)
@@ -723,7 +845,8 @@ def fwd_timings(ck, cfg, card_line) -> dict:
         attn_times[(bh, s)] = dict(bound_ms=bound, bound_by=bound_by, **{
             key: statistics.median(t) for key, t in times.items()})
         print(f"flash fwd bh={bh} s={s} d={d} bf16, {TIMING_ROUNDS} "
-              f"interleaved rounds of {TIMING_ITERS}: " + ", ".join(
+              f"interleaved rounds of a CUDA graph of {TIMING_ITERS} calls: "
+              + ", ".join(
                   f"{what} {spread(t)}" for what, t in zip(
                       ("kernel", "plain", "sdpa"), times.values()))
               + f"; bound {bound:.5f} ms ({bound_by}) [{card_line}]")
@@ -744,8 +867,10 @@ def bwd_timings(ck, cfg, card_line) -> dict:
         B = bh // cfg.num_heads
         leaves = [t.view(B, cfg.num_heads, s, d).detach().requires_grad_()
                   for t in (q, k, v)]
-        lib_out = torch.nn.functional.scaled_dot_product_attention(
-            *leaves, is_causal=causal)
+        with torch.cuda.stream(capture_stream()):
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=causal)
+        torch.cuda.current_stream().wait_stream(capture_stream())
         do4 = do.view(B, cfg.num_heads, s, d)
         times = time_ms({
             "flash_attention_bwd_dq": lambda: ck._launch_bwd_dq(*args),
@@ -768,7 +893,8 @@ def bwd_timings(ck, cfg, card_line) -> dict:
                 ms=med[name], plain_ms=med[plain], library_ms=lib,
                 bound_ms=bound, bound_by=bound_by)
             print(f"{name} bh={bh} s={s} d={d} bf16, {TIMING_ROUNDS} "
-                  f"interleaved rounds of {TIMING_ITERS}: kernel "
+                  f"interleaved rounds of a CUDA graph of {TIMING_ITERS} "
+                  f"calls: kernel "
                   f"{spread(times[name])}, plain {spread(times[plain])}; "
                   f"bound {bound:.5f} ms ({bound_by}) [{card_line}]")
         print(f"flash backward bh={bh} s={s}: delta pass "
@@ -839,6 +965,580 @@ def train_timings(models, cfg, params, rng, bwd_times, card_line) -> None:
             card_line)
 
 
+# -- 5. ----------------------------------------------------------------------
+
+EPI_KERNELS = ("matmul_stats", "matmul_epilogue")
+
+
+def epi_inputs(m, k, n, dtype, seed):
+    """x (m, k) standard normal, w (k, n) = the transpose of a contiguous
+    (n, k) weight of std 1/sqrt(k) (as at a conv site), scale in [0.5, 1.5),
+    shift and residual standard normal."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(n, k, generator=g, device="cuda") / math.sqrt(k)) \
+        .to(dtype).t()
+    sc = torch.rand(n, generator=g, device="cuda") + 0.5
+    sh = torch.randn(n, generator=g, device="cuda")
+    r = torch.randn(m, n, generator=g, device="cuda").to(dtype)
+    return x, w, sc, sh, r
+
+
+def check_stats(ck, x, w, what) -> float:
+    """matmul_stats against its plain version; returns max |Δ| of (s, ss)."""
+    s, ss = ck.matmul_stats(x, w)
+    s2, ss2 = ck.matmul_stats(x, w)
+    z = x.float() @ w.float()
+    rs, rss = z.sum(0), (z * z).sum(0)
+    if not (torch.equal(s, s2) and torch.equal(ss, ss2)):
+        fail(f"{what}: matmul_stats is not bitwise repeatable")
+    err_s, err_ss = (s - rs).abs(), (ss - rss).abs()
+    lim_s, lim_ss = STATS_RTOL * z.abs().sum(0), STATS_RTOL * rss
+    if not (torch.isfinite(s).all() and torch.isfinite(ss).all()) or \
+            bool((err_s > lim_s).any()) or bool((err_ss > lim_ss).any()):
+        fail(f"{what}: matmul_stats vs plain: max |Δs| {err_s.max():.3e}, "
+             f"max |Δss| {err_ss.max():.3e} (bound {STATS_RTOL} x sum of "
+             f"magnitudes)")
+    return max(err_s.max().item(), err_ss.max().item())
+
+
+def check_epilogue(ck, x, w, sc, sh, r, relu, what) -> float:
+    out = ck.matmul_epilogue(x, w, sc, sh, r, relu)
+    ref = ck.matmul_epilogue_reference(x, w, sc, sh, r, relu)
+    if out.shape != ref.shape or out.dtype != x.dtype:
+        fail(f"{what}: out {out.shape} {out.dtype}")
+    atol, rtol = EPI_TOL[x.dtype]
+    got, want = out.float(), ref.float()
+    err = (got - want).abs()
+    if not torch.isfinite(got).all() or \
+            bool((err > atol + rtol * want.abs()).any()):
+        fail(f"{what}: matmul_epilogue vs plain: max abs err "
+             f"{err.max().item():.3e} (atol {atol}, rtol {rtol})")
+    return err.max().item()
+
+
+def epilogue_kernel_phase(ck) -> dict:
+    """Phase 5; returns the max abs err of each kernel at the timed
+    sites."""
+    seed = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst_s = worst_e = (-1.0, None)
+        first = lambda t: t[0]
+        for m in EPI_MS:
+            for k in EPI_KS:
+                for n in EPI_NS:
+                    seed += 1
+                    x, w, sc, sh, r = epi_inputs(m, k, n, dtype, seed)
+                    what = f"({m}, {k}, {n}) {str(dtype)[6:]}"
+                    worst_s = max(worst_s, (check_stats(ck, x, w, what),
+                                            (m, k, n)), key=first)
+                    for res in (None, r):
+                        for relu in (False, True):
+                            worst_e = max(worst_e, (check_epilogue(
+                                ck, x, w, sc, sh, res, relu, what),
+                                (m, k, n, res is not None, relu)), key=first)
+        print(f"epilogue kernels vs plain, {str(dtype)[6:]}: M {EPI_MS} x "
+              f"K {EPI_KS} x N {EPI_NS}, epilogue with and without the "
+              f"residual and the relu: all within bounds; largest stats "
+              f"|Δ| {worst_s[0]:.3e} at {worst_s[1]}, largest epilogue abs "
+              f"err {worst_e[0]:.3e} at (M, K, N, residual, relu) "
+              f"{worst_e[1]}  ok")
+    main_err = {k: 0.0 for k in EPI_KERNELS}
+    for dtype, batch in ((torch.bfloat16, RESNET_BATCH),
+                         (torch.float32, FP32_BATCH)):
+        worst = {name: (-1.0, None) for name in EPI_KERNELS}
+        for i, (side, k, n, res, relu) in enumerate(RESNET_SITE_SHAPES):
+            m = batch * side * side
+            x, w, sc, sh, r = epi_inputs(m, k, n, dtype, seed=500 + i)
+            what = f"site ({m}, {k}, {n}) {str(dtype)[6:]}"
+            errs = {"matmul_stats": check_stats(ck, x, w, what),
+                    "matmul_epilogue": check_epilogue(
+                        ck, x, w, sc, sh, r if res else None, relu, what)}
+            for name, err in errs.items():
+                worst[name] = max(worst[name], (err, (m, k, n)), key=first)
+                if dtype is torch.bfloat16:
+                    main_err[name] = max(main_err[name], err)
+        print(f"epilogue kernels vs plain at all {len(RESNET_SITE_SHAPES)} "
+              f"site shapes of the ResNet-50 step, {str(dtype)[6:]}, batch "
+              f"{batch}: all within bounds; largest abs err " + ", ".join(
+                  f"{name} {e:.3e} at (M, K, N) {at}"
+                  for name, (e, at) in worst.items()) + "  ok")
+    torch.cuda.synchronize()
+    return main_err
+
+
+# -- 6. ----------------------------------------------------------------------
+
+
+def set_fused(config, mode: int) -> None:
+    os.environ["MXNET_FUSED_EPILOGUE"] = str(mode)
+    config.refresh("MXNET_FUSED_EPILOGUE")
+
+
+def resnet50(mx, probe):
+    """The Gluon ResNet-50 v1 of ``bench.py``'s lane, NHWC, Xavier from a
+    seeded generator on the card, probed once (deferred shapes), fp32."""
+    net = mx.gluon.model_zoo.get_model("resnet50_v1", classes=1000,
+                                       layout="NHWC", input_layout="NHWC")
+    net.initialize(mx.initializer.Xavier(
+        generator=torch.Generator().manual_seed(0)))
+    with torch.no_grad():
+        net(probe)
+    return net
+
+
+def image_batch(n, dtype):
+    """n images (224 x 224 x 3, NHWC) and labels from numpy seed 0."""
+    rng = np.random.RandomState(0)
+    x = rng.randn(n, RESNET_IMAGE, RESNET_IMAGE, 3).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.float32)
+    return (torch.as_tensor(x, device="cuda").to(dtype),
+            torch.as_tensor(y, device="cuda"))
+
+
+class ResNetStep:
+    """One train step of ``lane_train``'s recipe: forward and loss under
+    ``record``, backward with ones as the head gradient, ``step(batch)``."""
+
+    def __init__(self, mx, net, x, y):
+        self.mx, self.net, self.x, self.y = mx, net, x, y
+        self.trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                        dict(RESNET_OPT))
+        self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def __call__(self):
+        with self.mx.autograd.record():
+            logits = self.net(self.x)
+            loss = self.loss_fn(logits, self.y)
+        self.mx.autograd.backward(loss)
+        self.trainer.step(self.x.shape[0])
+        return logits, loss
+
+
+def run_resnet_steps(ck, resnet, step, n):
+    """n steps; returns (mean losses, per-step kernel launches, per-step
+    fused-site counts)."""
+    losses, launches, sites = [], [], []
+    for _ in range(n):
+        c0, s0 = ck.launch_counts(), resnet.fused_epilogue_counts()
+        logits, loss = step()
+        c1, s1 = ck.launch_counts(), resnet.fused_epilogue_counts()
+        if logits.shape != (step.x.shape[0], 1000) or \
+                logits.dtype != step.x.dtype:
+            fail(f"resnet logits {logits.shape} {logits.dtype}")
+        losses.append(loss.float().mean().item())
+        launches.append({k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]})
+        sites.append({k: s1[k] - s0[k] for k in s1})
+    return losses, launches, sites
+
+
+def resnet_train_path(mx, ck, resnet, config, card_line):
+    """Phase 6; returns (launch counts of the bf16 main run, the bf16 net,
+    its batch)."""
+    set_fused(config, 1)
+    x, y = image_batch(RESNET_BATCH, torch.bfloat16)
+    net = resnet50(mx, x[:2].float())
+    net.cast("bfloat16")
+    net.hybridize()
+    step = ResNetStep(mx, net, x, y)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    resnet.reset_fused_epilogue_counts()
+    losses, launches, sites = run_resnet_steps(ck, resnet, step,
+                                               RESNET_STEPS)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    print(f"resnet train path (ResNet-50 v1, bf16, batch {RESNET_BATCH}, "
+          f"{RESNET_IMAGE}², {RESNET_STEPS} SGD-momentum steps, lr "
+          f"{RESNET_OPT['learning_rate']}): losses " + " ".join(
+              f"{v:.6f}" for v in losses) + f"; launch counts {counts}; "
+          f"per step {launches[0]}, sites {sites[0]}")
+    want = {k: RESNET_SITES for k in EPI_KERNELS}
+    for i, (got, st) in enumerate(zip(launches, sites)):
+        if got != want or st != {"fused": RESNET_SITES, "refused": 0}:
+            fail(f"resnet step {i + 1}: launches {got}, sites {st}; want "
+                 f"{want} and {RESNET_SITES} fused, 0 refused")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"resnet bf16: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"resnet bf16: loss did not fall over {RESNET_STEPS} steps: "
+             f"{losses}")
+    resnet_fused_vs_unfused(mx, ck, resnet, config)
+    resnet_step1_grads(mx, ck, resnet, config)
+    resnet_reference_recipe(mx, ck, resnet, config)
+    return counts, net, step
+
+
+def check_sites(what, mode, launches, sites) -> None:
+    """A fused run (mode 1) launches each epilogue kernel once per site and
+    refuses none; an unfused run launches none."""
+    want = RESNET_SITES if mode else 0
+    if launches != ({k: want for k in EPI_KERNELS} if mode else {}) or \
+            sites != {"fused": want, "refused": 0}:
+        fail(f"{what}: launches {launches}, sites {sites}")
+
+
+def set_two_pass(config, on: bool) -> None:
+    os.environ["MXNET_BN_TWO_PASS_VAR"] = "1" if on else "0"
+    config.refresh("MXNET_BN_TWO_PASS_VAR")
+
+
+def running_stats(net):
+    return {k: p.data().float().clone()
+            for k, p in net.collect_params().items() if "running" in k}
+
+
+def resnet_fused_vs_unfused(mx, ck, resnet, config) -> None:
+    """fp32, batch FP32_BATCH: FP32_STEPS steps fused, then the same steps
+    from the same initial weights unfused, and unfused with the two-pass BN
+    variance (the yardstick of how far rounding alone moves them)."""
+    x, y = image_batch(FP32_BATCH, torch.float32)
+    net = resnet50(mx, x[:2])
+    init = {k: p.data().clone() for k, p in net.collect_params().items()}
+    net.hybridize()
+    res = {}
+    for what, mode, two_pass in (("fused", 1, False), ("unfused", 0, False),
+                                 ("unfused two-pass", 0, True)):
+        set_fused(config, mode)
+        set_two_pass(config, two_pass)
+        net.load_dict(init)
+        net.zero_grad()
+        step = ResNetStep(mx, net, x, y)
+        step.trainer.set_learning_rate(FP32_LR)
+        losses, launches, sites = run_resnet_steps(ck, resnet, step,
+                                                   FP32_STEPS)
+        for got, st in zip(launches, sites):
+            check_sites(f"fp32 resnet, {what}", mode, got, st)
+        res[what] = (losses, running_stats(net))
+    set_two_pass(config, False)
+    set_fused(config, 1)
+    (fl, fs), (ul, us), (tl, ts) = (res["fused"], res["unfused"],
+                                    res["unfused two-pass"])
+    print(f"resnet fp32, batch {FP32_BATCH}, {FP32_STEPS} steps, lr "
+          f"{FP32_LR}: losses " + "; ".join(
+              f"{what} " + " ".join(f"{v:.6f}" for v in res[what][0])
+              for what in res))
+    if not abs(fl[0] - ul[0]) <= FIRST_LOSS_RTOL * abs(ul[0]):
+        fail(f"fused vs unfused fp32 step-1 loss {fl[0]} vs {ul[0]}")
+    for i in range(1, FP32_STEPS):
+        lim = FUSED_SPREAD * abs(tl[i] - ul[i]) + FUSED_SLACK * abs(ul[i])
+        if not abs(fl[i] - ul[i]) <= lim:
+            fail(f"fused vs unfused fp32 loss at step {i + 1}: {fl[i]} vs "
+                 f"{ul[i]}, bound {lim:.3e} ({FUSED_SPREAD} x the two-pass "
+                 f"spread {abs(tl[i] - ul[i]):.3e})")
+    worst = (0.0, "")
+    for name, want in us.items():
+        spread_ = (ts[name] - want).abs().max().item()
+        lim = FUSED_SPREAD * spread_ + FUSED_SLACK * want.abs().max().item()
+        err = (fs[name] - want).abs().max().item()
+        worst = max(worst, (err / lim, name))
+        if not err <= lim:
+            fail(f"fused vs unfused fp32 {name}: max |Δ| {err:.3e} > "
+                 f"{lim:.3e} ({FUSED_SPREAD} x the two-pass spread "
+                 f"{spread_:.3e})")
+    print(f"resnet fp32 fused vs unfused: losses and running statistics "
+          f"within {FUSED_SPREAD} x the two-pass spread; the closest call "
+          f"at {worst[0]:.3f} of its bound ({worst[1]})  ok")
+
+
+def rel(a, b) -> float:
+    """Relative L2 distance of a from b."""
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def bn_fed_bias(params, name) -> bool:
+    """A conv bias whose next layer in its sequence is a BatchNorm. The BN
+    removes any shift, so its exact gradient is 0: the fused op's is 0
+    exactly, as the reference's vjp gives, and the unfused layers' is
+    rounding, so no relative distance of it means anything."""
+    head, _, idx = name[:-len(".bias")].rpartition(".")
+    return name.endswith(".bias") and idx.isdigit() and \
+        f"{head}.{int(idx) + 1}.gamma" in params
+
+
+def resnet_step1_grads(mx, ck, resnet, config) -> None:
+    """Step-1 gradients of every leaf at batch RESNET_BATCH, before any
+    update, from the same bf16-valued weights and batch: fp32 fused vs
+    unfused, held per leaf to FUSED_SPREAD x the distance between the two
+    unfused formulations (single- and two-pass BN variance); bf16 fused and
+    unfused, each against the fp32 unfused gradients (see BF16_SLACK)."""
+    x16, y = image_batch(RESNET_BATCH, torch.bfloat16)
+    net = resnet50(mx, x16[:2].float())
+    params = net.collect_params()
+    init = {k: p.data().to(torch.bfloat16) for k, p in params.items()}
+    net.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    grads = {}
+    for what, mode, two_pass in (
+            ("fp32 fused", 1, False), ("fp32 unfused", 0, False),
+            ("fp32 two-pass", 0, True), ("bf16 fused", 1, False),
+            ("bf16 unfused", 0, False), ("bf16 two-pass", 0, True)):
+        dtype = torch.float32 if what.startswith("fp32") else torch.bfloat16
+        if dtype is torch.bfloat16 and mode:
+            net.cast("bfloat16")
+        set_fused(config, mode)
+        set_two_pass(config, two_pass)
+        net.load_dict(init)
+        net.zero_grad()
+        c0, s0 = ck.launch_counts(), resnet.fused_epilogue_counts()
+        with mx.autograd.record():
+            loss = loss_fn(net(x16.to(dtype)), y)
+        mx.autograd.backward(loss)
+        c1, s1 = ck.launch_counts(), resnet.fused_epilogue_counts()
+        check_sites(f"step-1 gradients, {what}", mode,
+                    {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]},
+                    {k: s1[k] - s0[k] for k in s1})
+        grads[what] = {k: p.grad().float().clone()
+                       for k, p in params.items() if p.grad_req != "null"}
+    set_two_pass(config, False)
+    set_fused(config, 1)
+    ref = grads["fp32 unfused"]
+    biases = [k for k in ref if bn_fed_bias(params, k)]
+    for what in ("fp32 fused", "bf16 fused"):
+        nonzero = [k for k in biases if bool(grads[what][k].any())]
+        if nonzero:
+            fail(f"step-1 gradients, {what}: the biases before a BN "
+                 f"{nonzero[:3]} have nonzero gradients")
+    rows = {k: {what: rel(g[k], ref[k]) for what, g in grads.items()
+                if what != "fp32 unfused"}
+            for k in ref if k not in biases}
+    worst32 = worst16 = (0.0, "")
+    for k, d in rows.items():
+        lim32 = FUSED_SPREAD * d["fp32 two-pass"] + FUSED_SLACK
+        lim16 = FUSED_SPREAD * d["bf16 unfused"] + BF16_SLACK
+        worst32 = max(worst32, (d["fp32 fused"] / lim32, k))
+        worst16 = max(worst16, (d["bf16 fused"] / lim16, k))
+        if not d["fp32 fused"] <= lim32:
+            fail(f"step-1 gradient of {k}, fp32: fused vs unfused "
+                 f"{d['fp32 fused']:.3e} > {lim32:.3e} ({FUSED_SPREAD} x "
+                 f"the two-pass spread {d['fp32 two-pass']:.3e})")
+        if not d["bf16 fused"] <= lim16:
+            fail(f"step-1 gradient of {k}, bf16: fused {d['bf16 fused']:.3e}"
+                 f" from fp32 > {lim16:.3e} ({FUSED_SPREAD} x the unfused "
+                 f"bf16's {d['bf16 unfused']:.3e} + {BF16_SLACK})")
+    med = {what: statistics.median(d[what] for d in rows.values())
+           for what in next(iter(rows.values()))}
+    # recorded, not gated: bf16 fused vs unfused, and the two unfused bf16
+    # formulations, over all these leaves at once. The second is small (the
+    # two variances differ in fp32 bits that the bf16 scale and shift round
+    # away), the first is bf16 rounding of z, which the fused path skips.
+    flat = {what: torch.cat([grads[what][k].flatten() for k in rows])
+            for what in ("bf16 fused", "bf16 unfused", "bf16 two-pass")}
+    d16 = {what: rel(flat[what], flat["bf16 unfused"])
+           for what in ("bf16 fused", "bf16 two-pass")}
+    bias_g = {what: max(grads[what][k].abs().max().item() for k in biases)
+              for what in ("fp32 unfused", "bf16 unfused")}
+    print(f"resnet step-1 gradients, batch {RESNET_BATCH}, {len(rows)} "
+          f"leaves (and {len(biases)} biases before a BN, 0 when fused; "
+          f"unfused max |g| fp32 {bias_g['fp32 unfused']:.3e}, bf16 "
+          f"{bias_g['bf16 unfused']:.3e}): median relative L2 from fp32 unfused " + ", ".join(
+              f"{what} {v:.3e}" for what, v in med.items())
+          + f"; fp32 fused within {FUSED_SPREAD} x the two-pass spread, "
+          f"closest call {worst32[0]:.3f} of its bound ({worst32[1]}); bf16 "
+          f"fused within {FUSED_SPREAD} x the unfused bf16 distance + "
+          f"{BF16_SLACK}, closest call {worst16[0]:.3f} ({worst16[1]}); "
+          f"recorded, not gated: relative L2 over these leaves from the "
+          f"bf16 unfused gradients, bf16 fused {d16['bf16 fused']:.3e}, bf16 "
+          f"two-pass {d16['bf16 two-pass']:.3e}  ok")
+
+
+def site_backward_phase(ck, nn_ops) -> None:
+    """The fused op's backward at every distinct site shape of the batch-128
+    step, bf16 and fp32: dx, dw, dgamma, dbeta (and dresidual) of the fused
+    op (kernels forward, plain backward) and of the unfused layers (the
+    port's convolution and batch_norm, add, relu) in that dtype, each
+    against a plain fp64 conv + batch norm on the same values and
+    cotangent. The fused distance stays within FUSED_SPREAD x the unfused
+    one plus the dtype's slack."""
+    slack = {torch.bfloat16: BF16_SLACK, torch.float32: FUSED_SLACK}
+    worst = {dtype: (0.0, None) for dtype in slack}
+    for i, (side, k, n, res, relu) in enumerate(RESNET_SITE_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(900 + i)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g, device="cuda")
+                    * scale).to(torch.bfloat16)
+
+        # the input is a relu's (or the max pool's) output, as at the sites
+        x = torch.relu(rnd(RESNET_BATCH, side, side, k))
+        w = rnd(n, 1, 1, k, scale=k ** -0.5)
+        gamma = (torch.rand(n, generator=g, device="cuda") + 0.5).to(
+            torch.bfloat16)
+        beta = rnd(n)
+        r = rnd(RESNET_BATCH, side, side, n) if res else None
+        gout = rnd(RESNET_BATCH, side, side, n)
+        stats = (torch.zeros(n, device="cuda"), torch.ones(n, device="cuda"))
+
+        def fused(x, w, gamma, beta, r):
+            return ck.conv1x1_bn_act_train(x, w, gamma, beta, r, eps=BN_EPS,
+                                           relu=relu)[0]
+
+        def unfused(x, w, gamma, beta, r):
+            z = nn_ops.convolution(x, w, kernel=(1, 1), layout="NHWC")
+            out = nn_ops.batch_norm(z, gamma, beta, *stats, eps=BN_EPS,
+                                    fix_gamma=False, axis=3,
+                                    training=True)[0]
+            if r is not None:
+                out = out + r
+            return torch.relu(out) if relu else out
+
+        def exact(x, w, gamma, beta, r):
+            z = x.reshape(-1, k) @ w.reshape(n, k).t()
+            mean = z.mean(0)
+            var = (z - mean).square().mean(0)
+            out = ((z - mean) * torch.rsqrt(var + BN_EPS) * gamma
+                   + beta).reshape(*x.shape[:3], n)
+            if r is not None:
+                out = out + r
+            return torch.relu(out) if relu else out
+
+        def grads(fn, dtype):
+            args = [None if t is None else
+                    t.detach().to(dtype).requires_grad_()
+                    for t in (x, w, gamma, beta, r)]
+            out = fn(*args)
+            return torch.autograd.grad(out, [a for a in args
+                                             if a is not None],
+                                       gout.to(dtype))
+
+        ref = grads(exact, torch.float64)
+        for dtype in slack:
+            got = zip(("dx", "dw", "dgamma", "dbeta", "dresidual"), ref,
+                      grads(fused, dtype), grads(unfused, dtype))
+            for name, want, fu, un in got:
+                d_f, d_u = rel(fu, want), rel(un, want)
+                lim = FUSED_SPREAD * d_u + slack[dtype]
+                what = (f"{name} at (M, K, N) ({RESNET_BATCH * side * side},"
+                        f" {k}, {n})")
+                worst[dtype] = max(worst[dtype], (d_f / lim, what),
+                                   key=lambda t: t[0])
+                if not d_f <= lim:
+                    fail(f"fused {str(dtype)[6:]} backward, {what}: relative "
+                         f"L2 from fp64 {d_f:.3e} > {lim:.3e} (unfused "
+                         f"{d_u:.3e})")
+    for dtype, (ratio, what) in worst.items():
+        print(f"fused {str(dtype)[6:]} backward vs the unfused layers at all "
+              f"{len(RESNET_SITE_SHAPES)} site shapes, batch {RESNET_BATCH}: "
+              f"relative L2 from fp64 within {FUSED_SPREAD} x the unfused "
+              f"one + {slack[dtype]}; the closest call at {ratio:.3f} of "
+              f"its bound ({what})  ok")
+
+
+def resnet_reference_recipe(mx, ck, resnet, config) -> None:
+    """bench.py's lr (REFERENCE_LR) on the bf16 batch: the first step's
+    update against each weight, by kind, and 5 losses. Recorded, not
+    gated (see REFERENCE_LR)."""
+    set_fused(config, 1)
+    x, y = image_batch(RESNET_BATCH, torch.bfloat16)
+    net = resnet50(mx, x[:2].float())
+    net.cast("bfloat16")
+    net.hybridize()
+    step = ResNetStep(mx, net, x, y)
+    step.trainer.set_learning_rate(REFERENCE_LR)
+    with mx.autograd.record():
+        loss = step.loss_fn(net(x), y)
+    mx.autograd.backward(loss)
+    ratios = {}
+    for name, p in net.collect_params().items():
+        if p.grad_req == "null" or not name.endswith("weight"):
+            continue
+        w, g = p.data().float(), p.grad().float() / RESNET_BATCH
+        upd = REFERENCE_LR * (g + RESNET_OPT["wd"] * w)
+        kind = ("dense" if w.dim() == 2
+                else f"{w.shape[1]}x{w.shape[2]} conv")
+        ratios.setdefault(kind, []).append((upd.norm() / w.norm()).item())
+    net.zero_grad()
+    losses, _, _ = run_resnet_steps(ck, resnet, step, RESNET_STEPS)
+    print(f"resnet reference recipe, lr {REFERENCE_LR} (recorded, not "
+          f"gated): first-step |lr g| / |w| by kind: " + "; ".join(
+              f"{k} median {statistics.median(v):.3f} max {max(v):.3f}"
+              for k, v in sorted(ratios.items()))
+          + "; losses " + " ".join(f"{v:.6f}" for v in losses))
+
+
+# -- 7. ----------------------------------------------------------------------
+
+
+def epi_bound_ms(m, k, n, with_out):
+    """Least time: x and w read once, and (with_out) the residual read and
+    the output written once (bf16), else 2N fp32 statistics written; 2MKN
+    bf16 tensor-core operations of the product."""
+    nbytes = 2 * (m * k + k * n) + (4 * m * n + 8 * n if with_out else 8 * n)
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * n / PEAK_FLOPS[torch.bfloat16]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def epilogue_timings(ck, card_line) -> dict:
+    out = {}
+    for m, k, n in EPI_SITES:
+        x, w, sc, sh, r = epi_inputs(m, k, n, torch.bfloat16, seed=700)
+        times = time_ms({
+            "matmul_stats": lambda: ck.matmul_stats(x, w),
+            "matmul_epilogue": lambda: ck.matmul_epilogue(x, w, sc, sh, r,
+                                                          True),
+            "stats_plain": lambda: ck.matmul_stats_reference(x, w),
+            "epilogue_plain": lambda: ck.matmul_epilogue_reference(
+                x, w, sc, sh, r, True),
+            "torch.matmul": lambda: torch.matmul(x, w),
+        })
+        med = {key: statistics.median(t) for key, t in times.items()}
+        for name, plain, with_out in (
+                ("matmul_stats", "stats_plain", False),
+                ("matmul_epilogue", "epilogue_plain", True)):
+            bound, bound_by = epi_bound_ms(m, k, n, with_out)
+            out[(name, m, k, n)] = dict(
+                ms=med[name], plain_ms=med[plain],
+                library_ms=med["torch.matmul"], bound_ms=bound,
+                bound_by=bound_by)
+            print(f"{name} ({m}, {k}, {n}) bf16, {TIMING_ROUNDS} interleaved "
+                  f"rounds of a CUDA graph of {TIMING_ITERS} calls: kernel "
+                  f"{spread(times[name])}, "
+                  f"plain {spread(times[plain])}; bound {bound:.5f} ms "
+                  f"({bound_by}) [{card_line}]")
+        print(f"torch.matmul of the same bf16 product ({m}, {k}, {n}), which "
+              f"computes neither the statistics nor the epilogue: "
+              f"{spread(times['torch.matmul'])} [{card_line}]")
+    return out
+
+
+def resnet_timings(resnet, config, step, card_line) -> None:
+    """The bf16 step fused and unfused: 3 warm-up steps each, then
+    RESNET_TIMED_STEPS rounds of one step each, the order alternating
+    between rounds; median and range of each. Then a profile of each."""
+    for mode in (1, 0):
+        set_fused(config, mode)
+        host_ms(step, n=0)
+    times = {1: [], 0: []}
+    for rnd in range(RESNET_TIMED_STEPS):
+        for mode in ((1, 0) if rnd % 2 == 0 else (0, 1)):
+            set_fused(config, mode)
+            times[mode] += host_ms(step, n=1, warmup=0)
+    for mode in (1, 0):
+        med = statistics.median(times[mode])
+        print(f"resnet-50 bf16 train step, batch {RESNET_BATCH}, "
+              f"MXNET_FUSED_EPILOGUE={mode}: median {med:.3f} ms over "
+              f"{RESNET_TIMED_STEPS} interleaved steps after 3 warm-up (min "
+              f"{min(times[mode]):.3f}, max {max(times[mode]):.3f}), "
+              f"{RESNET_BATCH / med * 1e3:.1f} img/s [{card_line}]")
+    for mode in (1, 0):
+        set_fused(config, mode)
+        profile(step, PROFILE_STEPS, f"resnet-50 bf16 train step, batch "
+                f"{RESNET_BATCH}, MXNET_FUSED_EPILOGUE={mode}", card_line)
+    set_fused(config, 1)
+
+
+def port_gluon():
+    """(mxnet_tpu_torch, its config, the resnet module, its nn ops) beside
+    this file."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import config
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    from mxnet_tpu_torch.ops import nn as nn_ops
+    return mx, config, resnet, nn_ops
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -847,6 +1547,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     models, ck, _build = port()
+    mx, config, resnet, nn_ops = port_gluon()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -855,8 +1556,10 @@ def main() -> int:
     ck.reset_launch_counts()
     fwd_err = fwd_kernel_phase(ck)
     bwd_err = bwd_kernel_phase(ck)
+    epi_err = epilogue_kernel_phase(ck)
     print(f"launch counts after the comparisons: {ck.launch_counts()}")
 
+    # -- the LM paths -------------------------------------------------------
     cfg = bert_base(models)
 
     def init():
@@ -873,18 +1576,31 @@ def main() -> int:
     bwd_times = bwd_timings(ck, cfg, card_line)
     forward_timings(models, cfg, params, requests, attn_times, card_line)
     train_timings(models, cfg, init(), rng, bwd_times, card_line)
+    del params, requests
+    torch.cuda.empty_cache()
 
-    # -- 5. results ---------------------------------------------------------
+    # -- the ResNet train path ----------------------------------------------
+    resnet_counts, _net, step = resnet_train_path(mx, ck, resnet, config,
+                                                  card_line)
+    site_backward_phase(ck, nn_ops)
+    epi_times = epilogue_timings(ck, card_line)
+    resnet_timings(resnet, config, step, card_line)
+
+    # -- 8. results ---------------------------------------------------------
+    paths = {"forward": fwd_counts, "train": train_counts,
+             "resnet_train": resnet_counts}
+
+    def launches(name):
+        by_path = {p: c.get(name, 0) for p, c in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
+
     t = attn_times[(96, 512)]
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:49",
-        "launches": fwd_counts["flash_attention_fwd"]
-        + train_counts["flash_attention_fwd"],
-        "launches_by_path": {
-            "forward": fwd_counts["flash_attention_fwd"],
-            "train": train_counts["flash_attention_fwd"]},
+        **launches("flash_attention_fwd"),
         "max_abs_err": fwd_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t["library_ms"], "shape": [96, 512, 64, "bf16"],
@@ -897,15 +1613,27 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
-            "launches": train_counts[name],
-            "launches_by_path": {"forward": fwd_counts[name],
-                                 "train": train_counts[name]},
+            **launches(name),
             "max_abs_err": bwd_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library": "scaled_dot_product_attention backward, against "
                        "dq + dk/dv + delta",
             "shape": [bh, s, 64, "bf16"],
+        })
+    for name, line in (("matmul_stats", 512), ("matmul_epilogue", 574)):
+        sites = [dict(shape=[m, k, n, "bf16"], **epi_times[(name, m, k, n)])
+                 for m, k, n in EPI_SITES]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/conv_bn_epilogue.cu",
+            "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
+            **launches(name), "max_abs_err": epi_err[name],
+            **{k: sites[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "library": "torch.matmul of the same product, which computes "
+                       "neither the statistics nor the epilogue",
+            "shape": sites[0]["shape"], "sites": sites,
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,13 @@ explicit device they raise.
 
 Ported so far: the flagship transformer LM forward, loss and single-device
 train step (``models``), with flash attention's forward and backward as
-hand-written Hopper kernels (``ops/csrc/flash_attention_{fwd,bwd}.cu``).
+hand-written Hopper kernels (``ops/csrc/flash_attention_{fwd,bwd}.cu``); and
+the Gluon ResNet v1 train path (``gluon``, ``optimizer``, ``autograd``,
+``initializer``), whose fused 1x1-conv / batch-norm epilogue runs two more
+hand-written kernels (``ops/csrc/conv_bn_epilogue.cu``).
 """
-from . import models
+from . import autograd, config, gluon, initializer, models, optimizer
+from .context import Context, cpu, gpu
 
-__all__ = ["models"]
+__all__ = ["Context", "autograd", "config", "cpu", "gluon", "gpu",
+           "initializer", "models", "optimizer"]

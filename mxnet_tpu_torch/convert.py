@@ -15,7 +15,8 @@ import torch
 from .context import resolve_device
 from .models.transformer_lm import TransformerLMConfig, param_shapes
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "tensor_from_numpy",
+           "gluon_params_from_numpy"]
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -50,3 +51,23 @@ def params_from_numpy(np_params: Mapping[str, np.ndarray],
                              f"{shape}")
         out[name] = t.to(dev)
     return out
+
+
+def gluon_params_from_numpy(net, np_params: Mapping[str, np.ndarray]) -> None:
+    """Load the JAX net's ``collect_params()`` values, given as numpy
+    (``{name: p.data().asnumpy()}``), into the port's net by structural
+    name, each cast to the parameter's dtype on its device. The port's
+    parameters must have their shapes (given, or inferred by a first
+    call). Raises on a missing or extra name or a wrong shape."""
+    params = net.collect_params()
+    missing = sorted(set(params) - set(np_params))
+    extra = sorted(set(np_params) - set(params))
+    if missing or extra:
+        raise KeyError(f"param names differ from the net's: missing "
+                       f"{missing[:5]}, unexpected {extra[:5]}")
+    for name, p in params.items():
+        t = tensor_from_numpy(np_params[name])
+        if p.shape is None or tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, the net "
+                             f"wants {p.shape}")
+        p.set_data(t)

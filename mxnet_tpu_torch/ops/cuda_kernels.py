@@ -4,7 +4,10 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``. Each kernel here
 replaces one Pallas TPU kernel there; its CUDA source lives in ``csrc/`` and
 is built by :mod:`._build` at first use. So far: flash attention, forward
 (``csrc/flash_attention_fwd.cu``) and backward (``csrc/flash_attention_bwd.cu``,
-a dq kernel and a dk/dv kernel), joined in one ``torch.autograd.Function``.
+a dq kernel and a dk/dv kernel), joined in one ``torch.autograd.Function``;
+and the fused 1x1-conv / batch-norm epilogue pair (``csrc/conv_bn_epilogue.cu``:
+``matmul_stats`` and ``matmul_epilogue``), joined in
+:func:`conv1x1_bn_act_train`, the counterpart of ``pallas_kernels.py:485-728``.
 
 Dispatch is by the device of the tensors: a wrapper given CUDA tensors
 launches its kernel (or raises), and given CPU tensors runs the kernel's
@@ -28,11 +31,15 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd_reference",
            "flash_attention_bwd_reference", "flash_head_dim_ok",
-           "launch_counts", "reset_launch_counts"]
+           "matmul_stats", "matmul_stats_reference", "matmul_epilogue",
+           "matmul_epilogue_reference", "epilogue_fits",
+           "conv1x1_bn_act_train", "launch_counts", "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "flash_attention_bwd_dq": 0,
-                             "flash_attention_bwd_dkv": 0}
+                             "flash_attention_bwd_dkv": 0,
+                             "matmul_stats": 0,
+                             "matmul_epilogue": 0}
 
 # dtype codes of csrc/flash_attention_{fwd,bwd}.cu
 _FLASH_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -302,3 +309,277 @@ def flash_attention(q, k, v, causal: bool = True,
     else:
         out, _ = _fwd(q3, k3, v3, causal, sm_scale)
     return out.reshape(orig_shape)
+
+
+# ---------------------------------------------------------------------------
+# fused 1x1-conv / batch-norm epilogue (replaces pallas_kernels.
+# _mm_statsonly_kernel and _mm_epilogue_kernel)
+# ---------------------------------------------------------------------------
+
+# dtype codes of csrc/conv_bn_epilogue.cu
+_MM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def epilogue_fits(m: int, k: int, n: int, dtype) -> bool:
+    """Whether the matmul-stats and matmul-epilogue kernels take an (m, k) x
+    (k, n) product: fp32 or bf16, k and n multiples of 8 (rows are read as
+    16-byte vectors, columns stored in pairs), any m >= 1 (the kernels mask
+    the ragged last m-tile). A Hopper rule of the port's own: the TPU's
+    ``fused_blocks`` models Mosaic's (8, 128) tiling instead."""
+    return (dtype in _MM_DTYPES and m >= 1 and k >= 8 and n >= 8
+            and k % 8 == 0 and n % 8 == 0)
+
+
+def matmul_stats_reference(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the matmul-stats kernel: z = x @ w in fp32 (exact
+    products, fp32 sums), then per-column (Σz, Σz²). x (M, K), w (K, N)."""
+    z = x.float() @ w.float()
+    return z.sum(0), (z * z).sum(0)
+
+
+def matmul_epilogue_reference(x, w, scale, shift, residual=None,
+                              relu: bool = False) -> torch.Tensor:
+    """Plain version of the matmul-epilogue kernel: act((x @ w) · scale +
+    shift [+ residual]) in fp32, rounded once to x's dtype."""
+    out = (x.float() @ w.float()) * scale.float() + shift.float()
+    if residual is not None:
+        out = out + residual.float()
+    if relu:
+        out = torch.clamp_min(out, 0.0)
+    return out.to(x.dtype)
+
+
+def _check_mm(what: str, x, w, **vectors) -> None:
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"{what}: x (M, K) and w (K, N) expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    if w.dtype != x.dtype or not epilogue_fits(m, k, n, x.dtype):
+        raise ValueError(f"{what} takes fp32 or bf16 x and w of one dtype "
+                         f"with K and N multiples of 8, got ({m}, {k}) x "
+                         f"({k}, {n}) {x.dtype}/{w.dtype}")
+    for name, v in vectors.items():
+        if v is not None and tuple(v.shape) != (n,):
+            raise ValueError(f"{what}: {name} must be ({n},), got "
+                             f"{tuple(v.shape)}")
+    devs = {t.device for t in (x, w, *vectors.values()) if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: inputs on different devices {devs}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
+
+
+def _mm_fn(symbol: str, n_ptr: int, n_int: int):
+    """The C entry point ``symbol`` of ``csrc/conv_bn_epilogue.cu``:
+    ``n_ptr`` pointers, ``n_int`` ints, then the stream."""
+    fn = getattr(_build.load("conv_bn_epilogue"), symbol)
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+        fn.restype = ci
+    return fn
+
+
+def _kernel_operands(what: str, x, w, **more) -> torch.Tensor:
+    """Check what the CUDA kernels need and return w^T as the contiguous
+    (N, K) operand they read (a view where w is the transpose of a
+    contiguous (N, K) weight, as at every conv site)."""
+    wt = w.t()
+    if not wt.is_contiguous():
+        wt = wt.contiguous()
+    for name, t in (("x", x), ("w", wt), *more.items()):
+        if t is None:
+            continue
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs contiguous inputs; {name} "
+                             f"has strides {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs 16-byte aligned inputs; "
+                             f"{name} is not")
+    return wt
+
+
+def _run(what: str, symbol: str, ptrs, ints, device) -> None:
+    fn = _mm_fn(symbol, len(ptrs), len(ints))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*(0 if t is None else t.data_ptr() for t in ptrs), *ints,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {rc} "
+                           f"(M, N, K, ... = {ints})")
+
+
+def _launch_matmul_stats(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    wt = _kernel_operands("matmul_stats", x, w)
+    (m, k), n = x.shape, w.shape[1]
+    code = _MM_DTYPES[x.dtype]
+    bm = _build.load("conv_bn_epilogue").mxt_conv_bn_m_tile(code)
+    parts = torch.empty((2, -(-m // bm), n), dtype=torch.float32,
+                        device=x.device)
+    _run("matmul_stats", "mxt_matmul_stats", (x, wt, parts[0], parts[1]),
+         (m, n, k, code), x.device)
+    _LAUNCHES["matmul_stats"] += 1
+    # the second pass: the per-m-tile partials summed in a fixed order
+    s, ss = parts.sum(1)
+    return s, ss
+
+
+def matmul_stats(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-column ``(Σ(x@w), Σ(x@w)²)`` in fp32 without writing the
+    product, like ``pallas_kernels.matmul_stats``: x (M, K), w (K, N) ->
+    (s (N,), ss (N,)). CUDA tensors launch the kernel; CPU tensors run
+    :func:`matmul_stats_reference`."""
+    _check_mm("matmul_stats", x, w)
+    if x.device.type == "cuda":
+        return _launch_matmul_stats(x, w)
+    return matmul_stats_reference(x, w)
+
+
+def _launch_matmul_epilogue(x, w, scale, shift, residual, relu
+                            ) -> torch.Tensor:
+    if residual is not None and residual.dtype != x.dtype:
+        raise TypeError(f"matmul_epilogue kernel reads the residual in x's "
+                        f"dtype {x.dtype}, got {residual.dtype}")
+    scale = scale.float().contiguous()
+    shift = shift.float().contiguous()
+    wt = _kernel_operands("matmul_epilogue", x, w, scale=scale, shift=shift,
+                          residual=residual)
+    (m, k), n = x.shape, w.shape[1]
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    _run("matmul_epilogue", "mxt_matmul_epilogue",
+         (x, wt, scale, shift, residual, out),
+         (m, n, k, int(bool(relu)), _MM_DTYPES[x.dtype]), x.device)
+    _LAUNCHES["matmul_epilogue"] += 1
+    return out
+
+
+def matmul_epilogue(x, w, scale, shift, residual=None,
+                    relu: bool = False) -> torch.Tensor:
+    """``act((x @ w) · scale + shift [+ residual])`` in one pass, like
+    ``pallas_kernels.matmul_epilogue``: x (M, K), w (K, N), scale and shift
+    per-column fp32 (N,), residual (M, N) in x's dtype, added before the
+    relu. Returns (M, N) in x's dtype. CUDA tensors launch the kernel; CPU
+    tensors run :func:`matmul_epilogue_reference`."""
+    _check_mm("matmul_epilogue", x, w, scale=scale, shift=shift)
+    if residual is not None and (
+            tuple(residual.shape) != (x.shape[0], w.shape[1])
+            or residual.device != x.device):
+        raise ValueError(f"matmul_epilogue: residual must be "
+                         f"{(x.shape[0], w.shape[1])} on {x.device}, got "
+                         f"{tuple(residual.shape)} on {residual.device}")
+    if x.device.type == "cuda":
+        return _launch_matmul_epilogue(x, w, scale, shift, residual, relu)
+    return matmul_epilogue_reference(x, w, scale, shift, residual, relu)
+
+
+class _Conv1x1BnAct(torch.autograd.Function):
+    """1x1 NHWC conv + train-mode batch norm + optional residual + optional
+    ReLU, in place of the JAX package's ``_c1x1_act_train_for`` custom VJP.
+    The forward runs the two kernels; the backward recomputes z in fp32 with
+    one dense matmul and runs the batch-norm chain in plain torch, by the
+    reference's formulas. Like the reference, it has no double backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, gamma, beta, residual, bias, eps, relu,
+                fix_gamma):
+        n, h, wd, cin = x.shape
+        cout = w.shape[0]
+        m = n * h * wd
+        x2 = x.reshape(m, cin)
+        w2 = w.reshape(cout, cin).t()          # (K, N) view of OHWI memory
+        s, ss = matmul_stats(x2, w2)
+        mean = s / m
+        var = torch.clamp_min(ss / m - mean * mean, 0.0)
+        inv = torch.rsqrt(var + eps)
+        g = torch.ones_like(inv) if fix_gamma else gamma.float()
+        sc = inv * g
+        bi = beta.float() - mean * sc
+        r2 = None if residual is None else residual.reshape(m, cout)
+        out = matmul_epilogue(x2, w2, sc, bi, residual=r2, relu=relu)
+        ctx.save_for_backward(x, w, gamma, beta, residual, mean, var)
+        ctx.eps, ctx.relu, ctx.fix_gamma = eps, relu, fix_gamma
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        if bias is not None:
+            mean = mean + bias.float()
+        return out.reshape(n, h, wd, cout), mean, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout, gmean, gvar):
+        x, w, gamma, beta, r, mean, var = ctx.saved_tensors
+        n, h, wd, cin = x.shape
+        cout = w.shape[0]
+        m = n * h * wd
+        x2 = x.reshape(m, cin)
+        w2 = w.reshape(cout, cin)
+        # z recomputed in fp32 (the reference's preferred_element_type)
+        z = x2.float() @ w2.float().t()
+        inv = torch.rsqrt(var + ctx.eps)
+        g = torch.ones_like(inv) if ctx.fix_gamma else gamma.float()
+        sc = inv * g
+        ga = gout.reshape(m, cout)        # exact in fp32 wherever it enters
+        if ctx.relu:
+            a = torch.addcmul(beta.float() - mean * sc, z, sc)  # bn output
+            if r is not None:
+                a += r.reshape(m, cout)
+            ga = torch.where(a > 0, ga, 0.0)
+            del a
+        # the residual adds under the relu, so it shares ga
+        dr = None if r is None else ga.to(r.dtype).reshape(r.shape)
+        xhat = z.sub_(mean).mul_(inv)
+        dbeta_f = ga.sum(0, dtype=torch.float32)
+        dgamma_f = (ga * xhat).sum(0)
+        # the reference's
+        #   dz = sc (ga - dbeta/m - xhat dgamma/m)          (the BN chain)
+        #        + gmean/m + gvar 2 (z - mean)/m            (direct cotangents)
+        # regrouped per column, with z - mean = xhat / inv, so that the
+        # (m, cout) operands take two passes: dz = ga sc + c0 + xhat c1
+        c0 = (gmean.float() - sc * dbeta_f) / m
+        c1 = (2.0 * gvar.float() / inv - sc * dgamma_f) / m
+        dz = torch.addcmul(c0, ga, sc).addcmul_(xhat, c1)
+        del xhat
+        dz = dz.to(x.dtype)
+        dx = dz @ w2.to(dz.dtype)
+        dw = dz.t() @ x2
+        dgamma = (torch.zeros_like(gamma) if ctx.fix_gamma
+                  else dgamma_f.to(gamma.dtype))
+        # the bias reaches the returned mean only
+        dbias = None if ctx.bias_dtype is None else gmean.to(ctx.bias_dtype)
+        return (dx.reshape(x.shape).to(x.dtype),
+                dw.reshape(w.shape).to(w.dtype), dgamma,
+                dbeta_f.to(beta.dtype), dr, dbias, None, None, None)
+
+
+def conv1x1_bn_act_train(x, w, gamma, beta, residual=None, eps: float = 1e-5,
+                         relu: bool = True, fix_gamma: bool = False,
+                         bias=None) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """Differentiable fused 1x1 conv + train-mode batch norm + residual add
+    + ReLU, like ``pallas_kernels.conv1x1_bn_act_train``: x (N, H, W, Cin)
+    NHWC, w (Cout, 1, 1, Cin) OHWI, residual (N, H, W, Cout) added before
+    the relu -> ``(out, mean, var)``, the stats fp32. The conv output is
+    never written: :func:`matmul_stats` gives the batch statistics and
+    :func:`matmul_epilogue` the normalised output. The caller checks
+    :func:`epilogue_fits` first.
+
+    ``bias``, a conv bias, shifts z and the batch mean equally, so the
+    output does not depend on it: it is added to the returned mean only,
+    as the reference's op adds it, and its gradient is the mean's
+    cotangent. Passing it here keeps it in the graph, so a backward writes
+    that gradient (zero where only the running statistics read the mean)
+    as the reference's does."""
+    if x.dim() != 4 or w.dim() != 4 or w.shape[1:3] != (1, 1) or \
+            w.shape[3] != x.shape[3]:
+        raise ValueError(f"conv1x1_bn_act_train: x (N, H, W, Cin) and w "
+                         f"(Cout, 1, 1, Cin) expected, got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    if residual is not None and tuple(residual.shape) != \
+            (*x.shape[:3], w.shape[0]):
+        raise ValueError(f"conv1x1_bn_act_train: residual must be "
+                         f"{(*x.shape[:3], w.shape[0])}, got "
+                         f"{tuple(residual.shape)}")
+    return _Conv1x1BnAct.apply(x.contiguous(), w, gamma, beta, residual,
+                               bias, float(eps), bool(relu),
+                               bool(fix_gamma))

@@ -47,6 +47,16 @@ def test_scan_finds_every_port_module():
     assert {"mxnet_tpu_torch/__init__.py", "mxnet_tpu_torch/context.py",
             "mxnet_tpu_torch/ops/cuda_kernels.py",
             "mxnet_tpu_torch/models/transformer_lm.py",
+            "mxnet_tpu_torch/config.py", "mxnet_tpu_torch/autograd.py",
+            "mxnet_tpu_torch/initializer.py", "mxnet_tpu_torch/ops/nn.py",
+            "mxnet_tpu_torch/gluon/block.py",
+            "mxnet_tpu_torch/gluon/parameter.py",
+            "mxnet_tpu_torch/gluon/trainer.py",
+            "mxnet_tpu_torch/gluon/loss.py",
+            "mxnet_tpu_torch/gluon/nn/basic_layers.py",
+            "mxnet_tpu_torch/gluon/nn/conv_layers.py",
+            "mxnet_tpu_torch/gluon/model_zoo/vision/resnet.py",
+            "mxnet_tpu_torch/optimizer/sgd.py",
             "chip_smoke.py"} <= names
 
 
@@ -87,6 +97,18 @@ step = models.make_train_step(cfg, device="cpu")
 p, m, v, loss = step(p, m, v, np.zeros((1, 8), np.int64),
                      np.ones((1, 8), np.int64), 1)
 assert loss.dim() == 0
+from mxnet_tpu_torch import autograd, cpu, gluon
+net = gluon.model_zoo.get_model("resnet18_v1", classes=4, layout="NHWC",
+                                input_layout="NHWC", ctx=cpu())
+net.initialize()
+import torch
+net(torch.zeros((1, 32, 32, 3)))
+net.hybridize()
+trainer = gluon.Trainer(net.collect_params(), "sgd", {"momentum": 0.9})
+with autograd.record():
+    out = net(torch.zeros((2, 32, 32, 3)))
+autograd.backward(gluon.loss.SoftmaxCrossEntropyLoss()(out, torch.ones(2)))
+trainer.step(2)
 from mxnet_tpu_torch.ops import _build
 assert not _build._LIBS
 print("jax" in sys.modules, any(m == "mxnet_tpu" or m.startswith("mxnet_tpu.")
@@ -159,3 +181,22 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         models.make_train_step(cfg)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_gluon_entry_points_raise_without_cuda(no_cuda):
+    from mxnet_tpu_torch import cpu, gluon
+    from mxnet_tpu_torch.gluon.model_zoo import get_model
+
+    kw = dict(classes=10, layout="NHWC", input_layout="NHWC")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_model("resnet50_v1", **kw)
+    net = get_model("resnet18_v1", ctx=cpu(), **kw)
+    net.initialize()                    # the net's device: the CPU
+    assert net.collect_params()["output.bias"].device.type == "cpu"
+    dense = gluon.nn.Dense(4, in_units=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dense.initialize()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gluon.Trainer(dense.collect_params(), "sgd")
+    dense.initialize(ctx=cpu())
+    gluon.Trainer(dense.collect_params(), "sgd")
