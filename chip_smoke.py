@@ -271,6 +271,57 @@ FUSED_SLACK = 1e-5
 # gate is weak and the per-site one is the strong check of the backward.
 BF16_SLACK = 2.0 ** -8
 RESNET_TIMED_STEPS = 10
+# -- the fused conv + batch-norm path (MXNET_FUSED_CONV_BN) --
+CONV_BN_KERNELS = ("matmul_bn_stats", "convkxk_bn_stats")
+# every distinct 1x1 conv + BN site of the ResNet-50 step as (side of the
+# square output, K, N): RESNET_SITE_SHAPES without the epilogue's residual
+# and relu (stage 1's conv3 and downsample share one), 15 shapes for 36
+# sites; and every 3x3 site as (side, channels), 4 shapes for 16 sites
+C1X1_SITE_SHAPES = list(dict.fromkeys(
+    (side, k, n) for side, k, n, _res, _relu in RESNET_SITE_SHAPES))
+KXK_SITE_SHAPES = [(56 >> st, 64 << st) for st in range(4)]
+# convkxk_bn_stats vs plain beyond the sites, (x shape, Cout, kernel, pad):
+# M not a multiple of either m-tile, rectangular images, the s2d stem's
+# 4x4/pad 0, non-square kernels with unequal padding, a 5x5/pad 2, and
+# Cout not a multiple of the 64-wide n-tile
+KXK_CASES = [((3, 13, 11, 16), 24, (3, 3), (1, 1)),
+             ((2, 17, 9, 32), 64, (4, 4), (0, 0)),
+             ((1, 9, 23, 8), 16, (3, 5), (1, 2)),
+             ((5, 7, 7, 64), 8, (1, 3), (0, 1)),
+             ((2, 30, 30, 128), 136, (3, 3), (1, 1)),
+             ((1, 11, 10, 24), 40, (5, 5), (2, 2)),
+             ((7, 5, 6, 16), 72, (2, 2), (1, 0))]
+# the inputs' image border is scaled by BORDER, so that a tap read from the
+# wrong side of the padding, or a missing zero-fill, shows
+BORDER = 10.0
+# z of a statistics kernel vs its plain version: |Δz| <= STATS_RTOL x the
+# same product or conv of |x| and |w| (fp32 sums in another order) + Z_ULP
+# x |z|: in bf16 each side rounds its fp32 z once, so the two may land one
+# bf16 ulp (2^-7 relative at most) apart
+Z_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 0.0}
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """A fused route of the ResNet step: its knob, the resnet module's site
+    counter, and the kernel launches and site counts of one fused step
+    (36 1x1 and 16 3x3 conv + BN pairs; the stem is refused)."""
+    knob: str
+    sites: str
+    launches: dict
+    fused_sites: dict
+    unfused_sites: dict
+
+
+EPILOGUE = Route("MXNET_FUSED_EPILOGUE", "fused_epilogue_counts",
+                 {"matmul_stats": RESNET_SITES,
+                  "matmul_epilogue": RESNET_SITES},
+                 {"fused": RESNET_SITES, "refused": 0},
+                 {"fused": 0, "refused": 0})
+CONV_BN = Route("MXNET_FUSED_CONV_BN", "fused_conv_bn_counts",
+                {"matmul_bn_stats": 36, "convkxk_bn_stats": 16},
+                {"1x1": 36, "kxk": 16, "refused": 1},
+                {"1x1": 0, "kxk": 0, "refused": 0})
 
 
 def fail(msg: str) -> None:
@@ -984,22 +1035,27 @@ def epi_inputs(m, k, n, dtype, seed):
     return x, w, sc, sh, r
 
 
-def check_stats(ck, x, w, what) -> float:
-    """matmul_stats against its plain version; returns max |Δ| of (s, ss)."""
-    s, ss = ck.matmul_stats(x, w)
-    s2, ss2 = ck.matmul_stats(x, w)
-    z = x.float() @ w.float()
+def check_col_sums(what, name, s, ss, z) -> float:
+    """A kernel's per-column (Σz, Σz²) against those of the plain fp32 z;
+    returns max |Δ|."""
     rs, rss = z.sum(0), (z * z).sum(0)
-    if not (torch.equal(s, s2) and torch.equal(ss, ss2)):
-        fail(f"{what}: matmul_stats is not bitwise repeatable")
     err_s, err_ss = (s - rs).abs(), (ss - rss).abs()
     lim_s, lim_ss = STATS_RTOL * z.abs().sum(0), STATS_RTOL * rss
     if not (torch.isfinite(s).all() and torch.isfinite(ss).all()) or \
             bool((err_s > lim_s).any()) or bool((err_ss > lim_ss).any()):
-        fail(f"{what}: matmul_stats vs plain: max |Δs| {err_s.max():.3e}, "
+        fail(f"{what}: {name} vs plain: max |Δs| {err_s.max():.3e}, "
              f"max |Δss| {err_ss.max():.3e} (bound {STATS_RTOL} x sum of "
              f"magnitudes)")
     return max(err_s.max().item(), err_ss.max().item())
+
+
+def check_stats(ck, x, w, what) -> float:
+    """matmul_stats against its plain version; returns max |Δ| of (s, ss)."""
+    s, ss = ck.matmul_stats(x, w)
+    s2, ss2 = ck.matmul_stats(x, w)
+    if not (torch.equal(s, s2) and torch.equal(ss, ss2)):
+        fail(f"{what}: matmul_stats is not bitwise repeatable")
+    return check_col_sums(what, "matmul_stats", s, ss, x.float() @ w.float())
 
 
 def check_epilogue(ck, x, w, sc, sh, r, relu, what) -> float:
@@ -1066,13 +1122,150 @@ def epilogue_kernel_phase(ck) -> dict:
     torch.cuda.synchronize()
     return main_err
 
+# -- 5b. ---------------------------------------------------------------------
+
+
+def kxk_inputs(xshape, cout, kernel, dtype, seed):
+    """x standard normal with its image border scaled by BORDER, w (Cout,
+    kh, kw, Cin) of std 1/sqrt(kh kw Cin)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(*xshape, generator=g, device="cuda")
+    x[:, [0, -1]] *= BORDER
+    x[:, :, [0, -1]] *= BORDER
+    w = torch.randn(cout, *kernel, xshape[3], generator=g, device="cuda") \
+        / math.sqrt(kernel[0] * kernel[1] * xshape[3])
+    return x.to(dtype), w.to(dtype)
+
+
+def check_z(what, name, got, want, mag) -> float:
+    """z (or y) of a statistics kernel against its plain version's, within
+    STATS_RTOL x ``mag`` (the same product of |x| and |w|) + Z_ULP x |z|;
+    returns the max abs err."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {name} z {got.shape} {got.dtype}, want {want.shape} "
+             f"{want.dtype}")
+    err = (got.float() - want.float()).abs()
+    lim = STATS_RTOL * mag + Z_ULP[want.dtype] * want.float().abs()
+    if not torch.isfinite(got).all() or bool((err > lim).any()):
+        worst = int((err - lim).argmax())
+        fail(f"{what}: {name} z vs plain: max abs err {err.max():.3e}; "
+             f"worst against its bound at flat index {worst}: err "
+             f"{err.flatten()[worst]:.3e} > {lim.flatten()[worst]:.3e}")
+    return err.max().item()
+
+
+def check_bn_stats(ck, x, w, relu, what) -> float:
+    """matmul_bn_stats against its plain version: y within check_z's bound,
+    the sums within STATS_RTOL, all bitwise repeatable; returns max |Δy|."""
+    out = ck.matmul_bn_stats(x, w, relu)
+    again = ck.matmul_bn_stats(x, w, relu)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail(f"{what}: matmul_bn_stats is not bitwise repeatable")
+    y, s, ss = out
+    z = x.float() @ w.float()
+    if relu:
+        z = torch.clamp_min(z, 0.0)
+    check_col_sums(what, "matmul_bn_stats", s, ss, z)
+    return check_z(what, "matmul_bn_stats", y,
+                   ck.matmul_bn_stats_reference(x, w, relu)[0],
+                   x.float().abs() @ w.float().abs())
+
+
+def check_convkxk(ck, x, w, pad, what) -> float:
+    """convkxk_bn_stats against its plain version: z within check_z's
+    bound; mean within STATS_RTOL Σ|z| / M and var within STATS_RTOL Σz² /
+    M + 2 |mean| Δmean + Δmean² (the error of E[z²] - E[z]² when the sums
+    are within STATS_RTOL); all bitwise repeatable. Returns max |Δz|."""
+    out = ck.convkxk_bn_stats(x, w, pad)
+    again = ck.convkxk_bn_stats(x, w, pad)
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail(f"{what}: convkxk_bn_stats is not bitwise repeatable")
+    z, mean, var = out
+    rz, rmean, rvar = ck.convkxk_bn_stats_reference(x, w, pad)
+    z32 = ck.convkxk_bn_stats_reference(x.float(), w.float(), pad)[0]
+    z32 = z32.reshape(-1, w.shape[0])
+    m = z32.shape[0]
+    dmean = STATS_RTOL * z32.abs().sum(0) / m
+    dvar = STATS_RTOL * (z32 * z32).sum(0) / m + 2 * rmean.abs() * dmean \
+        + dmean * dmean
+    if not (torch.isfinite(mean).all() and torch.isfinite(var).all()) or \
+            bool(((mean - rmean).abs() > dmean).any()) or \
+            bool(((var - rvar).abs() > dvar).any()):
+        fail(f"{what}: convkxk_bn_stats mean/var vs plain: max |Δmean| "
+             f"{(mean - rmean).abs().max():.3e}, max |Δvar| "
+             f"{(var - rvar).abs().max():.3e}")
+    mag = ck.convkxk_bn_stats_reference(x.float().abs(), w.float().abs(),
+                                        pad)[0]
+    return check_z(what, "convkxk_bn_stats", z, rz, mag)
+
+
+def conv_bn_kernel_phase(ck) -> dict:
+    """Phase 5b; returns the max abs err of each kernel's z at the bf16
+    site shapes."""
+    first = lambda t: t[0]
+    seed = 2000
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        worst_y = worst_z = (-1.0, None)
+        for m in EPI_MS:
+            for k in EPI_KS:
+                for n in EPI_NS:
+                    seed += 1
+                    x, w = epi_inputs(m, k, n, dtype, seed)[:2]
+                    for relu in (False, True):
+                        worst_y = max(worst_y, (check_bn_stats(
+                            ck, x, w, relu, f"({m}, {k}, {n}) relu {relu} "
+                            f"{dt}"), (m, k, n, relu)), key=first)
+        for i, (xshape, cout, kernel, pad) in enumerate(KXK_CASES):
+            x, w = kxk_inputs(xshape, cout, kernel, dtype, seed=2100 + i)
+            worst_z = max(worst_z, (check_convkxk(
+                ck, x, w, pad, f"{xshape} -> {cout}, kernel {kernel}, pad "
+                f"{pad}, {dt}"), (xshape, cout, kernel, pad)), key=first)
+        print(f"conv + BN statistics kernels vs plain, {dt}: matmul_bn_stats"
+              f" at M {EPI_MS} x K {EPI_KS} x N {EPI_NS}, with and without "
+              f"the relu, largest y abs err {worst_y[0]:.3e} at (M, K, N, "
+              f"relu) {worst_y[1]}; convkxk_bn_stats at {len(KXK_CASES)} "
+              f"cases (border x {BORDER}), largest z abs err "
+              f"{worst_z[0]:.3e} at {worst_z[1]}; statistics within bounds "
+              f"and bitwise repeatable  ok")
+    main_err = {k: 0.0 for k in CONV_BN_KERNELS}
+    for dtype, batch in ((torch.bfloat16, RESNET_BATCH),
+                         (torch.float32, FP32_BATCH)):
+        dt = str(dtype)[6:]
+        worst = {name: (-1.0, None) for name in CONV_BN_KERNELS}
+        for i, (side, k, n) in enumerate(C1X1_SITE_SHAPES):
+            m = batch * side * side
+            x, w = epi_inputs(m, k, n, dtype, seed=2200 + i)[:2]
+            err = check_bn_stats(ck, x, w, False, f"site ({m}, {k}, {n}) "
+                                 f"{dt}")
+            worst["matmul_bn_stats"] = max(worst["matmul_bn_stats"],
+                                           (err, (m, k, n)), key=first)
+        for i, (side, c) in enumerate(KXK_SITE_SHAPES):
+            xshape = (batch, side, side, c)
+            x, w = kxk_inputs(xshape, c, (3, 3), dtype, seed=2300 + i)
+            err = check_convkxk(ck, x, w, (1, 1), f"site {xshape} -> {c} "
+                                f"{dt}")
+            worst["convkxk_bn_stats"] = max(worst["convkxk_bn_stats"],
+                                            (err, xshape), key=first)
+        if dtype is torch.bfloat16:
+            main_err = {name: e for name, (e, _) in worst.items()}
+        print(f"conv + BN statistics kernels vs plain at all "
+              f"{len(C1X1_SITE_SHAPES)} 1x1 and {len(KXK_SITE_SHAPES)} 3x3 "
+              f"site shapes of the ResNet-50 step, {dt}, batch {batch} "
+              f"(3x3 inputs border x {BORDER}): all within bounds; largest "
+              f"abs err " + ", ".join(f"{name} {e:.3e} at {at}"
+                                      for name, (e, at) in worst.items())
+              + "  ok")
+    torch.cuda.synchronize()
+    return main_err
+
 
 # -- 6. ----------------------------------------------------------------------
 
 
-def set_fused(config, mode: int) -> None:
-    os.environ["MXNET_FUSED_EPILOGUE"] = str(mode)
-    config.refresh("MXNET_FUSED_EPILOGUE")
+def set_fused(config, mode: int, route=EPILOGUE) -> None:
+    os.environ[route.knob] = str(mode)
+    config.refresh(route.knob)
 
 
 def resnet50(mx, probe):
@@ -1115,14 +1308,15 @@ class ResNetStep:
         return logits, loss
 
 
-def run_resnet_steps(ck, resnet, step, n):
+def run_resnet_steps(ck, resnet, step, n, route=EPILOGUE):
     """n steps; returns (mean losses, per-step kernel launches, per-step
-    fused-site counts)."""
+    counts of the route's sites)."""
+    sites_of = getattr(resnet, route.sites)
     losses, launches, sites = [], [], []
     for _ in range(n):
-        c0, s0 = ck.launch_counts(), resnet.fused_epilogue_counts()
+        c0, s0 = ck.launch_counts(), sites_of()
         logits, loss = step()
-        c1, s1 = ck.launch_counts(), resnet.fused_epilogue_counts()
+        c1, s1 = ck.launch_counts(), sites_of()
         if logits.shape != (step.x.shape[0], 1000) or \
                 logits.dtype != step.x.dtype:
             fail(f"resnet logits {logits.shape} {logits.dtype}")
@@ -1169,12 +1363,11 @@ def resnet_train_path(mx, ck, resnet, config, card_line):
     return counts, net, step
 
 
-def check_sites(what, mode, launches, sites) -> None:
-    """A fused run (mode 1) launches each epilogue kernel once per site and
-    refuses none; an unfused run launches none."""
-    want = RESNET_SITES if mode else 0
-    if launches != ({k: want for k in EPI_KERNELS} if mode else {}) or \
-            sites != {"fused": want, "refused": 0}:
+def check_sites(what, mode, launches, sites, route=EPILOGUE) -> None:
+    """A fused run (mode 1) launches the route's kernels once per site and
+    counts its sites; an unfused run launches none."""
+    if launches != (route.launches if mode else {}) or \
+            sites != (route.fused_sites if mode else route.unfused_sites):
         fail(f"{what}: launches {launches}, sites {sites}")
 
 
@@ -1188,7 +1381,8 @@ def running_stats(net):
             for k, p in net.collect_params().items() if "running" in k}
 
 
-def resnet_fused_vs_unfused(mx, ck, resnet, config) -> None:
+def resnet_fused_vs_unfused(mx, ck, resnet, config, route=EPILOGUE
+                            ) -> None:
     """fp32, batch FP32_BATCH: FP32_STEPS steps fused, then the same steps
     from the same initial weights unfused, and unfused with the two-pass BN
     variance (the yardstick of how far rounding alone moves them)."""
@@ -1199,23 +1393,23 @@ def resnet_fused_vs_unfused(mx, ck, resnet, config) -> None:
     res = {}
     for what, mode, two_pass in (("fused", 1, False), ("unfused", 0, False),
                                  ("unfused two-pass", 0, True)):
-        set_fused(config, mode)
+        set_fused(config, mode, route)
         set_two_pass(config, two_pass)
         net.load_dict(init)
         net.zero_grad()
         step = ResNetStep(mx, net, x, y)
         step.trainer.set_learning_rate(FP32_LR)
         losses, launches, sites = run_resnet_steps(ck, resnet, step,
-                                                   FP32_STEPS)
+                                                   FP32_STEPS, route)
         for got, st in zip(launches, sites):
-            check_sites(f"fp32 resnet, {what}", mode, got, st)
+            check_sites(f"fp32 resnet, {what}", mode, got, st, route)
         res[what] = (losses, running_stats(net))
     set_two_pass(config, False)
-    set_fused(config, 1)
+    set_fused(config, 1, route)
     (fl, fs), (ul, us), (tl, ts) = (res["fused"], res["unfused"],
                                     res["unfused two-pass"])
     print(f"resnet fp32, batch {FP32_BATCH}, {FP32_STEPS} steps, lr "
-          f"{FP32_LR}: losses " + "; ".join(
+          f"{FP32_LR}, {route.knob}: losses " + "; ".join(
               f"{what} " + " ".join(f"{v:.6f}" for v in res[what][0])
               for what in res))
     if not abs(fl[0] - ul[0]) <= FIRST_LOSS_RTOL * abs(ul[0]):
@@ -1236,7 +1430,8 @@ def resnet_fused_vs_unfused(mx, ck, resnet, config) -> None:
             fail(f"fused vs unfused fp32 {name}: max |Δ| {err:.3e} > "
                  f"{lim:.3e} ({FUSED_SPREAD} x the two-pass spread "
                  f"{spread_:.3e})")
-    print(f"resnet fp32 fused vs unfused: losses and running statistics "
+    print(f"resnet fp32 {route.knob} fused vs unfused: losses and running "
+          f"statistics "
           f"within {FUSED_SPREAD} x the two-pass spread; the closest call "
           f"at {worst[0]:.3f} of its bound ({worst[1]})  ok")
 
@@ -1256,13 +1451,14 @@ def bn_fed_bias(params, name) -> bool:
         f"{head}.{int(idx) + 1}.gamma" in params
 
 
-def resnet_step1_grads(mx, ck, resnet, config) -> None:
-    """Step-1 gradients of every leaf at batch RESNET_BATCH, before any
+def resnet_step1_grads(mx, ck, resnet, config, route=EPILOGUE,
+                       batch=RESNET_BATCH) -> None:
+    """Step-1 gradients of every leaf at ``batch``, before any
     update, from the same bf16-valued weights and batch: fp32 fused vs
     unfused, held per leaf to FUSED_SPREAD x the distance between the two
     unfused formulations (single- and two-pass BN variance); bf16 fused and
     unfused, each against the fp32 unfused gradients (see BF16_SLACK)."""
-    x16, y = image_batch(RESNET_BATCH, torch.bfloat16)
+    x16, y = image_batch(batch, torch.bfloat16)
     net = resnet50(mx, x16[:2].float())
     params = net.collect_params()
     init = {k: p.data().to(torch.bfloat16) for k, p in params.items()}
@@ -1276,22 +1472,23 @@ def resnet_step1_grads(mx, ck, resnet, config) -> None:
         dtype = torch.float32 if what.startswith("fp32") else torch.bfloat16
         if dtype is torch.bfloat16 and mode:
             net.cast("bfloat16")
-        set_fused(config, mode)
+        set_fused(config, mode, route)
         set_two_pass(config, two_pass)
         net.load_dict(init)
         net.zero_grad()
-        c0, s0 = ck.launch_counts(), resnet.fused_epilogue_counts()
+        sites_of = getattr(resnet, route.sites)
+        c0, s0 = ck.launch_counts(), sites_of()
         with mx.autograd.record():
             loss = loss_fn(net(x16.to(dtype)), y)
         mx.autograd.backward(loss)
-        c1, s1 = ck.launch_counts(), resnet.fused_epilogue_counts()
+        c1, s1 = ck.launch_counts(), sites_of()
         check_sites(f"step-1 gradients, {what}", mode,
                     {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]},
-                    {k: s1[k] - s0[k] for k in s1})
+                    {k: s1[k] - s0[k] for k in s1}, route)
         grads[what] = {k: p.grad().float().clone()
                        for k, p in params.items() if p.grad_req != "null"}
     set_two_pass(config, False)
-    set_fused(config, 1)
+    set_fused(config, 1, route)
     ref = grads["fp32 unfused"]
     biases = [k for k in ref if bn_fed_bias(params, k)]
     for what in ("fp32 fused", "bf16 fused"):
@@ -1328,7 +1525,8 @@ def resnet_step1_grads(mx, ck, resnet, config) -> None:
            for what in ("bf16 fused", "bf16 two-pass")}
     bias_g = {what: max(grads[what][k].abs().max().item() for k in biases)
               for what in ("fp32 unfused", "bf16 unfused")}
-    print(f"resnet step-1 gradients, batch {RESNET_BATCH}, {len(rows)} "
+    print(f"resnet step-1 gradients, {route.knob}, batch {batch}, "
+          f"{len(rows)} "
           f"leaves (and {len(biases)} biases before a BN, 0 when fused; "
           f"unfused max |g| fp32 {bias_g['fp32 unfused']:.3e}, bf16 "
           f"{bias_g['bf16 unfused']:.3e}): median relative L2 from fp32 unfused " + ", ".join(
@@ -1503,30 +1701,246 @@ def epilogue_timings(ck, card_line) -> dict:
     return out
 
 
-def resnet_timings(resnet, config, step, card_line) -> None:
+def resnet_timings(resnet, config, step, card_line,
+                   route=EPILOGUE) -> None:
     """The bf16 step fused and unfused: 3 warm-up steps each, then
     RESNET_TIMED_STEPS rounds of one step each, the order alternating
     between rounds; median and range of each. Then a profile of each."""
     for mode in (1, 0):
-        set_fused(config, mode)
+        set_fused(config, mode, route)
         host_ms(step, n=0)
     times = {1: [], 0: []}
     for rnd in range(RESNET_TIMED_STEPS):
         for mode in ((1, 0) if rnd % 2 == 0 else (0, 1)):
-            set_fused(config, mode)
+            set_fused(config, mode, route)
             times[mode] += host_ms(step, n=1, warmup=0)
     for mode in (1, 0):
         med = statistics.median(times[mode])
         print(f"resnet-50 bf16 train step, batch {RESNET_BATCH}, "
-              f"MXNET_FUSED_EPILOGUE={mode}: median {med:.3f} ms over "
+              f"{route.knob}={mode}: median {med:.3f} ms over "
               f"{RESNET_TIMED_STEPS} interleaved steps after 3 warm-up (min "
               f"{min(times[mode]):.3f}, max {max(times[mode]):.3f}), "
               f"{RESNET_BATCH / med * 1e3:.1f} img/s [{card_line}]")
     for mode in (1, 0):
-        set_fused(config, mode)
+        set_fused(config, mode, route)
         profile(step, PROFILE_STEPS, f"resnet-50 bf16 train step, batch "
-                f"{RESNET_BATCH}, MXNET_FUSED_EPILOGUE={mode}", card_line)
+                f"{RESNET_BATCH}, {route.knob}={mode}", card_line)
+    set_fused(config, 1, route)
+
+
+# -- 6c-6f. ------------------------------------------------------------------
+
+
+def resnet_conv_bn_path(mx, ck, resnet, config, nn_ops, card_line):
+    """Phases 6c-6f, with MXNET_FUSED_EPILOGUE=0 and MXNET_FUSED_CONV_BN=1;
+    returns (launch counts of the bf16 main run, its step)."""
+    set_fused(config, 0)
+    set_fused(config, 1, CONV_BN)
+    x, y = image_batch(RESNET_BATCH, torch.bfloat16)
+    net = resnet50(mx, x[:2].float())
+    net.cast("bfloat16")
+    net.hybridize()
+    step = ResNetStep(mx, net, x, y)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    resnet.reset_fused_conv_bn_counts()
+    losses, launches, sites = run_resnet_steps(ck, resnet, step,
+                                               RESNET_STEPS, CONV_BN)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    print(f"resnet conv + BN path (ResNet-50 v1, MXNET_FUSED_CONV_BN=1, "
+          f"bf16, batch {RESNET_BATCH}, {RESNET_IMAGE}², {RESNET_STEPS} "
+          f"SGD-momentum steps, lr {RESNET_OPT['learning_rate']}): losses "
+          + " ".join(f"{v:.6f}" for v in losses) + f"; launch counts "
+          f"{counts}; per step {launches[0]}, sites {sites[0]}")
+    for i, (got, st) in enumerate(zip(launches, sites)):
+        check_sites(f"resnet conv + BN step {i + 1}", 1, got, st, CONV_BN)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"resnet conv + BN bf16: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"resnet conv + BN bf16: loss did not fall over {RESNET_STEPS} "
+             f"steps: {losses}")
+    resnet_fused_vs_unfused(mx, ck, resnet, config, CONV_BN)
+    resnet_step1_grads(mx, ck, resnet, config, CONV_BN, batch=FP32_BATCH)
+    conv_bn_site_backward_phase(nn_ops)
+    both_knobs_step(ck, resnet, config, step)
+    return counts, step
+
+
+def conv_bn_site_backward_phase(nn_ops) -> None:
+    """The fused conv + BN ops' backward (kernel forward, the reference's
+    backward) at every distinct 1x1 and 3x3 site shape of the batch-128
+    step, bf16 and fp32: dx, dw, dgamma, dbeta of the fused op and of the
+    unfused layers (the port's convolution and batch_norm) in that dtype,
+    each against a plain fp64 conv + batch norm on the same values and
+    cotangent; the fused distance within FUSED_SPREAD x the unfused one
+    plus the dtype's slack, as phase 6b holds the epilogue op."""
+    slack = {torch.bfloat16: BF16_SLACK, torch.float32: FUSED_SLACK}
+    worst = {dtype: (0.0, None) for dtype in slack}
+    sites = [((1, 1), side, k, n) for side, k, n in C1X1_SITE_SHAPES] + \
+        [((3, 3), side, c, c) for side, c in KXK_SITE_SHAPES]
+    for i, (kernel, side, k, n) in enumerate(sites):
+        g = torch.Generator(device="cuda").manual_seed(950 + i)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g, device="cuda")
+                    * scale).to(torch.bfloat16)
+
+        pad = (kernel[0] // 2, kernel[1] // 2)
+        x = torch.relu(rnd(RESNET_BATCH, side, side, k))
+        w = rnd(n, *kernel, k, scale=(k * kernel[0] * kernel[1]) ** -0.5)
+        gamma = (torch.rand(n, generator=g, device="cuda") + 0.5).to(
+            torch.bfloat16)
+        beta = rnd(n)
+        gout = rnd(RESNET_BATCH, side, side, n)
+        stats = (torch.zeros(n, device="cuda"), torch.ones(n, device="cuda"))
+
+        def fused(x, w, gamma, beta):
+            if kernel == (1, 1):
+                return nn_ops.fused_conv1x1_bn(x, w, None, gamma, beta,
+                                               eps=BN_EPS)[0]
+            return nn_ops.fused_convkxk_bn(x, w, None, gamma, beta, pad=pad,
+                                           eps=BN_EPS)[0]
+
+        def unfused(x, w, gamma, beta):
+            z = nn_ops.convolution(x, w, kernel=kernel, pad=pad,
+                                   layout="NHWC")
+            return nn_ops.batch_norm(z, gamma, beta, *stats, eps=BN_EPS,
+                                     fix_gamma=False, axis=3,
+                                     training=True)[0]
+
+        def exact(x, w, gamma, beta):
+            z = nn_ops.convolution(x, w, kernel=kernel, pad=pad,
+                                   layout="NHWC")
+            mean = z.mean((0, 1, 2))
+            var = (z - mean).square().mean((0, 1, 2))
+            return (z - mean) * torch.rsqrt(var + BN_EPS) * gamma + beta
+
+        def grads(fn, dtype):
+            args = [t.detach().to(dtype).requires_grad_()
+                    for t in (x, w, gamma, beta)]
+            return torch.autograd.grad(fn(*args), args, gout.to(dtype))
+
+        ref = grads(exact, torch.float64)
+        for dtype in slack:
+            got = zip(("dx", "dw", "dgamma", "dbeta"), ref,
+                      grads(fused, dtype), grads(unfused, dtype))
+            for name, want, fu, un in got:
+                d_f, d_u = rel(fu, want), rel(un, want)
+                lim = FUSED_SPREAD * d_u + slack[dtype]
+                what = (f"{name} at {kernel[0]}x{kernel[1]} site "
+                        f"({RESNET_BATCH}, {side}, {side}, {k}) -> {n}")
+                worst[dtype] = max(worst[dtype], (d_f / lim, what),
+                                   key=lambda t: t[0])
+                if not d_f <= lim:
+                    fail(f"fused conv + BN {str(dtype)[6:]} backward, {what}"
+                         f": relative L2 from fp64 {d_f:.3e} > {lim:.3e} "
+                         f"(unfused {d_u:.3e})")
+    for dtype, (ratio, what) in worst.items():
+        print(f"fused conv + BN {str(dtype)[6:]} backward vs the unfused "
+              f"layers at all {len(sites)} site shapes, batch "
+              f"{RESNET_BATCH}: relative L2 from fp64 within {FUSED_SPREAD} "
+              f"x the unfused one + {slack[dtype]}; the closest call at "
+              f"{ratio:.3f} of its bound ({what})  ok")
+
+
+def both_knobs_step(ck, resnet, config, step) -> None:
+    """One bf16 step of ``step`` with MXNET_FUSED_EPILOGUE=1 as well: the
+    epilogue takes the 36 1x1 sites (36 + 36 launches of its two kernels),
+    the 16 3x3 sites go through convkxk_bn_stats, matmul_bn_stats launches
+    never. Leaves the epilogue off."""
     set_fused(config, 1)
+    c0, e0 = ck.launch_counts(), resnet.fused_epilogue_counts()
+    b0 = resnet.fused_conv_bn_counts()
+    _logits, loss = step()
+    torch.cuda.synchronize()
+    c1, e1 = ck.launch_counts(), resnet.fused_epilogue_counts()
+    b1 = resnet.fused_conv_bn_counts()
+    set_fused(config, 0)
+    launches = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    epi = {k: e1[k] - e0[k] for k in e1}
+    cbn = {k: b1[k] - b0[k] for k in b1}
+    want = dict(EPILOGUE.launches, convkxk_bn_stats=16)
+    want_cbn = dict(CONV_BN.fused_sites, **{"1x1": 0})
+    print(f"resnet step with both MXNET_FUSED_EPILOGUE=1 and "
+          f"MXNET_FUSED_CONV_BN=1: launches {launches}, epilogue sites "
+          f"{epi}, conv + BN sites {cbn}, loss "
+          f"{loss.float().mean().item():.6f}")
+    if launches != want or epi != EPILOGUE.fused_sites or cbn != want_cbn:
+        fail(f"both knobs: want launches {want}, epilogue sites "
+             f"{EPILOGUE.fused_sites}, conv + BN sites {want_cbn}")
+    if not torch.isfinite(loss).all():
+        fail("both knobs: non-finite loss")
+
+
+# -- 7b. ---------------------------------------------------------------------
+
+
+def conv_bn_bound_ms(nbytes, ops):
+    """Least time for bf16 work: nbytes over HBM, ops over the tensor
+    cores."""
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[torch.bfloat16]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def conv_bn_timings(ck, card_line) -> dict:
+    """B4 at the stage-1 and stage-4 conv3 sites and B8 at the stage-1 and
+    stage-4 3x3 sites (bf16, batch 128), their plain versions and the
+    library call of the bare conv (``torch.matmul`` / cuDNN ``F.conv2d`` on
+    channels_last views), which computes no statistics, each as CUDA-graph
+    replays beside its bound: x and w read once, z (or y) written once, 2
+    fp32 sums per channel; 2 M K N tensor-core operations."""
+    import torch.nn.functional as F
+    out = {}
+    for m, k, n in EPI_SITES:
+        x, w = epi_inputs(m, k, n, torch.bfloat16, seed=720)[:2]
+        times = time_ms({
+            "matmul_bn_stats": lambda: ck.matmul_bn_stats(x, w),
+            "plain": lambda: ck.matmul_bn_stats_reference(x, w),
+            "torch.matmul": lambda: torch.matmul(x, w),
+        })
+        bound, bound_by = conv_bn_bound_ms(
+            2 * (m * k + k * n + m * n) + 8 * n, 2 * m * k * n)
+        out[("matmul_bn_stats", (m, k, n))] = dict(
+            shape=[m, k, n, "bf16"], ms=statistics.median(
+                times["matmul_bn_stats"]),
+            plain_ms=statistics.median(times["plain"]),
+            library_ms=statistics.median(times["torch.matmul"]),
+            bound_ms=bound, bound_by=bound_by)
+        print(f"matmul_bn_stats ({m}, {k}, {n}) bf16, {TIMING_ROUNDS} "
+              f"interleaved rounds of a CUDA graph of {TIMING_ITERS} calls: "
+              f"kernel {spread(times['matmul_bn_stats'])}, plain "
+              f"{spread(times['plain'])}, torch.matmul of the product (no "
+              f"statistics) {spread(times['torch.matmul'])}; bound "
+              f"{bound:.5f} ms ({bound_by}) [{card_line}]")
+    for side, c in (KXK_SITE_SHAPES[0], KXK_SITE_SHAPES[-1]):
+        xshape = (RESNET_BATCH, side, side, c)
+        x, w = kxk_inputs(xshape, c, (3, 3), torch.bfloat16, seed=730)
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+        times = time_ms({
+            "convkxk_bn_stats": lambda: ck.convkxk_bn_stats(x, w, (1, 1)),
+            "plain": lambda: ck.convkxk_bn_stats_reference(x, w, (1, 1)),
+            "F.conv2d": lambda: F.conv2d(xc, wc, padding=1),
+        })
+        m, kk = RESNET_BATCH * side * side, 9 * c
+        bound, bound_by = conv_bn_bound_ms(
+            2 * (2 * x.numel() + w.numel()) + 8 * c, 2 * m * kk * c)
+        out[("convkxk_bn_stats", xshape)] = dict(
+            shape=[*xshape, c, "bf16"], ms=statistics.median(
+                times["convkxk_bn_stats"]),
+            plain_ms=statistics.median(times["plain"]),
+            library_ms=statistics.median(times["F.conv2d"]),
+            bound_ms=bound, bound_by=bound_by)
+        print(f"convkxk_bn_stats {xshape} -> {c}, 3x3 pad 1, bf16, "
+              f"{TIMING_ROUNDS} interleaved rounds of a CUDA graph of "
+              f"{TIMING_ITERS} calls: kernel "
+              f"{spread(times['convkxk_bn_stats'])}, plain "
+              f"{spread(times['plain'])}, cuDNN F.conv2d on channels_last "
+              f"(no statistics) {spread(times['F.conv2d'])}; bound "
+              f"{bound:.5f} ms ({bound_by}) [{card_line}]")
+    return out
 
 
 def port_gluon():
@@ -1557,6 +1971,7 @@ def main() -> int:
     fwd_err = fwd_kernel_phase(ck)
     bwd_err = bwd_kernel_phase(ck)
     epi_err = epilogue_kernel_phase(ck)
+    cbn_err = conv_bn_kernel_phase(ck)
     print(f"launch counts after the comparisons: {ck.launch_counts()}")
 
     # -- the LM paths -------------------------------------------------------
@@ -1585,10 +2000,18 @@ def main() -> int:
     site_backward_phase(ck, nn_ops)
     epi_times = epilogue_timings(ck, card_line)
     resnet_timings(resnet, config, step, card_line)
+    del _net, step
+    torch.cuda.empty_cache()
+
+    # -- the fused conv + batch-norm path ------------------------------------
+    cbn_counts, step = resnet_conv_bn_path(mx, ck, resnet, config, nn_ops,
+                                           card_line)
+    cbn_times = conv_bn_timings(ck, card_line)
+    resnet_timings(resnet, config, step, card_line, CONV_BN)
 
     # -- 8. results ---------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
-             "resnet_train": resnet_counts}
+             "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
@@ -1633,6 +2056,22 @@ def main() -> int:
                                         "bound_by", "library_ms")},
             "library": "torch.matmul of the same product, which computes "
                        "neither the statistics nor the epilogue",
+            "shape": sites[0]["shape"], "sites": sites,
+        })
+    for name, line, src in (("matmul_bn_stats", 316, "conv_bn_epilogue"),
+                            ("convkxk_bn_stats", 880, "convkxk_bn_stats")):
+        sites = [t for (kname, _), t in cbn_times.items() if kname == name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mxnet_tpu_torch/ops/csrc/{src}.cu",
+            "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
+            **launches(name), "max_abs_err": cbn_err[name],
+            **{k: sites[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "library": ("torch.matmul of the same product"
+                        if name == "matmul_bn_stats" else
+                        "cuDNN F.conv2d of the same conv")
+            + ", which computes no statistics",
             "shape": sites[0]["shape"], "sites": sites,
         })
     print(json.dumps({"kernels": kernels}))

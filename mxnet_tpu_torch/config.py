@@ -27,6 +27,17 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "through conv1x1_bn_act_train) under hybridized training: 0 = "
            "off, 1 = on where the input lies on a CUDA device, 2 = also on "
            "the CPU through the kernels' plain versions (tests)."),
+    EnvVar("MXNET_FUSED_CONV_BN", int, 0,
+           "Fusion of conv + BatchNorm(training) pairs into the conv + "
+           "batch-statistics kernels (ops/cuda_kernels.py matmul_bn_stats "
+           "for 1x1 convs at any stride, convkxk_bn_stats for KxK stride-1 "
+           "convs) under hybridized training: 0 = off, 1 = on where the "
+           "input lies on a CUDA device, 2 = also on the CPU through the "
+           "kernels' plain versions (tests)."),
+    EnvVar("MXNET_FUSED_CONV_BN_KINDS", str, "1x1,kxk",
+           "Which conv + BatchNorm fusion kinds MXNET_FUSED_CONV_BN admits: "
+           "a comma-separated set of '1x1' (any-stride 1x1) and 'kxk' "
+           "(KxK stride-1). Another kind raises ValueError."),
     EnvVar("MXNET_BN_TWO_PASS_VAR", bool, False,
            "BatchNorm batch variance by the two-pass shifted formula instead "
            "of the single-pass E[x^2] - E[x]^2 (one extra pass; use when "

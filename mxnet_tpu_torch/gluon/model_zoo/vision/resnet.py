@@ -14,6 +14,14 @@ against the port's own rule (``cuda_kernels.epilogue_fits``) and runs the
 plain layers where it does not fit, so the block computes the same
 function either way. Mode 1 fuses where the input lies on a CUDA device,
 mode 2 also on the CPU (through the kernels' plain versions), mode 0 never.
+
+The fused conv + batch-norm statistics (``MXNET_FUSED_CONV_BN``,
+``gluon/nn/basic_layers.py``): every conv + BN pair of the net's
+``HybridSequential``s goes through ``nn.fused_conv_bn``, and so does the
+bottleneck's 3x3 pair in the fused-epilogue branch, where the reference
+fuses it too. In ResNet-50 v1 that is 36 1x1 and 16 3x3 sites; the
+7x7/stride-2 stem is refused. With both knobs on, the epilogue takes the
+1x1 sites and the 3x3 sites go through the statistics kernel.
 """
 from __future__ import annotations
 
@@ -27,11 +35,14 @@ from ....ops import cuda_kernels
 from ....ops import nn as _nn_ops
 from ... import nn
 from ...block import HybridBlock, in_hybridized_call
+from ...nn.basic_layers import (fused_conv_bn, fused_conv_bn_counts,
+                                reset_fused_conv_bn_counts)
 
 __all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "resnet18_v1",
            "resnet34_v1", "resnet50_v1", "resnet101_v1", "resnet152_v1",
            "get_resnet", "fused_epilogue_counts",
-           "reset_fused_epilogue_counts"]
+           "reset_fused_epilogue_counts", "fused_conv_bn_counts",
+           "reset_fused_conv_bn_counts"]
 
 _SITES: Dict[str, int] = {"fused": 0, "refused": 0}
 
@@ -95,6 +106,12 @@ def _try_fused_epilogue(conv, bn, x, relu=False, residual=None):
     return out
 
 
+def _conv_bn(conv, bn, x):
+    """bn(conv(x)), fused where ``MXNET_FUSED_CONV_BN`` admits the pair."""
+    out = fused_conv_bn(conv, bn, x)
+    return bn(conv(x)) if out is None else out
+
+
 def _bn(layout="NCHW", **kwargs):
     return nn.BatchNorm(axis=layout.index("C"), **kwargs)
 
@@ -155,12 +172,13 @@ class BottleneckV1(HybridBlock):
     def forward(self, x):
         b = self.body
         if _fused_epilogue_mode():
-            # conv1 (1x1 + bn + relu) fused; the 3x3 runs the plain layers;
-            # conv3 (1x1 + bn) takes the residual add and the block's relu
-            # into its epilogue
+            # conv1 (1x1 + bn + relu) fused; the 3x3 and its bn as a fused
+            # conv + batch-norm pair where MXNET_FUSED_CONV_BN admits it,
+            # else the plain layers; conv3 (1x1 + bn) takes the residual
+            # add and the block's relu into its epilogue
             h = _try_fused_epilogue(b[0], b[1], x, relu=True)
             if h is not None:
-                h = b[5](b[4](b[3](h)))
+                h = b[5](_conv_bn(b[3], b[4], h))
                 if self.downsample:
                     residual = _try_fused_epilogue(
                         self.downsample[0], self.downsample[1], x)
@@ -172,7 +190,7 @@ class BottleneckV1(HybridBlock):
                                           residual=residual)
                 if out is not None:
                     return out
-                return torch.relu(b[7](b[6](h)) + residual)
+                return torch.relu(_conv_bn(b[6], b[7], h) + residual)
         residual = x
         x = self.body(x)
         if self.downsample:

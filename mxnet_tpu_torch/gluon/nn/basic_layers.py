@@ -1,33 +1,125 @@
 """Basic layers: containers, Dense, BatchNorm, Flatten.
 
 Counterpart of the parts of ``mxnet_tpu/gluon/nn/basic_layers.py`` that the
-ResNet path uses. ``BatchNorm`` has no ``_fused_conv_src`` (the
-``MXNET_FUSED_CONV_BN`` route) in the port yet.
+ResNet path uses, with the ``MXNET_FUSED_CONV_BN`` route
+(``BatchNorm._fused_conv_src`` / ``BatchNorm.forward``, reference
+``basic_layers.py:232-325``): under hybridized training a ``Conv2D`` that
+feeds a ``BatchNorm`` runs with the BN as one op, whose conv kernel also
+takes the batch statistics (``ops.nn.fused_conv1x1_bn`` /
+``fused_convkxk_bn``).
+
+The reference decides at trace time: ``Conv2D`` tags its output with its
+inputs, a following ``BatchNorm`` re-derives the conv through the fused op,
+and XLA drops the untouched conv as dead code. Eager PyTorch has no such
+pass, so a tag would run every fused conv twice. The port decides before
+the conv runs instead: :func:`fused_conv_bn` takes a (conv, BN) pair and
+returns the fused output, or None when the rule turns the pair away.
+``HybridSequential.forward`` offers it each child followed by a
+``BatchNorm``, and the ResNet bottleneck's fused-epilogue branch its 3x3
+pair. That covers every site the reference fuses in the model zoo's
+ResNets, but less than the tag: a block of a user's that writes
+``bn(conv(x))`` by hand does not fuse. Fused or not, the function is the
+same; only the rounding differs. An in-place change of the conv's output
+(``y = conv(x); y += 1; bn(y)``) therefore never fuses either.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import torch
 
-from ... import autograd, initializer
+from ... import autograd, config as _config, initializer
+from ...ops import cuda_kernels
 from ...ops import nn as F
-from ..block import HybridBlock
+from ..block import HybridBlock, in_hybridized_call
 from ..parameter import Parameter
+from .conv_layers import Conv2D
 
-__all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten"]
+__all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten",
+           "fused_conv_bn", "fused_conv_bn_counts",
+           "reset_fused_conv_bn_counts"]
+
+_SITES: Dict[str, int] = {"1x1": 0, "kxk": 0, "refused": 0}
+
+
+def fused_conv_bn_counts() -> Dict[str, int]:
+    """Conv + BatchNorm pairs so far that ran as one fused op, by kind
+    (``1x1``, ``kxk``), and that the rule turned away (``refused``), each
+    in a hybridized training call with ``MXNET_FUSED_CONV_BN`` on for the
+    input's device."""
+    return dict(_SITES)
+
+
+def reset_fused_conv_bn_counts() -> None:
+    for k in _SITES:
+        _SITES[k] = 0
+
+
+def fused_conv_bn(conv, bn, x):
+    """``bn(conv(x))`` as one fused op when ``MXNET_FUSED_CONV_BN`` admits
+    the pair; its output, or None (the caller then runs the two layers).
+    Only an exact ``Conv2D`` followed by an exact ``BatchNorm``, in
+    training mode with batch statistics, inside a hybridized call (the
+    reference's trace), and with the knob on: 1 where x lies on a CUDA
+    device, 2 anywhere. Such a pair that the rule refuses is counted."""
+    if type(conv) is not Conv2D or type(bn) is not BatchNorm:
+        return None
+    if not autograd.is_training() or bn._use_global_stats or \
+            not in_hybridized_call():
+        return None
+    mode = _config.get("MXNET_FUSED_CONV_BN")
+    if not mode or (mode != 2 and x.device.type != "cuda"):
+        return None
+    fused = bn._fused_conv_src(conv, x)
+    if fused is None:
+        _SITES["refused"] += 1
+        return None
+    kind, geom = fused
+    args = (x, conv.weight.data(),
+            conv.bias.data() if conv.bias is not None else None,
+            bn.gamma.data(), bn.beta.data())
+    kw = dict(eps=bn._epsilon, fix_gamma=not bn._scale)
+    if kind == "1x1":
+        out, mean, var = F.fused_conv1x1_bn(*args, stride=geom, **kw)
+    else:
+        out, mean, var = F.fused_convkxk_bn(*args, pad=geom, **kw)
+    bn.update_running_stats(mean, var)
+    _SITES[kind] += 1
+    return out
+
+
+def _fused_kinds():
+    kinds = {k.strip()
+             for k in _config.get("MXNET_FUSED_CONV_BN_KINDS").split(",")}
+    unknown = kinds - {"1x1", "kxk", ""}
+    if unknown:
+        raise ValueError(f"MXNET_FUSED_CONV_BN_KINDS: unknown kind(s) "
+                         f"{sorted(unknown)} (valid: '1x1', 'kxk')")
+    return kinds
 
 
 class HybridSequential(HybridBlock):
-    """Blocks run in sequence (reference ``basic_layers.py:86``)."""
+    """Blocks run in sequence (reference ``basic_layers.py:86``). A child
+    followed by a ``BatchNorm`` is first offered to :func:`fused_conv_bn`
+    with it."""
 
     def add(self, *blocks):
         for block in blocks:
             self.register_child(block)
 
     def forward(self, x):
-        for block in self._children.values():
-            x = block(x)
+        blocks = list(self._children.values())
+        i = 0
+        while i < len(blocks):
+            if i + 1 < len(blocks):
+                out = fused_conv_bn(blocks[i], blocks[i + 1], x)
+                if out is not None:
+                    x = out
+                    i += 2
+                    continue
+            x = blocks[i](x)
+            i += 1
         return x
 
     def __getitem__(self, i: int):
@@ -101,6 +193,33 @@ class BatchNorm(HybridBlock):
         c = int(x.shape[self._axis])
         for p in (self.gamma, self.beta, self.running_mean, self.running_var):
             p.shape = (c,)
+
+    def _fused_conv_src(self, conv, x):
+        """``(kind, geometry)`` when ``self(conv(x))`` may run as one fused
+        op, else None: kind ``"1x1"`` with the stride (a 1x1 conv, pad 0,
+        any stride) or ``"kxk"`` with the padding (a KxK stride-1 conv),
+        each admitted by ``MXNET_FUSED_CONV_BN_KINDS`` and by its kernel's
+        rule (``cuda_kernels.epilogue_fits`` / ``convkxk_fits``); always an
+        NHWC conv of dilation 1 and one group, axis 3, fp32 or bf16."""
+        kw = conv._kwargs
+        kinds = _fused_kinds()
+        if (kw["dilate"] != (1, 1) or kw["num_group"] != 1
+                or kw["layout"] != "NHWC" or self._axis not in (3, -1)
+                or x.dtype not in (torch.float32, torch.bfloat16)):
+            return None
+        n, h, wd, cin = x.shape
+        kernel, stride, pad = kw["kernel"], kw["stride"], kw["pad"]
+        cout = conv._channels
+        if kernel == (1, 1) and pad == (0, 0):
+            ho, wo = -(-h // stride[0]), -(-wd // stride[1])
+            if "1x1" in kinds and cuda_kernels.epilogue_fits(
+                    n * ho * wo, cin, cout, x.dtype):
+                return "1x1", stride
+            return None
+        if stride == (1, 1) and "kxk" in kinds and cuda_kernels.convkxk_fits(
+                x.shape, cout, kernel, pad, x.dtype):
+            return "kxk", pad
+        return None
 
     def update_running_stats(self, mean, var) -> None:
         """Fold batch statistics into the running ones, in the running

@@ -1,6 +1,11 @@
 """Convolution and pooling layers (counterpart of
 ``mxnet_tpu/gluon/nn/conv_layers.py``; the 2-D layers ResNet uses). NHWC
-layers keep OHWI weights, as the reference does."""
+layers keep OHWI weights, as the reference does.
+
+``Conv2D`` sets no producer tag on its output (reference
+``conv_layers.py:100-112``): the port pairs a conv with the ``BatchNorm``
+it feeds before either runs (``basic_layers.fused_conv_bn``), since eager
+PyTorch cannot drop a conv that has already run."""
 from __future__ import annotations
 
 from ... import initializer

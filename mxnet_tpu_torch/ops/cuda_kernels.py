@@ -5,9 +5,13 @@ replaces one Pallas TPU kernel there; its CUDA source lives in ``csrc/`` and
 is built by :mod:`._build` at first use. So far: flash attention, forward
 (``csrc/flash_attention_fwd.cu``) and backward (``csrc/flash_attention_bwd.cu``,
 a dq kernel and a dk/dv kernel), joined in one ``torch.autograd.Function``;
-and the fused 1x1-conv / batch-norm epilogue pair (``csrc/conv_bn_epilogue.cu``:
+the fused 1x1-conv / batch-norm epilogue pair (``csrc/conv_bn_epilogue.cu``:
 ``matmul_stats`` and ``matmul_epilogue``), joined in
-:func:`conv1x1_bn_act_train`, the counterpart of ``pallas_kernels.py:485-728``.
+:func:`conv1x1_bn_act_train`, the counterpart of ``pallas_kernels.py:485-728``;
+and the conv + batch-norm statistics kernels, ``matmul_bn_stats`` (in the
+same source) and ``convkxk_bn_stats`` (``csrc/convkxk_bn_stats.cu``), behind
+:func:`conv1x1_bn_stats_train` and :func:`convkxk_bn_stats_train`, the
+counterparts of ``pallas_kernels.py:316-481`` and ``:847-1047``.
 
 Dispatch is by the device of the tensors: a wrapper given CUDA tensors
 launches its kernel (or raises), and given CPU tensors runs the kernel's
@@ -25,6 +29,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from . import _build
@@ -33,13 +38,18 @@ __all__ = ["flash_attention", "flash_attention_fwd_reference",
            "flash_attention_bwd_reference", "flash_head_dim_ok",
            "matmul_stats", "matmul_stats_reference", "matmul_epilogue",
            "matmul_epilogue_reference", "epilogue_fits",
-           "conv1x1_bn_act_train", "launch_counts", "reset_launch_counts"]
+           "conv1x1_bn_act_train", "matmul_bn_stats",
+           "matmul_bn_stats_reference", "conv1x1_bn_stats_train",
+           "convkxk_fits", "convkxk_bn_stats", "convkxk_bn_stats_reference",
+           "convkxk_bn_stats_train", "launch_counts", "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "flash_attention_bwd_dq": 0,
                              "flash_attention_bwd_dkv": 0,
                              "matmul_stats": 0,
-                             "matmul_epilogue": 0}
+                             "matmul_epilogue": 0,
+                             "matmul_bn_stats": 0,
+                             "convkxk_bn_stats": 0}
 
 # dtype codes of csrc/flash_attention_{fwd,bwd}.cu
 _FLASH_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -370,10 +380,10 @@ def _check_mm(what: str, x, w, **vectors) -> None:
         raise ValueError(f"{what} runs on cuda or cpu, not {x.device}")
 
 
-def _mm_fn(symbol: str, n_ptr: int, n_int: int):
-    """The C entry point ``symbol`` of ``csrc/conv_bn_epilogue.cu``:
-    ``n_ptr`` pointers, ``n_int`` ints, then the stream."""
-    fn = getattr(_build.load("conv_bn_epilogue"), symbol)
+def _mm_fn(source: str, symbol: str, n_ptr: int, n_int: int):
+    """The C entry point ``symbol`` of ``csrc/<source>.cu``: ``n_ptr``
+    pointers, ``n_int`` ints, then the stream."""
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
@@ -400,8 +410,9 @@ def _kernel_operands(what: str, x, w, **more) -> torch.Tensor:
     return wt
 
 
-def _run(what: str, symbol: str, ptrs, ints, device) -> None:
-    fn = _mm_fn(symbol, len(ptrs), len(ints))
+def _run(what: str, symbol: str, ptrs, ints, device,
+         source: str = "conv_bn_epilogue") -> None:
+    fn = _mm_fn(source, symbol, len(ptrs), len(ints))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*(0 if t is None else t.data_ptr() for t in ptrs), *ints,
@@ -411,13 +422,22 @@ def _run(what: str, symbol: str, ptrs, ints, device) -> None:
                            f"(M, N, K, ... = {ints})")
 
 
+def _stat_parts(source: str, symbol: str, code: int, m: int, n: int,
+                device) -> torch.Tensor:
+    """The (2, m_tiles, n) fp32 scratch for a kernel's per-CTA partial
+    sums of z and z², m_tiles from the kernel's rows per CTA (the C entry
+    point ``symbol`` of ``csrc/<source>.cu``)."""
+    bm = getattr(_build.load(source), symbol)(code)
+    return torch.empty((2, -(-m // bm), n), dtype=torch.float32,
+                       device=device)
+
+
 def _launch_matmul_stats(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
     wt = _kernel_operands("matmul_stats", x, w)
     (m, k), n = x.shape, w.shape[1]
     code = _MM_DTYPES[x.dtype]
-    bm = _build.load("conv_bn_epilogue").mxt_conv_bn_m_tile(code)
-    parts = torch.empty((2, -(-m // bm), n), dtype=torch.float32,
-                        device=x.device)
+    parts = _stat_parts("conv_bn_epilogue", "mxt_conv_bn_m_tile", code, m,
+                        n, x.device)
     _run("matmul_stats", "mxt_matmul_stats", (x, wt, parts[0], parts[1]),
          (m, n, k, code), x.device)
     _LAUNCHES["matmul_stats"] += 1
@@ -583,3 +603,236 @@ def conv1x1_bn_act_train(x, w, gamma, beta, residual=None, eps: float = 1e-5,
     return _Conv1x1BnAct.apply(x.contiguous(), w, gamma, beta, residual,
                                bias, float(eps), bool(relu),
                                bool(fix_gamma))
+
+
+# ---------------------------------------------------------------------------
+# conv + batch-norm statistics (replaces pallas_kernels._mm_stats_kernel and
+# _ckxk_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _mean_var(s, ss, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch mean and variance from fp32 column sums over m rows, as the
+    reference forms them: ``s / m`` and ``max(ss / m - mean², 0)``."""
+    mean = s / m
+    return mean, torch.clamp_min(ss / m - mean * mean, 0.0)
+
+
+def matmul_bn_stats_reference(x, w, relu: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of the matmul-bn-stats kernel: z = act(x @ w) in fp32
+    (exact products, fp32 sums), rounded once to x's dtype, and per-column
+    (Σz, Σz²) of the fp32 z."""
+    z = x.float() @ w.float()
+    if relu:
+        z = torch.clamp_min(z, 0.0)
+    return z.to(x.dtype), z.sum(0), (z * z).sum(0)
+
+
+def _launch_matmul_bn_stats(x, w, relu):
+    wt = _kernel_operands("matmul_bn_stats", x, w)
+    (m, k), n = x.shape, w.shape[1]
+    code = _MM_DTYPES[x.dtype]
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    parts = _stat_parts("conv_bn_epilogue", "mxt_conv_bn_m_tile", code, m,
+                        n, x.device)
+    _run("matmul_bn_stats", "mxt_matmul_bn_stats",
+         (x, wt, y, parts[0], parts[1]), (m, n, k, int(bool(relu)), code),
+         x.device)
+    _LAUNCHES["matmul_bn_stats"] += 1
+    s, ss = parts.sum(1)
+    return y, s, ss
+
+
+def matmul_bn_stats(x, w, relu: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``y = act(x @ w)`` in x's dtype plus per-column ``Σy`` and ``Σy²``
+    in fp32, taken before y's rounding, in one pass, like
+    ``pallas_kernels.matmul_bn_stats``: x (M, K), w (K, N) -> (y (M, N),
+    s (N,), ss (N,)). CUDA tensors launch the kernel; CPU tensors run
+    :func:`matmul_bn_stats_reference`."""
+    _check_mm("matmul_bn_stats", x, w)
+    if x.device.type == "cuda":
+        return _launch_matmul_bn_stats(x, w, relu)
+    return matmul_bn_stats_reference(x, w, relu)
+
+
+def _stats_cotangent(z, mean, gz, gmean, gvar) -> torch.Tensor:
+    """The whole cotangent into z, fp32 (M, C), of ``(z, mean, var)``:
+    ``gz + gmean / M + gvar · 2 (z - mean) / M``, since d mean_j / d z_ij =
+    1 / M and d var_j / d z_ij = 2 (z_ij - mean_j) / M (the reference's
+    ``_c1x1_bwd`` and KxK backward)."""
+    c = z.shape[-1]
+    m = z.numel() // c
+    g = z.reshape(m, c).to(torch.float32, copy=True).sub_(mean)
+    g.mul_(gvar.float() * (2.0 / m)).add_(gz.reshape(m, c))
+    return g.add_(gmean.float() / m)
+
+
+class _ConvBnStats(torch.autograd.Function):
+    """``(z, mean, var)`` of a conv with the batch statistics from the conv's
+    own kernel, in place of the JAX package's ``conv1x1_bn_stats_train`` and
+    ``convkxk_bn_stats_train`` custom VJPs. ``pad`` is None for a 1x1 conv
+    (through :func:`matmul_bn_stats`), else a KxK stride-1 conv's padding
+    (through :func:`convkxk_bn_stats`). The forward saves z as stored, in
+    x's dtype; the backward forms the whole cotangent into z in fp32
+    (:func:`_stats_cotangent`), casts it to x's dtype and takes the conv's
+    VJP in that dtype: two products (``torch.matmul``) for a 1x1, torch's
+    convolution backward for a KxK (XLA's own transposed convs in the
+    reference).
+
+    ``bias``, a conv bias, is an input the outputs do not depend on (the
+    caller adds it to the returned mean): it is taken only so that a
+    backward reaches it and writes its gradient, 0 from here plus what the
+    caller's add gives it, as the reference's op writes it. Like the
+    reference, no double backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, pad):
+        n, h, wd, cin = x.shape
+        cout = w.shape[0]
+        if pad is None:
+            m = n * h * wd
+            z, s, ss = matmul_bn_stats(x.reshape(m, cin),
+                                       w.reshape(cout, cin).t())
+            mean, var = _mean_var(s, ss, m)
+            z = z.reshape(n, h, wd, cout)
+        else:
+            z, mean, var = convkxk_bn_stats(x, w, pad)
+        ctx.save_for_backward(x, w, z, mean)
+        ctx.pad = pad
+        ctx.bias = None if bias is None else (bias.shape, bias.dtype,
+                                               bias.device)
+        return z, mean, var
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gz, gmean, gvar):
+        x, w, z, mean = ctx.saved_tensors
+        g = _stats_cotangent(z, mean, gz, gmean, gvar).to(x.dtype)
+        if ctx.pad is None:
+            cout, cin = w.shape[0], x.shape[3]
+            dx = g @ w.reshape(cout, cin).to(g.dtype)
+            dw = g.t() @ x.reshape(-1, cin)
+        else:
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g.reshape(z.shape).permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+                w.permute(0, 3, 1, 2), None, [1, 1], list(ctx.pad), [1, 1],
+                False, [0, 0], 1, [True, True, False])
+            dx, dw = dx.permute(0, 2, 3, 1), dw.permute(0, 2, 3, 1)
+        dbias = None if ctx.bias is None else torch.zeros(
+            ctx.bias[0], dtype=ctx.bias[1], device=ctx.bias[2])
+        return (dx.reshape(x.shape).to(x.dtype).contiguous(),
+                dw.reshape(w.shape).to(w.dtype).contiguous(), dbias, None)
+
+
+def conv1x1_bn_stats_train(x, w, bias=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Differentiable ``(z, mean, var)`` of a 1x1 NHWC conv with its batch
+    statistics from the matmul-bn-stats kernel, like
+    ``pallas_kernels.conv1x1_bn_stats_train``: x (N, H, W, Cin), w (Cout, 1,
+    1, Cin) OHWI -> z (N, H, W, Cout) in x's dtype, mean and var (Cout,)
+    fp32. The caller checks :func:`epilogue_fits` first. ``bias``: see
+    :class:`_ConvBnStats`."""
+    if x.dim() != 4 or w.dim() != 4 or w.shape[1:3] != (1, 1) or \
+            w.shape[3] != x.shape[3]:
+        raise ValueError(f"conv1x1_bn_stats_train: x (N, H, W, Cin) and w "
+                         f"(Cout, 1, 1, Cin) expected, got {tuple(x.shape)} "
+                         f"and {tuple(w.shape)}")
+    return _ConvBnStats.apply(x.contiguous(), w, bias, None)
+
+
+def convkxk_fits(xshape, cout: int, kernel=(3, 3), pad=(1, 1),
+                 dtype=torch.bfloat16) -> bool:
+    """Whether the convkxk-bn-stats kernel takes a stride-1 conv of an NHWC
+    input of shape ``xshape`` to ``cout`` channels: fp32 or bf16, Cin and
+    Cout multiples of 8 (16-byte vectors of one tap, columns stored in
+    pairs), 0 <= pad < kernel per dim, a non-empty output, and output pixels
+    and K = kh·kw·Cin below 2³¹. Any image size: the kernel gathers each
+    tile from the image and masks the ragged last one. A Hopper rule of the
+    port's own: the TPU's ``convkxk_fits`` models Mosaic's VMEM instead."""
+    n, h, w, cin = xshape
+    kh, kw = kernel
+    ph, pw = pad
+    ho, wo = h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+    return (dtype in _MM_DTYPES and cin >= 8 and cin % 8 == 0 and cout >= 8
+            and cout % 8 == 0 and 0 <= ph < kh and 0 <= pw < kw and ho > 0
+            and wo > 0 and n * ho * wo < 2 ** 31
+            and kh * kw * cin < 2 ** 31)
+
+
+def convkxk_bn_stats_reference(x, w, pad=(1, 1)
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Plain version of the convkxk-bn-stats kernel: the stride-1 conv in
+    fp32 (``F.conv2d`` on channels_last views), rounded once to x's dtype,
+    and the batch mean and variance from the fp32 z's channel sums."""
+    z = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(0, 3, 1, 2),
+                 padding=tuple(pad)).permute(0, 2, 3, 1)
+    z2 = z.reshape(-1, z.shape[-1])
+    mean, var = _mean_var(z2.sum(0), (z2 * z2).sum(0), z2.shape[0])
+    return z.to(x.dtype).contiguous(), mean, var
+
+
+def _launch_convkxk_bn_stats(x, w, pad):
+    for name, t in (("x", x), ("w", w)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"convkxk_bn_stats kernel needs contiguous "
+                             f"16-byte aligned inputs; {name} is not")
+    n, h, wd, cin = x.shape
+    cout, kh, kw, _ = w.shape
+    ph, pw = pad
+    ho, wo = h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1
+    code = _MM_DTYPES[x.dtype]
+    z = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
+    parts = _stat_parts("convkxk_bn_stats", "mxt_convkxk_m_tile", code,
+                        n * ho * wo, cout, x.device)
+    _run("convkxk_bn_stats", "mxt_convkxk_bn_stats",
+         (x, w, z, parts[0], parts[1]),
+         (n, h, wd, cin, cout, kh, kw, ph, pw, code), x.device,
+         source="convkxk_bn_stats")
+    _LAUNCHES["convkxk_bn_stats"] += 1
+    # the second pass: the per-m-tile partials summed in a fixed order
+    s, ss = parts.sum(1)
+    return (z, *_mean_var(s, ss, n * ho * wo))
+
+
+def convkxk_bn_stats(x, w, pad=(1, 1)
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Stride-1 KxK NHWC conv with symmetric zero padding and its batch
+    statistics in one pass, like ``pallas_kernels.convkxk_bn_stats``: x (N,
+    H, W, Cin), w (Cout, kh, kw, Cin) OHWI -> (z (N, Ho, Wo, Cout) in x's
+    dtype, mean, var (Cout,) fp32 from the fp32 sums). CUDA tensors launch
+    the kernel; CPU tensors run :func:`convkxk_bn_stats_reference`."""
+    pad = (int(pad[0]), int(pad[1]))
+    if x.dim() != 4 or w.dim() != 4 or w.shape[3] != x.shape[3]:
+        raise ValueError(f"convkxk_bn_stats: x (N, H, W, Cin) and w (Cout, "
+                         f"kh, kw, Cin) expected, got {tuple(x.shape)} and "
+                         f"{tuple(w.shape)}")
+    if w.dtype != x.dtype or not convkxk_fits(
+            x.shape, w.shape[0], tuple(w.shape[1:3]), pad, x.dtype):
+        raise ValueError(f"convkxk_bn_stats takes fp32 or bf16 x and w of "
+                         f"one dtype, Cin and Cout multiples of 8 and pad < "
+                         f"kernel, got x {tuple(x.shape)} {x.dtype}, w "
+                         f"{tuple(w.shape)} {w.dtype}, pad {pad}")
+    if w.device != x.device:
+        raise ValueError(f"convkxk_bn_stats: inputs on different devices "
+                         f"{x.device}, {w.device}")
+    if x.device.type == "cuda":
+        return _launch_convkxk_bn_stats(x, w, pad)
+    if x.device.type == "cpu":
+        return convkxk_bn_stats_reference(x, w, pad)
+    raise ValueError(f"convkxk_bn_stats runs on cuda or cpu, not {x.device}")
+
+
+def convkxk_bn_stats_train(x, w, pad=(1, 1), bias=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Differentiable ``(z, mean, var)`` of a stride-1 KxK NHWC conv with its
+    batch statistics from the convkxk-bn-stats kernel, like
+    ``pallas_kernels.convkxk_bn_stats_train``. The caller checks
+    :func:`convkxk_fits` first. ``bias``: see :class:`_ConvBnStats`."""
+    return _ConvBnStats.apply(x.contiguous(), w.contiguous(), bias,
+                              (int(pad[0]), int(pad[1])))

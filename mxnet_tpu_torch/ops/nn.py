@@ -3,7 +3,9 @@
 Counterpart of the parts of ``mxnet_tpu/ops/nn.py`` that the Gluon ResNet
 path runs: ``convolution``, ``pooling``, ``batch_norm``,
 ``fully_connected``, ``activation``, ``log_softmax``/``pick`` (for the
-loss) and the fused ``fused_conv1x1_bn_act``. They are plain functions on
+loss), the fused ``fused_conv1x1_bn_act`` and the fused conv + batch-norm
+statistics ops ``fused_conv1x1_bn`` and ``fused_convkxk_bn``. They are
+plain functions on
 ``torch.Tensor``s, in the reference's conventions: ``layout="NHWC"``
 tensors are (N, H, W, C) and their conv weights OHWI (O, kh, kw, I); the
 default is NCHW with OIHW weights. NHWC convolutions and pools run through
@@ -25,7 +27,8 @@ from .. import config as _config
 from . import cuda_kernels
 
 __all__ = ["activation", "fully_connected", "convolution", "pooling",
-           "batch_norm", "log_softmax", "pick", "fused_conv1x1_bn_act"]
+           "batch_norm", "log_softmax", "pick", "fused_conv1x1_bn_act",
+           "fused_conv1x1_bn", "fused_convkxk_bn"]
 
 def activation(data, act_type: str = "relu"):
     """Reference ``Activation`` (relu only so far)."""
@@ -161,3 +164,53 @@ def fused_conv1x1_bn_act(x, w, bias, residual, gamma, beta, stride=(1, 1),
         x.contiguous(), w, gamma, beta,
         residual=None if residual is None else residual.contiguous(),
         eps=eps, relu=relu, fix_gamma=fix_gamma, bias=bias)
+
+
+def _fused_bn_epilogue(z, mean, var, gamma, beta, bias, eps, fix_gamma):
+    """The normalisation shared by the fused conv + batch-norm ops
+    (reference ``ops/nn.py:445-461``), in plain torch: ``z · sc + bi`` in
+    z's dtype, with ``sc = rsqrt(var + eps) · gamma`` and ``bi = beta -
+    mean · sc`` per channel in fp32. z and mean are the bias-free conv's
+    (the bias cancels in (z + b) - (mean + b), and the statistics of the
+    unshifted z lose less to cancellation); the bias is then added to the
+    returned mean only, so the running statistics see the biased conv.
+    Returns ``(out, mean, var)``."""
+    inv = torch.rsqrt(var + eps)
+    sc = inv if fix_gamma else inv * gamma.float()
+    bi = beta.float() - mean * sc
+    out = z * sc.to(z.dtype) + bi.to(z.dtype)
+    if bias is not None:
+        mean = mean + bias.float()
+    return out, mean, var
+
+
+def fused_conv1x1_bn(x, w, bias, gamma, beta, stride=(1, 1), eps=1e-5,
+                     fix_gamma=False):
+    """Training-mode 1x1 NHWC conv + batch norm with the batch statistics
+    taken in the conv's own kernel (reference ``_fused_conv1x1_bn``,
+    ``ops/nn.py:464-490``), through
+    :func:`cuda_kernels.conv1x1_bn_stats_train`. A strided 1x1 conv slices
+    its input ``x[:, ::sh, ::sw, :]`` (exact: a 1x1 kernel never straddles
+    the stride), copied to a contiguous tensor for the kernel. Returns
+    ``(out, batch_mean, batch_var)``, the mean with the conv bias."""
+    sh, sw = _pair(stride)
+    if (sh, sw) != (1, 1):
+        x = x[:, ::sh, ::sw, :]
+    z, mean, var = cuda_kernels.conv1x1_bn_stats_train(x.contiguous(), w,
+                                                       bias=bias)
+    return _fused_bn_epilogue(z, mean, var, gamma, beta, bias, eps,
+                              fix_gamma)
+
+
+def fused_convkxk_bn(x, w, bias, gamma, beta, pad=(1, 1), eps=1e-5,
+                     fix_gamma=False):
+    """Training-mode stride-1 KxK NHWC conv + batch norm with the batch
+    statistics taken in the conv's own kernel (reference
+    ``_fused_convkxk_bn``, ``ops/nn.py:493-513``), through
+    :func:`cuda_kernels.convkxk_bn_stats_train`; the kernel size comes from
+    w (OHWI). Bias as in :func:`fused_conv1x1_bn`. Returns ``(out,
+    batch_mean, batch_var)``."""
+    z, mean, var = cuda_kernels.convkxk_bn_stats_train(x, w, _pair(pad),
+                                                       bias=bias)
+    return _fused_bn_epilogue(z, mean, var, gamma, beta, bias, eps,
+                              fix_gamma)
