@@ -50,6 +50,12 @@ Phases, in order; any failure exits non-zero before the result line:
    2048}, with and without the residual and the ReLU, and at every distinct
    site shape of the ResNet-50 step (bf16 at batch 128, fp32 at batch 32);
    the statistics must also be bitwise repeatable.
+5b. Conv + batch-norm statistics kernels vs plain version: ``matmul_bn_stats``
+   (``conv_bn_epilogue.cu``) and ``convkxk_bn_stats``
+   (``convkxk_bn_stats.cu``) against their plain versions, bf16 and fp32,
+   ragged M, the ``KXK_CASES`` geometries with the image border scaled by
+   ``BORDER``, and every distinct site shape of the ResNet-50 step; the
+   statistics must also be bitwise repeatable.
 6. The ResNet train path (``MXNET_FUSED_EPILOGUE=1``): the Gluon
    ResNet-50 v1 (NHWC, 1000 classes, Xavier from a seeded generator) takes
    5 SGD-momentum steps (momentum 0.9, wd 1e-4: ``bench.py``'s ResNet lane,
@@ -66,11 +72,40 @@ Phases, in order; any failure exits non-zero before the result line:
 6b. The fused op's backward at every distinct site shape, bf16 and fp32:
    its gradients and the unfused layers' against a plain fp64 conv + batch
    norm on the same values.
+6c-6f. The ResNet train path under ``MXNET_FUSED_CONV_BN=1`` (epilogue
+   off): 5 bf16 steps at batch 128 with 36 + 16 launches and 52 fused + 1
+   refused sites per step; fp32 fused vs unfused at batch 32; step-1
+   gradients; each fused op's backward at every site shape against fp64;
+   one step with both knobs on.
 7. ResNet timings: both epilogue kernels, their plain versions and
    ``torch.matmul`` of the same product at two site shapes, timed as CUDA
    graph replays, each beside its bound; the bf16 step fused and unfused
    (10 interleaved steps after 3 warm-up); a profile of each.
-8. The kernels' JSON line, then the result line.
+7b. The same for the conv + batch-norm kernels (library: ``torch.matmul``,
+   cuDNN ``F.conv2d``) and for the step on that route.
+9. int8: the path of ``benchmark/microbench_tpu.py`` ``section_int8_pallas``
+   and the int8 op surface. (a) ``int8_matmul`` (``int8_matmul.cu``) at
+   (M, K, N) = (25088, 512, 128) (ResNet-50's 1x1 conv at batch 32, 28x28,
+   512 -> 128), dequant and relu + requantize rows; at M = 392 with N = 2048
+   (ragged); at K = 2048; at K and N that end inside the kernel's tiles;
+   at every distinct 1x1 site shape of ResNet-50 at
+   batch 32; and with constant +-127 operands, whose s32 sums are the
+   largest. The counts are zeroed just before and read just after: one
+   launch per call. Each output is held against ``int8_matmul_reference``
+   bitwise (s8 and fp32 outputs alike: the kernel does the plain version's
+   fp32 operations in the same order). (b) The int8 ops
+   (``contrib.quantization``) on the card against the same ops on the CPU
+   with the same inputs, at ResNet-50's widths, batch ``INT8_OPS_BATCH``
+   (``quantize`` and the fully connected layer at batch 32):
+   ``quantize``, ``quantized_conv`` at every 1x1 and 3x3 site and the 7x7/2
+   stem (bias, fused relu, requantize), max and global-average pooling,
+   ``quantized_fully_connected`` 2048 -> 1000, ``quantized_elemwise_add``,
+   ``quantized_batch_norm``; every output bitwise equal. (c) Timings as
+   CUDA-graph replays beside their bounds: the kernel's dequant and requant
+   rows against ``torch._int_mm`` plus the same epilogue, the bf16 matmul of
+   the dequantized operands, and the plain version; the kernel at two 1x1
+   site shapes.
+10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
 the ``mxnet_tpu_torch`` package is not beside this file.
@@ -299,6 +334,28 @@ BORDER = 10.0
 # x |z|: in bf16 each side rounds its fp32 z once, so the two may land one
 # bf16 ulp (2^-7 relative at most) apart
 Z_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 0.0}
+
+
+# -- the int8 path --
+# benchmark/microbench_tpu.py section_int8_pallas: ResNet-50's 1x1 conv at
+# batch 32 and 28x28, 512 -> 128, as a matmul; its scale and requantize
+# multiplier
+INT8_MICRO = (32 * 28 * 28, 512, 128)
+INT8_SCALE, INT8_OUT_SCALE = 3e-4, 31.0
+INT8_BATCH = 32
+# int8_matmul vs plain beyond the microbench shape, (M, K, N): a ragged M
+# (batch 8 at 7x7, which the TPU's tiles refuse), K = 2048 (32 k-tiles),
+# and K and N that end inside the kernel's 64-wide k- and n-tiles
+INT8_CASES = [(392, 512, 2048), (INT8_BATCH * 7 * 7, 2048, 512),
+              (1000, 48, 80), (77, 208, 16)]
+# the 1x1 sites timed beside the microbench shape: stage-1 conv3 and
+# stage-4 conv3 at batch 32
+INT8_TIMED_SITES = [(INT8_BATCH * 56 * 56, 64, 256),
+                    (INT8_BATCH * 7 * 7, 512, 2048)]
+# the int8 ops, card vs CPU, run at batch 8: ResNet-50's widths, a quarter
+# of the batch, so that the CPU's float64 convolutions stay within seconds
+INT8_OPS_BATCH = 8
+INT8_TOPS = 1979e12                # H100 SXM data sheet, int8 dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1943,6 +2000,292 @@ def conv_bn_timings(ck, card_line) -> dict:
     return out
 
 
+# -- 9. ----------------------------------------------------------------------
+
+
+def int8_bound_ms(m, k, n, out_bytes):
+    """Least time for an s8 (m, k) x (k, n) product: x and w read once, the
+    output (out_bytes per element) written once, over HBM; 2 m k n
+    operations over the int8 tensor cores."""
+    t_mem = (m * k + k * n + out_bytes * m * n) / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * n / INT8_TOPS
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def int8_operands(m, k, n, seed):
+    """x (m, k) and w (k, n), s8 uniform in [-127, 127], on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                          dtype=torch.int8),
+            torch.randint(-127, 128, (k, n), generator=g, device="cuda",
+                          dtype=torch.int8))
+
+
+def int8_path(ck) -> tuple:
+    """Phase 9a: every call of the int8 path through ``int8_matmul``, with
+    the counts zeroed just before and read just after (one launch per call,
+    nothing else launched), then each output against
+    ``int8_matmul_reference`` on the same inputs, bitwise. Returns (the
+    counts, the largest |kernel - plain| of an fp32 output)."""
+    calls = []      # (what, x, w, relu, out_scale)
+    x, w = int8_operands(*INT8_MICRO, seed=900)
+    calls += [("microbench dequant", x, w, False, None),
+              ("microbench relu + requant", x, w, True, INT8_OUT_SCALE)]
+    for i, (m, k, n) in enumerate(INT8_CASES):
+        x, w = int8_operands(m, k, n, seed=910 + i)
+        calls += [(f"({m}, {k}, {n}) dequant", x, w, False, None),
+                  (f"({m}, {k}, {n}) relu + requant", x, w, True,
+                   INT8_OUT_SCALE)]
+    for i, (side, k, n) in enumerate(C1X1_SITE_SHAPES):
+        m = INT8_BATCH * side * side
+        x, w = int8_operands(m, k, n, seed=920 + i)
+        calls.append((f"site ({m}, {k}, {n}) relu + requant", x, w, True,
+                      INT8_OUT_SCALE))
+    # constant +-127 operands: |acc| near 127^2 K, the largest sums, past
+    # 2^24 and not multiples of 4, so that their conversion to fp32 rounds
+    m, k, n = 4096, 2048, 256
+    x = torch.full((m, k), 127, dtype=torch.int8, device="cuda")
+    x[1::2] = -127
+    x[:, 0] = 1
+    w = torch.full((k, n), -127, dtype=torch.int8, device="cuda")
+    w[:, ::3] = 127
+    calls += [("+-127 dequant", x, w, False, None),
+              ("+-127 relu + requant", x, w, True, 0.01)]
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    outs = []
+    for what, x, w, relu, out_scale in calls:
+        before = ck.launch_counts()["int8_matmul"]
+        outs.append(ck.int8_matmul(x, w, INT8_SCALE, relu=relu,
+                                   out_scale=out_scale))
+        if ck.launch_counts()["int8_matmul"] != before + 1:
+            fail(f"int8 path, {what}: int8_matmul launched "
+                 f"{ck.launch_counts()['int8_matmul'] - before} times, want 1")
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    want = {name: 0 for name in counts}
+    want["int8_matmul"] = len(calls)
+    if counts != want:
+        fail(f"int8 path: launch counts {counts}, want {want}")
+    worst = 0.0
+    for (what, x, w, relu, out_scale), out in zip(calls, outs):
+        ref = ck.int8_matmul_reference(x, w, INT8_SCALE, relu=relu,
+                                       out_scale=out_scale)
+        if out.dtype != ref.dtype or out.shape != ref.shape:
+            fail(f"int8 path, {what}: out {out.dtype} {tuple(out.shape)}, "
+                 f"plain {ref.dtype} {tuple(ref.shape)}")
+        if not torch.equal(out, ref):
+            err = (out.float() - ref.float()).abs()
+            fail(f"int8 path, {what}: kernel vs plain not bitwise equal: "
+                 f"{int((err > 0).sum())} entries differ, max |diff| "
+                 f"{err.max().item():.3e}")
+        if out.dtype == torch.float32:
+            worst = max(worst, (out - ref).abs().max().item())
+        if not torch.isfinite(out.float()).all():
+            fail(f"int8 path, {what}: non-finite output")
+    if outs[-2].abs().max().item() < 2 ** 24 * INT8_SCALE:
+        fail("int8 path: the +-127 case did not reach |acc| > 2^24")
+    print(f"int8_matmul vs plain: {len(calls)} calls (the microbench shape "
+          f"{INT8_MICRO}, {INT8_CASES}, {len(C1X1_SITE_SHAPES)} 1x1 site "
+          f"shapes at batch {INT8_BATCH}, +-127 operands), one launch each, "
+          f"{counts['int8_matmul']} in all; all bitwise equal  ok")
+    return counts, worst
+
+
+def _to(args, device):
+    """args with every tensor (also inside lists) moved to device."""
+    if isinstance(args, torch.Tensor):
+        return args.to(device)
+    if isinstance(args, (list, tuple)):
+        return type(args)(_to(a, device) for a in args)
+    return args
+
+
+def _outputs(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def int8_ops_phase(tq) -> int:
+    """Phase 9b: each int8 op on the card against the same op on the CPU
+    with the same inputs (numpy from a seed), at ResNet-50's widths, batch
+    INT8_OPS_BATCH (``quantize`` and the fully connected layer at batch
+    INT8_BATCH): every output (s8, s32, fp32 and the fp32 ranges) bitwise
+    equal. Returns the number of outputs compared."""
+    rng = np.random.RandomState(930)
+    b = INT8_OPS_BATCH
+
+    def s8(*shape):
+        return torch.from_numpy(rng.randint(-127, 128, shape).astype(
+            np.int8))
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(
+            np.float32))
+
+    compared = 0
+
+    def same(what, fn, *args, **kw):
+        nonlocal compared
+        got = _outputs(fn(*_to(args, "cuda"), **kw))
+        want = _outputs(fn(*args, **kw))
+        for i, (g, w) in enumerate(zip(got, want)):
+            if g.device.type != "cuda":
+                fail(f"int8 op {what}: output {i} on {g.device}")
+            g = g.cpu()
+            if g.dtype != w.dtype or g.shape != w.shape or \
+                    not torch.equal(g, w):
+                diff = (g.double() - w.double()).abs().max().item() \
+                    if g.shape == w.shape else float("nan")
+                fail(f"int8 op {what}: output {i} on the card vs the CPU: "
+                     f"{g.dtype} {tuple(g.shape)} vs {w.dtype} "
+                     f"{tuple(w.shape)}, max |diff| {diff:.3e}")
+            compared += 1
+
+    epi = dict(data_scale=0.02, w_scale=0.003, fused_relu=True,
+               out_min=-2.3, out_max=3.7)
+    same(f"quantize ({INT8_BATCH}, 56, 56, 64)", tq.quantize,
+         f32(INT8_BATCH, 56, 56, 64, scale=1.5), -2.3, 3.7)
+    for side, k, n in C1X1_SITE_SHAPES:
+        same(f"quantized_conv 1x1 {side}x{side} {k} -> {n}",
+             tq.quantized_conv, [s8(b, side, side, k), s8(n, 1, 1, k),
+                                 f32(n, scale=0.1)],
+             kernel=(1, 1), num_filter=n, layout="NHWC", **epi)
+    side, k, n = C1X1_SITE_SHAPES[-1]
+    same(f"quantized_conv 1x1 {side}x{side} {k} -> {n}, fp32 out",
+         tq.quantized_conv, [s8(b, side, side, k), s8(n, 1, 1, k),
+                             f32(n, scale=0.1)],
+         kernel=(1, 1), num_filter=n, layout="NHWC", data_scale=0.02,
+         w_scale=0.003)
+    for side, c in KXK_SITE_SHAPES:
+        same(f"quantized_conv 3x3 {side}x{side} {c} -> {c}",
+             tq.quantized_conv, [s8(b, side, side, c), s8(c, 3, 3, c),
+                                 f32(c, scale=0.1)],
+             kernel=(3, 3), pad=(1, 1), num_filter=c, layout="NHWC", **epi)
+    same("quantized_conv stem 7x7/2 224x224 3 -> 64", tq.quantized_conv,
+         [s8(b, 224, 224, 3), s8(64, 7, 7, 3), f32(64, scale=0.1)],
+         kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=64,
+         layout="NHWC", **epi)
+    same("quantized_pooling max 3x3/2 pad 1 (b, 64, 112, 112)",
+         tq.quantized_pooling, s8(b, 64, 112, 112), -2.3, 3.7,
+         kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max")
+    same("quantized_pooling global avg (b, 2048, 7, 7)",
+         tq.quantized_pooling, s8(b, 2048, 7, 7), -2.3, 3.7,
+         pool_type="avg", global_pool=True)
+    for out in ({}, dict(fused_relu=True, out_min=-2.3, out_max=3.7)):
+        same(f"quantized_fully_connected 2048 -> 1000, batch {INT8_BATCH}"
+             f"{', relu + requant' if out else ''}",
+             tq.quantized_fully_connected,
+             [s8(INT8_BATCH, 2048), s8(1000, 2048), f32(1000)],
+             num_hidden=1000, data_scale=0.02, w_scale=0.003, **out)
+    same("quantized_elemwise_add (b, 56, 56, 256)",
+         tq.quantized_elemwise_add, s8(b, 56, 56, 256), s8(b, 56, 56, 256),
+         -2.3, 3.7, -0.1, 0.1)
+    same("quantized_batch_norm (b, 64, 56, 56)", tq.quantized_batch_norm,
+         s8(b, 64, 56, 56), f32(64) + 1.0, f32(64), f32(64, scale=0.3),
+         f32(64).abs() + 0.1, -2.3, 3.7, min_calib_range=-3.7,
+         max_calib_range=3.7)
+    torch.cuda.synchronize()
+    print(f"int8 ops on the card vs the CPU at ResNet-50's widths, batch "
+          f"{b}: {compared} outputs bitwise equal (quantize, every 1x1 and "
+          f"3x3 site and the stem, pooling, fully connected, elemwise add, "
+          f"batch norm); pallas_skipped_count {tq.pallas_skipped_count()}  "
+          f"ok")
+    return compared
+
+
+def int8_timings(ck, card_line) -> dict:
+    """Phase 9c: at the microbench shape, the kernel's dequant and relu +
+    requant rows, ``torch._int_mm`` plus the same epilogue (the library
+    yardstick, never called by the port), the bf16 matmul of the
+    dequantized operands (the microbench's bf16 row) and the plain version,
+    as CUDA-graph replays beside their bounds; the dequant row also at the
+    two timed 1x1 sites. ``_int_mm`` is also timed with w column major, the
+    layout cuBLASLt's s8 kernels read natively, as information."""
+    s, os_ = float(np.float32(INT8_SCALE)), float(np.float32(INT8_OUT_SCALE))
+
+    def lib_dequant(x, w):
+        return torch._int_mm(x, w).to(torch.float32) * s
+
+    def lib_requant(x, w):
+        out = torch.clamp_min(torch._int_mm(x, w).to(torch.float32) * s, 0.0)
+        return torch.clamp(torch.round(out * os_), -127.0, 127.0).to(
+            torch.int8)
+
+    out = {}
+    m, k, n = INT8_MICRO
+    x, w = int8_operands(m, k, n, seed=950)
+    wt = w.t().contiguous().t()       # the same w, column major
+    bx = (x.float() * s).to(torch.bfloat16)
+    bw = w.to(torch.bfloat16)
+    times = time_ms({
+        "int8_matmul": lambda: ck.int8_matmul(x, w, INT8_SCALE),
+        "plain": lambda: ck.int8_matmul_reference(x, w, INT8_SCALE),
+        "_int_mm + dequant": lambda: lib_dequant(x, w),
+        "_int_mm, w col-major": lambda: lib_dequant(x, wt),
+        "int8_matmul requant": lambda: ck.int8_matmul(
+            x, w, INT8_SCALE, relu=True, out_scale=INT8_OUT_SCALE),
+        "plain requant": lambda: ck.int8_matmul_reference(
+            x, w, INT8_SCALE, relu=True, out_scale=INT8_OUT_SCALE),
+        "_int_mm + relu + requant": lambda: lib_requant(x, w),
+        "bf16 matmul": lambda: torch.matmul(bx, bw),
+    })
+    med = {name: statistics.median(t) for name, t in times.items()}
+    b32, by32 = int8_bound_ms(m, k, n, 4)
+    b8, by8 = int8_bound_ms(m, k, n, 1)
+    t_mem = 2 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * n / PEAK_FLOPS[torch.bfloat16]
+    bbf, bybf = max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                          else "operations")
+    print(f"int8 timings at {INT8_MICRO}, {TIMING_ROUNDS} interleaved rounds "
+          f"of a CUDA graph of {TIMING_ITERS} calls [{card_line}]:")
+    for name, bound, by in (
+            ("int8_matmul", b32, by32), ("plain", b32, by32),
+            ("_int_mm + dequant", b32, by32),
+            ("_int_mm, w col-major", b32, by32),
+            ("int8_matmul requant", b8, by8), ("plain requant", b8, by8),
+            ("_int_mm + relu + requant", b8, by8),
+            ("bf16 matmul", bbf, bybf)):
+        print(f"  {name:26s} {spread(times[name])}; bound {bound:.5f} ms "
+              f"({by}); {2 * m * k * n / med[name] / 1e9:.1f} TOP/s")
+    out["micro"] = dict(
+        shape=[m, k, n, "s8"], ms=med["int8_matmul"], plain_ms=med["plain"],
+        library_ms=med["_int_mm + dequant"], bound_ms=b32, bound_by=by32,
+        requant=dict(ms=med["int8_matmul requant"],
+                     plain_ms=med["plain requant"],
+                     library_ms=med["_int_mm + relu + requant"],
+                     bound_ms=b8, bound_by=by8),
+        library_w_col_major_ms=med["_int_mm, w col-major"],
+        bf16_matmul_ms=med["bf16 matmul"], bf16_bound_ms=bbf)
+    out["sites"] = []
+    for i, (m, k, n) in enumerate(INT8_TIMED_SITES):
+        x, w = int8_operands(m, k, n, seed=960 + i)
+        times = time_ms({
+            "int8_matmul": lambda: ck.int8_matmul(x, w, INT8_SCALE),
+            "plain": lambda: ck.int8_matmul_reference(x, w, INT8_SCALE),
+            "_int_mm + dequant": lambda: lib_dequant(x, w),
+        })
+        bound, by = int8_bound_ms(m, k, n, 4)
+        out["sites"].append(dict(
+            shape=[m, k, n, "s8"],
+            ms=statistics.median(times["int8_matmul"]),
+            plain_ms=statistics.median(times["plain"]),
+            library_ms=statistics.median(times["_int_mm + dequant"]),
+            bound_ms=bound, bound_by=by))
+        print(f"int8_matmul site ({m}, {k}, {n}) dequant: kernel "
+              f"{spread(times['int8_matmul'])}, plain "
+              f"{spread(times['plain'])}, _int_mm + dequant "
+              f"{spread(times['_int_mm + dequant'])}; bound {bound:.5f} ms "
+              f"({by}) [{card_line}]")
+    return out
+
+
+def port_int8():
+    """The port's contrib.quantization."""
+    from mxnet_tpu_torch.contrib import quantization
+    return quantization
+
+
 def port_gluon():
     """(mxnet_tpu_torch, its config, the resnet module, its nn ops) beside
     this file."""
@@ -2008,10 +2351,18 @@ def main() -> int:
                                            card_line)
     cbn_times = conv_bn_timings(ck, card_line)
     resnet_timings(resnet, config, step, card_line, CONV_BN)
+    del step
+    torch.cuda.empty_cache()
 
-    # -- 8. results ---------------------------------------------------------
+    # -- 9. int8 --------------------------------------------------------------
+    int8_counts, int8_err = int8_path(ck)
+    int8_ops_phase(port_int8())
+    int8_times = int8_timings(ck, card_line)
+
+    # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
-             "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts}
+             "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
+             "int8": int8_counts}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
@@ -2074,6 +2425,19 @@ def main() -> int:
             + ", which computes no statistics",
             "shape": sites[0]["shape"], "sites": sites,
         })
+    t = int8_times["micro"]
+    kernels.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:752",
+        **launches("int8_matmul"), "max_abs_err": int8_err,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms")},
+        "library": "torch._int_mm plus the same fp32 dequant",
+        "shape": t["shape"], "requant": t["requant"],
+        "library_w_col_major_ms": t["library_w_col_major_ms"],
+        "bf16_matmul_ms": t["bf16_matmul_ms"], "sites": int8_times["sites"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,13 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "BatchNorm batch variance by the two-pass shifted formula instead "
            "of the single-pass E[x^2] - E[x]^2 (one extra pass; use when "
            "activation |mean| >> std makes the single pass cancel)."),
+    EnvVar("MXNET_INT8_PALLAS", int, 0,
+           "The retired route of quantized convs through the int8 matmul "
+           "kernel, kept as the reference keeps it: quantized convs always "
+           "run the exact s8 -> s32 convolution (contrib/quantization.py). "
+           "0 (the only valid value) counts each conv that the route would "
+           "have claimed (quantization.pallas_skipped_count, logged once); "
+           "nonzero refuses with MXNetError."),
 )}
 
 _CACHE: Dict[str, Any] = {}

@@ -11,7 +11,9 @@ the fused 1x1-conv / batch-norm epilogue pair (``csrc/conv_bn_epilogue.cu``:
 and the conv + batch-norm statistics kernels, ``matmul_bn_stats`` (in the
 same source) and ``convkxk_bn_stats`` (``csrc/convkxk_bn_stats.cu``), behind
 :func:`conv1x1_bn_stats_train` and :func:`convkxk_bn_stats_train`, the
-counterparts of ``pallas_kernels.py:316-481`` and ``:847-1047``.
+counterparts of ``pallas_kernels.py:316-481`` and ``:847-1047``; and the
+int8 matmul (``csrc/int8_matmul.cu``), :func:`int8_matmul`, the counterpart
+of ``pallas_kernels.py:752-829``.
 
 Dispatch is by the device of the tensors: a wrapper given CUDA tensors
 launches its kernel (or raises), and given CPU tensors runs the kernel's
@@ -41,7 +43,9 @@ __all__ = ["flash_attention", "flash_attention_fwd_reference",
            "conv1x1_bn_act_train", "matmul_bn_stats",
            "matmul_bn_stats_reference", "conv1x1_bn_stats_train",
            "convkxk_fits", "convkxk_bn_stats", "convkxk_bn_stats_reference",
-           "convkxk_bn_stats_train", "launch_counts", "reset_launch_counts"]
+           "convkxk_bn_stats_train", "int_mm_fits", "s8_matmul_s32",
+           "int8_fits", "int8_matmul", "int8_matmul_reference",
+           "launch_counts", "reset_launch_counts"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "flash_attention_bwd_dq": 0,
@@ -49,7 +53,8 @@ _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "matmul_stats": 0,
                              "matmul_epilogue": 0,
                              "matmul_bn_stats": 0,
-                             "convkxk_bn_stats": 0}
+                             "convkxk_bn_stats": 0,
+                             "int8_matmul": 0}
 
 # dtype codes of csrc/flash_attention_{fwd,bwd}.cu
 _FLASH_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -836,3 +841,118 @@ def convkxk_bn_stats_train(x, w, pad=(1, 1), bias=None
     :func:`convkxk_fits` first. ``bias``: see :class:`_ConvBnStats`."""
     return _ConvBnStats.apply(x.contiguous(), w.contiguous(), bias,
                               (int(pad[0]), int(pad[1])))
+
+
+# ---------------------------------------------------------------------------
+# int8 matmul (replaces pallas_kernels._int8_mm_kernel)
+# ---------------------------------------------------------------------------
+
+
+def int_mm_fits(m: int, k: int, n: int) -> bool:
+    """Whether ``torch._int_mm`` takes an (m, k) x (k, n) s8 product on every
+    device: m > 16, k and n positive multiples of 8 (its CUDA rule; on the
+    CPU it takes any shape)."""
+    return m > 16 and k > 0 and n > 0 and k % 8 == 0 and n % 8 == 0
+
+
+def s8_matmul_s32(a, b) -> torch.Tensor:
+    """The exact s32 product of s8 matrices a (M, K) and b (K, N), in plain
+    torch on a's device: ``torch._int_mm`` where :func:`int_mm_fits`, with b
+    column major (cuBLASLt refuses some shapes with a row-major b, e.g.
+    (100, 24, 40) on an H100; a transposed view of an (N, K) weight is
+    already column major), else a float64 product, which is exact too
+    (every partial sum is an integer of magnitude at most 2^14 K, far below
+    2^53). The route depends on the shape alone, so both devices take the
+    same one."""
+    (m, k), n = a.shape, b.shape[1]
+    if int_mm_fits(m, k, n):
+        return torch._int_mm(a.contiguous(), b.t().contiguous().t())
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def _f32(v: float) -> float:
+    """v rounded to fp32 (as JAX takes a Python float into an fp32 op),
+    kept as a Python float so that a multiply by it copies nothing to the
+    device."""
+    return ctypes.c_float(float(v)).value
+
+
+def int8_fits(m: int, k: int, n: int) -> bool:
+    """Whether the int8 matmul kernel takes an (m, k) x (k, n) product: any
+    m >= 1 (the kernel masks the ragged last m-tile), k and n multiples of 16
+    (16-byte vectors of x, 8-byte vectors of w, two-column stores), and
+    k <= 131071, so that no s32 sum of products |x w| <= 2^14 can overflow.
+    A Hopper rule of the port's own: the TPU's ``int8_blocks`` models
+    Mosaic's tiling and refuses an m that its tiles do not divide."""
+    return (m >= 1 and k >= 16 and n >= 16 and k % 16 == 0 and n % 16 == 0
+            and k * 2 ** 14 < 2 ** 31)
+
+
+def int8_matmul_reference(x, w, scale, relu: bool = False, out_scale=None
+                          ) -> torch.Tensor:
+    """Plain version of the int8 matmul kernel: the exact s32 product
+    (:func:`s8_matmul_s32`), then ``f32(acc) · f32(scale)``, the relu, and
+    ``clip(round(· f32(out_scale)), −127, 127)`` as s8, each an fp32 tensor
+    op, as the TPU kernel's epilogue on its last k step."""
+    out = s8_matmul_s32(x, w).to(torch.float32) * _f32(scale)
+    if relu:
+        out = torch.clamp_min(out, 0.0)
+    if out_scale is None:
+        return out
+    return torch.clamp(torch.round(out * _f32(out_scale)), -127.0,
+                       127.0).to(torch.int8)
+
+
+def _launch_int8_matmul(x, w, scale, relu, out_scale) -> torch.Tensor:
+    for name, t in (("x", x), ("w", w)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"int8_matmul kernel needs contiguous 16-byte "
+                             f"aligned inputs; {name} is not")
+    (m, k), n = x.shape, w.shape[1]
+    requant = out_scale is not None
+    out = torch.empty((m, n), device=x.device,
+                      dtype=torch.int8 if requant else torch.float32)
+    fn = getattr(_build.load("int8_matmul"), "mxt_int8_matmul")
+    if fn.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, cf, vp]
+        fn.restype = ci
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                float(scale), int(bool(relu)), int(requant),
+                float(out_scale) if requant else 0.0, stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_matmul kernel launch failed: cudaError_t "
+                           f"{rc} (M, K, N = {m}, {k}, {n})")
+    _LAUNCHES["int8_matmul"] += 1
+    return out
+
+
+def int8_matmul(x, w, scale, relu: bool = False, out_scale=None
+                ) -> torch.Tensor:
+    """``dequant(x_s8 @ w_s8)`` in one pass, like
+    ``pallas_kernels.int8_matmul``: x (M, K) s8, w (K, N) s8, the s32 sum
+    times ``scale`` (= data_scale · w_scale) in fp32, an optional relu, and
+    an optional s8 requantize at ``out_scale`` (an fp32 multiplier): (M, N)
+    fp32, or s8 with ``out_scale``. CUDA tensors launch the kernel; CPU
+    tensors run :func:`int8_matmul_reference`. Raises ``ValueError`` for a
+    shape that :func:`int8_fits` refuses."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"int8_matmul: x (M, K) and w (K, N) expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8:
+        raise TypeError(f"int8_matmul takes int8 x and w, got {x.dtype} and "
+                        f"{w.dtype}")
+    (m, k), n = x.shape, w.shape[1]
+    if not int8_fits(m, k, n):
+        raise ValueError(f"int8_matmul takes K and N multiples of 16 and K <= "
+                         f"131071, got (M, K, N) = ({m}, {k}, {n})")
+    if w.device != x.device:
+        raise ValueError(f"int8_matmul: inputs on different devices "
+                         f"{x.device}, {w.device}")
+    if x.device.type == "cuda":
+        return _launch_int8_matmul(x, w, scale, relu, out_scale)
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, w, scale, relu, out_scale)
+    raise ValueError(f"int8_matmul runs on cuda or cpu, not {x.device}")

@@ -8,17 +8,21 @@ On the CPU the port's wrappers run their plain PyTorch versions; the CUDA
 kernels themselves are held against those plain versions by the
 ``cuda``-marked tests (and by chip_smoke.py), which skip without a card.
 """
-import jax
-import jax.numpy as jnp
 import numpy as onp
 import pytest
 import torch
 
-import mxnet_tpu as mx
-from mxnet_tpu.ndarray.ndarray import invoke
-from mxnet_tpu.ops import pallas_kernels as pk
 from mxnet_tpu_torch.ops import cuda_kernels as ck
 from mxnet_tpu_torch.ops import nn as tnn
+
+from test_torch_package import LazyModule
+
+# the reference, imported inside the tests that use it
+jax = LazyModule("jax")
+jnp = LazyModule("jax.numpy")
+mx = LazyModule("mxnet_tpu")
+invoke = LazyModule("mxnet_tpu.ndarray.ndarray", "invoke")
+pk = LazyModule("mxnet_tpu.ops.pallas_kernels")
 
 # fp32: both sides sum the same fp32 products in other orders
 OUT_TOL = dict(rtol=2e-4, atol=2e-4)      # outputs and batch statistics

@@ -10,14 +10,18 @@ kernels themselves are held against those plain versions by the
 ``cuda``-marked test below (and by chip_smoke.py), which skips without a
 card.
 """
-import jax
-import jax.numpy as jnp
 import numpy as onp
 import pytest
 import torch
 
-from mxnet_tpu.ops import pallas_kernels as pk
 from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+from test_torch_package import LazyModule
+
+# the reference, imported inside the tests that use it
+jax = LazyModule("jax")
+jnp = LazyModule("jax.numpy")
+pk = LazyModule("mxnet_tpu.ops.pallas_kernels")
 
 # fp32: both sides sum the same fp32 products in other orders (the Pallas
 # kernel over its k-blocks and taps, torch's matmul and conv in theirs)

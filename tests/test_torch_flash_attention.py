@@ -9,15 +9,19 @@ kernels themselves are held against those plain versions by the
 """
 import math
 
-import jax
-import jax.numpy as jnp
 import numpy as onp
 import pytest
 import torch
 
-from mxnet_tpu.ops import pallas_kernels as pk
 from mxnet_tpu_torch.ops import _build
 from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+from test_torch_package import LazyModule
+
+# the reference, imported inside the tests that use it
+jax = LazyModule("jax")
+jnp = LazyModule("jax.numpy")
+pk = LazyModule("mxnet_tpu.ops.pallas_kernels")
 
 # fp32: the two versions sum in different orders (online vs dense softmax)
 RTOL, ATOL = 2e-4, 2e-5

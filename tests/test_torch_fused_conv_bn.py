@@ -14,11 +14,6 @@ import numpy as onp
 import pytest
 import torch
 
-import mxnet_tpu as jmx
-from mxnet_tpu import autograd as jag
-from mxnet_tpu import config as jconfig
-from mxnet_tpu import gluon as jgluon
-from mxnet_tpu.ops.registry import get_op
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import config as tconfig
@@ -26,9 +21,18 @@ from mxnet_tpu_torch import gluon as tgluon
 from mxnet_tpu_torch.convert import gluon_params_from_numpy
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
 
+from test_torch_package import LazyModule
 from test_torch_gluon_resnet import (CLASSES, OUT_TOL, STEP_TOL,
                                      _narrow_pair, _numpy_params, _pair,
                                      _rand)
+
+# the reference, imported inside the tests that use it
+jmx = LazyModule("mxnet_tpu")
+jag = LazyModule("mxnet_tpu.autograd")
+jconfig = LazyModule("mxnet_tpu.config")
+jgluon = LazyModule("mxnet_tpu.gluon")
+get_op = LazyModule("mxnet_tpu.ops.registry", "get_op")
+
 
 # fused sites of the narrow bottleneck ResNet (LAYERS [2, 1]) per forward:
 # conv1 and conv3 of each of the 3 bottlenecks and the 2 downsamples are

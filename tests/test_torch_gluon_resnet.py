@@ -11,11 +11,6 @@ import numpy as onp
 import pytest
 import torch
 
-import mxnet_tpu as jmx
-from mxnet_tpu import autograd as jag
-from mxnet_tpu import config as jconfig
-from mxnet_tpu import gluon as jgluon
-from mxnet_tpu.gluon.model_zoo import vision as jvision
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import config as tconfig
@@ -23,6 +18,15 @@ from mxnet_tpu_torch import gluon as tgluon
 from mxnet_tpu_torch.convert import gluon_params_from_numpy
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 from mxnet_tpu_torch.gluon.model_zoo.vision import resnet as tresnet
+
+from test_torch_package import LazyModule
+
+# the reference, imported inside the tests that use it
+jmx = LazyModule("mxnet_tpu")
+jag = LazyModule("mxnet_tpu.autograd")
+jconfig = LazyModule("mxnet_tpu.config")
+jgluon = LazyModule("mxnet_tpu.gluon")
+jvision = LazyModule("mxnet_tpu.gluon.model_zoo.vision")
 
 # fp32 on both sides: convolutions and reductions sum in other orders
 OUT_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -2,10 +2,12 @@
 it imports neither JAX nor the JAX package, builds nothing at import, and
 never carries on quietly on the CPU when CUDA was wanted."""
 import ast
+import importlib
 import os
 import subprocess
 import sys
 from pathlib import Path
+from typing import Optional
 
 import pytest
 import torch
@@ -14,6 +16,28 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+class LazyModule:
+    """A module, or an attribute of one, imported at its first use.
+
+    The port's test files name the reference (JAX and the JAX package)
+    through these instead of importing it at their top: the import then runs
+    inside the tests that compare against the reference, and the files'
+    ``cuda``-marked tests collect and run on a machine without JAX."""
+
+    def __init__(self, module: str, attr: Optional[str] = None):
+        self._module, self._attr = module, attr
+
+    def _target(self):
+        mod = importlib.import_module(self._module)
+        return mod if self._attr is None else getattr(mod, self._attr)
+
+    def __getattr__(self, name):
+        return getattr(self._target(), name)
+
+    def __call__(self, *args, **kwargs):
+        return self._target()(*args, **kwargs)
 
 
 def _forbidden(module: str) -> bool:
@@ -57,6 +81,8 @@ def test_scan_finds_every_port_module():
             "mxnet_tpu_torch/gluon/nn/conv_layers.py",
             "mxnet_tpu_torch/gluon/model_zoo/vision/resnet.py",
             "mxnet_tpu_torch/optimizer/sgd.py",
+            "mxnet_tpu_torch/base.py",
+            "mxnet_tpu_torch/contrib/quantization.py",
             "chip_smoke.py"} <= names
 
 
@@ -65,6 +91,50 @@ def test_scan_finds_every_port_module():
 def test_port_imports_neither_jax_nor_the_jax_package(path):
     bad = sorted({m for m in _imports(path) if _forbidden(m)})
     assert not bad, f"{path.name} imports {bad}"
+
+
+PORT_TEST_FILES = sorted((ROOT / "tests").glob("test_torch_*.py"))
+
+
+@pytest.mark.parametrize("path", PORT_TEST_FILES, ids=lambda p: p.name)
+def test_port_tests_import_no_reference_at_their_top(path):
+    """The port's test files import JAX and the JAX package only inside the
+    tests that compare (through ``LazyModule``), never at their top."""
+    tree = ast.parse(path.read_text(), str(path))
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            top.add(node.module)
+    bad = sorted(m for m in top if _forbidden(m))
+    assert not bad, f"{path.name} imports {bad} at its top"
+
+
+_COLLECT_WITHOUT_JAX = r"""
+import sys
+for name in ("jax", "jaxlib", "mxnet_tpu"):
+    sys.modules[name] = None          # import raises ImportError
+import pytest
+sys.exit(pytest.main(sys.argv[1:]))
+"""
+
+
+def test_port_cuda_tests_collect_without_jax():
+    """Where JAX is missing, as on a GPU machine set up for the port alone,
+    every port test file still collects, with its cuda-marked tests."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _COLLECT_WITHOUT_JAX, "--collect-only", "-q",
+         "--noconftest", "-p", "no:cacheprovider", "-m", "cuda",
+         *(str(p) for p in PORT_TEST_FILES)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, (out.stdout + out.stderr)[-3000:]
+    collected = [ln for ln in out.stdout.splitlines() if "::" in ln]
+    files = {ln.split("::")[0].split("/")[-1] for ln in collected}
+    assert {"test_torch_quantization.py", "test_torch_flash_attention.py",
+            "test_torch_conv_bn_epilogue.py",
+            "test_torch_conv_bn_stats.py"} <= files, out.stdout[-3000:]
 
 
 @pytest.mark.parametrize("module,bad", [

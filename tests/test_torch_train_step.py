@@ -8,19 +8,23 @@ The JAX step donates its inputs, so every JAX run starts from fresh arrays.
 """
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as onp
 import pytest
 import torch
 
-from mxnet_tpu import models as jm
-from mxnet_tpu import parallel as par
 from mxnet_tpu_torch import models as tm
 from mxnet_tpu_torch.convert import params_from_numpy
 from mxnet_tpu_torch.models import transformer_lm as ttl
 
-_TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+from test_torch_package import LazyModule
+
+# the reference, imported inside the tests that use it
+jax = LazyModule("jax")
+jnp = LazyModule("jax.numpy")
+jm = LazyModule("mxnet_tpu.models")
+par = LazyModule("mxnet_tpu.parallel")
+
+_TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 STEPS = 3
 LR = 1e-3
 # fp32, after 3 steps: the same arithmetic summed in other orders. Losses
@@ -38,12 +42,13 @@ BF16_LOSS_ATOL = 2e-3
 BF16_REL_L2 = {"params": 5e-3, "m": 3e-2, "v": 5e-2}
 
 
-def _cfgs(dtype=jnp.float32, **kw):
+def _cfgs(dtype="float32", **kw):
     base = dict(vocab_size=128, num_layers=2, num_heads=2, hidden=32,
                 mlp_hidden=64, max_len=64)
     base.update(kw)
     flash = base.pop("use_flash_attention", False)
-    return (jm.TransformerLMConfig(dtype=dtype, use_flash_attention=flash,
+    return (jm.TransformerLMConfig(dtype=getattr(jnp, dtype),
+                                   use_flash_attention=flash,
                                    **base),
             tm.TransformerLMConfig(dtype=_TORCH_DTYPE[dtype],
                                    use_flash_attention=flash, **base))
@@ -128,7 +133,7 @@ def test_train_step_matches_jax_fp32_flash():
 
 
 def test_train_step_matches_jax_bf16_grad_accum():
-    jcfg, tcfg = _cfgs(jnp.bfloat16)
+    jcfg, tcfg = _cfgs("bfloat16")
     weights = _weights(jcfg)
     toks, labels = _batch((4, 16))
     j_losses, j_state = _jax_run(jcfg, weights, toks, labels, grad_accum=2)
@@ -146,7 +151,7 @@ def test_grad_accum_sums_micro_gradients_in_fp32():
     # bf16 params: each micro-gradient is bf16, their sum is taken in fp32
     # buffers (as the reference's scan does), not through .grad, which would
     # sum in bf16 and leave every entry a bf16 value
-    _, tcfg = _cfgs(jnp.bfloat16)
+    _, tcfg = _cfgs("bfloat16")
     p = tm.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     toks, labels = (torch.from_numpy(a).long() for a in _batch((4, 16)))
     loss, grads = ttl._grads(p, toks, labels, tcfg, 2, 0.01, "cpu")
@@ -190,7 +195,7 @@ def test_step_updates_in_place_and_never_leaves_grad_on():
 
 
 def test_init_opt_state_matches_jax():
-    jcfg, tcfg = _cfgs(jnp.bfloat16)
+    jcfg, tcfg = _cfgs("bfloat16")
     weights = _weights(jcfg)
     j_m, j_v = jm.init_opt_state({k: jnp.asarray(v)
                                   for k, v in weights.items()})

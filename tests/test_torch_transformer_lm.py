@@ -6,29 +6,33 @@ same tokens go through both.
 import dataclasses
 import math
 
-import jax
-import jax.numpy as jnp
 import numpy as onp
 import pytest
 import torch
 
-from mxnet_tpu import models as jm
 from mxnet_tpu_torch import models as tm
 from mxnet_tpu_torch.convert import params_from_numpy, tensor_from_numpy
 from mxnet_tpu_torch.ops import cuda_kernels as ck
 
+from test_torch_package import LazyModule
+
+# the reference, imported inside the tests that use it
+jax = LazyModule("jax")
+jnp = LazyModule("jax.numpy")
+jm = LazyModule("mxnet_tpu.models")
+
 # fp32 logits and loss: same math, summed in other orders
 RTOL, ATOL = 2e-4, 2e-4
-_TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+_TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _cfgs(dtype=jnp.float32, **kw):
+def _cfgs(dtype="float32", **kw):
     base = dict(vocab_size=128, num_layers=2, num_heads=2, hidden=32,
                 mlp_hidden=64, max_len=64)
     base.update(kw)
     flash = base.pop("use_flash_attention", False)
-    return (jm.TransformerLMConfig(dtype=dtype, use_flash_attention=flash,
-                                   **base),
+    return (jm.TransformerLMConfig(dtype=getattr(jnp, dtype),
+                                   use_flash_attention=flash, **base),
             tm.TransformerLMConfig(dtype=_TORCH_DTYPE[dtype],
                                    use_flash_attention=flash, **base))
 
@@ -85,7 +89,7 @@ def test_forward_matches_jax_bf16():
     # to bf16 at different places (bias adds, gelu, the einsum scores), so
     # the logits (|logit| <= ~1 at init) may differ by a few bf16 ulps
     # (2^-8 relative; 2e-3 seen at this size)
-    jcfg, tcfg = _cfgs(jnp.bfloat16)
+    jcfg, tcfg = _cfgs("bfloat16")
     jp, tp = _both_params(jcfg, tcfg)
     assert tp["embed.weight"].dtype == torch.bfloat16
     assert tp["layer0.ln1.gamma"].dtype == torch.float32
@@ -162,7 +166,7 @@ def test_ragged_seq_takes_flash():
                                 rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_param_names_shapes_dtypes_match_jax(dtype):
     jcfg, tcfg = _cfgs(dtype)
     jp = jm.init_params(jax.random.PRNGKey(0), jcfg)
@@ -243,7 +247,7 @@ def test_mesh_argument_raises():
 
 
 def test_params_from_numpy_checks_names_and_shapes():
-    jcfg, tcfg = _cfgs(jnp.bfloat16)
+    jcfg, tcfg = _cfgs("bfloat16")
     jp = {k: onp.asarray(v)
           for k, v in jm.init_params(jax.random.PRNGKey(1), jcfg).items()}
     tp = params_from_numpy(jp, tcfg, device="cpu")
