@@ -15,12 +15,15 @@ Phases, in order; any failure exits non-zero before the result line:
    where a wrong q k^T or a wrong rescale across k-tiles shows. 16-bit cases
    are also held to the rounding the kernel's design allows (``check_p16``).
 2b. Backward kernels vs. plain version: ``dq``, ``dk``, ``dv`` of ``_bwd``
-   (the dq and dk/dv kernels) against ``flash_attention_bwd_reference`` on
-   the same (q, k, v, out, lse, do), out and lse from the forward kernel, at
-   the train path's shapes and at causal / sharp / fp16 / d=128 / ragged
-   fp32 cases. 16-bit cases are also held to the rounding of p and ds
-   (``check_bwd16``). The plain backward is itself held against autograd
-   through the plain forward.
+   (the dq kernel, which also computes delta, and the dk/dv kernel) against
+   ``flash_attention_bwd_reference`` on the same (q, k, v, out, lse, do), out
+   and lse from the forward kernel, at the train path's shapes, at causal /
+   sharp / fp16 / d=128 / ragged fp32 cases, and at every head dim of
+   ``BWD_HEAD_DIMS`` in bf16 and fp16, causal and not, at ragged s. 16-bit
+   cases are also held to the rounding of p and ds (``check_bwd16``). Every
+   case is also held to bitwise repeatability of dq, dk and dv over two
+   calls, and the dq kernel's delta to the plain delta. The plain backward
+   is itself held against autograd through the plain forward.
 3. The forward path: the BERT-base-width LM (vocab 30528, 12 x 768, 12
    heads, MLP 3072, bf16; random weights from a seeded generator) serves
    requests of tokens (4, 128) and (8, 512) through ``forward`` and
@@ -40,10 +43,12 @@ Phases, in order; any failure exits non-zero before the result line:
 4. Timings: each kernel, its plain version and the library call that
    computes the same function (``scaled_dot_product_attention`` and its
    backward; never called by the port) at the main paths' shapes, each
-   timed as interleaved replays of a CUDA graph, beside its bound; median
+   timed as interleaved replays of a CUDA graph, beside its bound: the dq
+   kernel (delta included), the dk/dv kernel, the whole backward as
+   ``_bwd`` runs it, and the plain delta pass as a yardstick; median
    forward time per request shape and median train-step time;
    ``torch.profiler`` traces of a few forwards and train steps (device-busy
-   time, idle share, top kernels).
+   time, idle share, top kernels; no plain delta pass in the step).
 5. Epilogue kernels vs. plain version: ``matmul_stats`` and
    ``matmul_epilogue`` (``conv_bn_epilogue.cu``) against their plain
    versions, bf16 and fp32, ragged M, K in {64, 256, 1024}, N in {64, 256,
@@ -112,6 +117,7 @@ the ``mxnet_tpu_torch`` package is not beside this file.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import math
@@ -175,6 +181,18 @@ BWD_CASES = [
     (3, 65, 16, torch.float32, True, 1.0),
     (2, 200, 128, torch.float32, False, 1.0),
 ]
+# Head dims of the 16-bit backward kernels beyond the cases above: d padded
+# to one 64-column TMA box (8, 24, 40, 64) and to two (72, 120, 128), bf16
+# and fp16, causal and not, at ragged s, so that the zero fill of columns
+# past d and of rows past s shows
+BWD_HEAD_DIMS = (8, 24, 40, 64, 72, 120, 128)
+BWD_HEAD_DIM_CASES = [(2, s, d, dtype, causal, 1.0) for d in BWD_HEAD_DIMS
+                      for dtype in (torch.bfloat16, torch.float16)
+                      for causal in (False, True) for s in (77, 200)]
+# the dq kernel's delta against the plain delta, per row: fp32 sums of the
+# same exact products (16-bit x 16-bit fits fp32) in another order, within
+# DELTA_RTOL of rowsum(|do * o|)
+DELTA_RTOL = 1e-6
 # max |kernel - plain| <= BWD_TOL * max |plain|, per gradient and dtype. The
 # gradients are small (|dq| ~ 0.05 at s 512), so the bound is relative to
 # each gradient's largest entry. 16-bit: the final rounding (2^-9 relative
@@ -494,12 +512,19 @@ def attn_bound_ms(bh, s, d, dtype, causal, products=2, tensors=4,
                                      else "operations")
 
 
-# bound arguments of the backward kernels: dq reads q, k, v, do and writes
-# dq (3 products); dk/dv reads q, k, v, do and writes dk, dv (4 products);
-# both read lse and delta
-BWD_BOUND = {"flash_attention_bwd_dq": dict(products=3, tensors=5, vectors=2),
+# bound arguments of the backward kernels: dq reads q, k, v, o, do and
+# writes dq (3 products), reads lse and writes delta; dk/dv reads q, k, v,
+# do and writes dk, dv (4 products), reads lse and delta. The whole
+# backward reads q, k, v, o, do, lse and writes dq, dk, dv (5 distinct
+# products: q k^T, do v^T, ds k, ds^T q, p^T do).
+BWD_BOUND = {"flash_attention_bwd_dq": dict(products=3, tensors=6, vectors=2),
              "flash_attention_bwd_dkv": dict(products=4, tensors=6,
                                              vectors=2)}
+BWD_WHOLE_BOUND = dict(products=5, tensors=8, vectors=1)
+# device-busy ms of the train step at TRAIN_TOKENS with the earlier
+# backward (mma.sync kernels and a plain-torch delta pass; PERF.md), on an
+# NVIDIA H100 80GB HBM3 at 700 W, printed beside this run's
+EARLIER_TRAIN_BUSY_MS = (25.030, 25.172)
 
 
 _CAPTURE_STREAM = []
@@ -571,15 +596,18 @@ def profile(fn, n: int, what: str, card_line: str) -> None:
     if not busy:
         print(f"profile {what}: the trace holds no device time; device busy "
               f"and idle share not measured")
-        return
+        return None
+    launches = sum(c for c, _ in kernels.values()) / n
     print(f"profile {what}, traced over {n}: wall {wall:.3f} ms/call, "
           f"device busy {busy:.3f} ms/call, idle share "
-          f"{1 - busy / wall:.1%} [{card_line}]")
+          f"{1 - busy / wall:.1%}, {launches:.0f} kernel launches/call "
+          f"[{card_line}]")
     for name, (cnt, t) in sorted(kernels.items(),
                                  key=lambda kv: -kv[1][1])[:8]:
         t /= n
         print(f"  {t:8.4f} ms/call {cnt // n:4d} launches/call "
               f"{t / busy:6.1%}  {name[:90]}")
+    return busy
 
 
 def bert_base(models):
@@ -612,7 +640,43 @@ def build_phase(_build) -> str:
                                       for k, v in per_src.items()}))
     for name in per_src:
         print(f"  ptxas {name}: {ptxas_summary(_build.build_log(name))}")
+    bwd_wgmma_report(_build)
     return card_line
+
+
+def bwd_wgmma_report(_build) -> None:
+    """The ptxas report of each wgmma backward kernel (registers, spills,
+    stack) beside its dynamic shared memory; fails on a spill or a stack
+    frame."""
+    log = _build.build_log("flash_attention_bwd")
+    smem = _build.load("flash_attention_bwd").mxt_flash_attention_bwd_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    kern, seen = None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(dq|dkv)_wgmmaI"
+                      r"\d+(__nv_bfloat16|__half)Li(\d+)E", line)
+        if m:
+            kern, spill, stack = m.groups(), 0, 0
+            continue
+        if kern is None:
+            continue
+        if "spill" in line:
+            spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                                   line))
+            stack = int(re.search(r"(\d+) bytes stack frame", line)[1])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            which, dtype, hdp = kern
+            nbytes = smem(0 if which == "dq" else 1, int(hdp))
+            print(f"  ptxas {which}_wgmma<{dtype.strip('_')}, {hdp}>: "
+                  f"{m[1]} registers, {nbytes} bytes of dynamic shared "
+                  f"memory, {spill} bytes of spill, {stack} bytes of stack")
+            if spill or stack:
+                fail(f"{which}_wgmma<{dtype}, {hdp}> spills or uses a stack")
+            kern, seen = None, seen + 1
+    if log and seen != 4 * 2:
+        fail(f"the build log reports {seen} wgmma backward kernels, want 8 "
+             f"(dq, dk/dv x bf16, fp16 x head dims 64, 128)")
 
 
 def ptxas_summary(log: str) -> str:
@@ -680,13 +744,30 @@ def bwd_kernel_phase(ck) -> dict:
     """Phase 2b; returns the max abs err of (dq, dk/dv) at the train path's
     shapes, by kernel name."""
     main_err = {"flash_attention_bwd_dq": 0.0, "flash_attention_bwd_dkv": 0.0}
-    for i, (bh, s, d, dtype, causal, q_scale) in enumerate(BWD_CASES):
+    delta_ratio = 0.0
+    for i, (bh, s, d, dtype, causal, q_scale) in enumerate(
+            BWD_CASES + BWD_HEAD_DIM_CASES):
         q, k, v, do = attn_inputs(bh, s, d, dtype, seed=100 + i,
                                   q_scale=q_scale, n=4)
         scale = 1.0 / math.sqrt(d)
         out, lse = ck._fwd(q, k, v, causal, scale)
         grads = ck._bwd(q, k, v, out, lse, do, causal, scale)
+        again = ck._bwd(q, k, v, out, lse, do, causal, scale)
+        _, delta = ck._launch_bwd_dq(q, k, v, out, do, lse, causal, scale)
         torch.cuda.synchronize()
+        for name, g1, g2 in zip(("dq", "dk", "dv"), grads, again):
+            if not torch.equal(g1, g2):
+                fail(f"bwd case {i} {(bh, s, d, str(dtype), causal)}: {name} "
+                     f"differs between two calls")
+        prod = do.float() * out.float()
+        dev = (delta - ck._delta(out, do)).abs()
+        mag = prod.abs().sum(-1, keepdim=True)
+        delta_ratio = max(delta_ratio, (dev / mag.clamp_min(1e-30)).max()
+                          .item())
+        if bool((dev > DELTA_RTOL * mag).any()):
+            fail(f"bwd case {i} {(bh, s, d, str(dtype), causal)}: delta of "
+                 f"the dq kernel off the plain delta by "
+                 f"{dev.max().item():.3e} (> {DELTA_RTOL} x rowsum|do o|)")
         refs = ck.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                                 causal, scale)
         errs = []
@@ -717,7 +798,11 @@ def bwd_kernel_phase(ck) -> dict:
               f"causal={causal} q*{q_scale:g}: max abs err " + ", ".join(
                   f"{n} {e:.3e} (max |plain| {m:.3e})"
                   for n, (e, m) in zip(("dq", "dk", "dv"), errs))
-              + f"{r16}  ok")
+              + f"{r16}; bitwise repeatable  ok")
+    print(f"bwd kernels: dq, dk, dv bitwise equal over two calls in all "
+          f"{len(BWD_CASES) + len(BWD_HEAD_DIM_CASES)} cases; the dq "
+          f"kernel's delta within {delta_ratio:.2e} x rowsum|do o| of the "
+          f"plain delta (bound {DELTA_RTOL})")
     for causal in (False, True):
         check_plain_bwd(ck, causal)
     torch.cuda.synchronize()
@@ -962,15 +1047,15 @@ def fwd_timings(ck, cfg, card_line) -> dict:
 
 
 def bwd_timings(ck, cfg, card_line) -> dict:
-    """The dq and dk/dv kernels, their plain versions, the delta pass and
-    the backward of scaled_dot_product_attention, at the train path's
-    shapes."""
+    """The dq kernel (delta included), the dk/dv kernel, the whole backward
+    as ``_bwd`` runs them, their plain versions, the plain delta pass and the
+    backward of scaled_dot_product_attention, at the train path's shapes."""
     out_times = {}
     for bh, s, d, dtype, causal, _ in BWD_CASES[:2]:
         q, k, v, do = attn_inputs(bh, s, d, dtype, seed=200, n=4)
         scale = 1.0 / math.sqrt(d)
         out, lse = ck._fwd(q, k, v, causal, scale)
-        delta = ck._delta(out, do)
+        _, delta = ck._launch_bwd_dq(q, k, v, out, do, lse, causal, scale)
         args = (q, k, v, do, lse, delta, causal, scale)
         B = bh // cfg.num_heads
         leaves = [t.view(B, cfg.num_heads, s, d).detach().requires_grad_()
@@ -981,34 +1066,45 @@ def bwd_timings(ck, cfg, card_line) -> dict:
         torch.cuda.current_stream().wait_stream(capture_stream())
         do4 = do.view(B, cfg.num_heads, s, d)
         times = time_ms({
-            "flash_attention_bwd_dq": lambda: ck._launch_bwd_dq(*args),
+            "flash_attention_bwd_dq": lambda: ck._launch_bwd_dq(
+                q, k, v, out, do, lse, causal, scale),
             "flash_attention_bwd_dkv": lambda: ck._launch_bwd_dkv(*args),
-            "delta": lambda: ck._delta(out, do),
             "backward": lambda: ck._bwd(q, k, v, out, lse, do, causal,
                                         scale),
-            "dq_plain": lambda: ck._bwd_dq_plain(*args),
+            "delta_plain": lambda: ck._delta(out, do),
+            "dq_plain": lambda: ck._bwd_dq_plain(
+                q, k, v, do, lse, ck._delta(out, do), causal, scale),
             "dkv_plain": lambda: ck._bwd_dkv_plain(*args),
+            "backward_plain": lambda: ck.flash_attention_bwd_reference(
+                q, k, v, out, lse, do, causal, scale),
             "sdpa_backward": lambda: torch.autograd.grad(
                 lib_out, leaves, do4, retain_graph=True),
         })
         med = {key: statistics.median(t) for key, t in times.items()}
         lib = med["sdpa_backward"]
-        for name, plain in (("flash_attention_bwd_dq", "dq_plain"),
-                            ("flash_attention_bwd_dkv", "dkv_plain")):
+        for name, plain, bound_args in (
+                ("flash_attention_bwd_dq", "dq_plain",
+                 BWD_BOUND["flash_attention_bwd_dq"]),
+                ("flash_attention_bwd_dkv", "dkv_plain",
+                 BWD_BOUND["flash_attention_bwd_dkv"]),
+                ("backward", "backward_plain", BWD_WHOLE_BOUND)):
             bound, bound_by = attn_bound_ms(bh, s, d, dtype, causal,
-                                            **BWD_BOUND[name])
+                                            **bound_args)
             out_times[(name, bh, s)] = dict(
                 ms=med[name], plain_ms=med[plain], library_ms=lib,
                 bound_ms=bound, bound_by=bound_by)
             print(f"{name} bh={bh} s={s} d={d} bf16, {TIMING_ROUNDS} "
                   f"interleaved rounds of a CUDA graph of {TIMING_ITERS} "
-                  f"calls: kernel "
+                  f"calls: kernel{'s' if name == 'backward' else ''} "
                   f"{spread(times[name])}, plain {spread(times[plain])}; "
-                  f"bound {bound:.5f} ms ({bound_by}) [{card_line}]")
-        print(f"flash backward bh={bh} s={s}: delta pass "
-              f"{spread(times['delta'])}, dq + dk/dv + delta as _bwd "
-              f"{spread(times['backward'])}, sdpa backward (library) "
-              f"{spread(times['sdpa_backward'])} [{card_line}]")
+                  f"bound {bound:.5f} ms ({bound_by}), "
+                  f"{med[name] / bound:.2f}x it [{card_line}]")
+        print(f"flash backward bh={bh} s={s}: dq (delta inside) + dk/dv as "
+              f"_bwd {spread(times['backward'])}, sdpa backward (library) "
+              f"{spread(times['sdpa_backward'])}: "
+              f"{med['backward'] / lib:.2f}x sdpa; the plain delta pass it "
+              f"no longer runs {spread(times['delta_plain'])} "
+              f"[{card_line}]")
     return out_times
 
 
@@ -1046,7 +1142,8 @@ def forward_timings(models, cfg, params, requests, attn_times,
                     card_line)
 
 
-def train_timings(models, cfg, params, rng, bwd_times, card_line) -> None:
+def train_timings(models, ck, cfg, params, rng, bwd_times,
+                  card_line) -> None:
     tokens, labels = batch(rng, cfg, *TRAIN_TOKENS)
     step = models.make_train_step(cfg, lr=TRAIN_LR)
     m, v = models.init_opt_state(params)
@@ -1069,8 +1166,24 @@ def train_timings(models, cfg, params, rng, bwd_times, card_line) -> None:
           f"{max(times):.3f}), {n_tok / med * 1e3:.0f} tokens/s; backward "
           f"kernels x{cfg.num_layers} ~ {kern / med:.1%} of it "
           f"[{card_line}]")
-    profile(one, PROFILE_STEPS, f"train step tokens {TRAIN_TOKENS}",
-            card_line)
+    # the step must run no plain delta pass: count calls of the plain delta
+    # while the traced steps run
+    plain_delta, delta_calls = ck._delta, []
+    ck._delta = lambda o, do: delta_calls.append(1) or plain_delta(o, do)
+    try:
+        busy = profile(one, PROFILE_STEPS, f"train step tokens {TRAIN_TOKENS}",
+                       card_line)
+    finally:
+        ck._delta = plain_delta
+    if delta_calls:
+        fail(f"the train step ran the plain delta pass {len(delta_calls)} "
+             f"times in {PROFILE_STEPS} steps")
+    lo, hi = EARLIER_TRAIN_BUSY_MS
+    print(f"train step tokens {TRAIN_TOKENS}: no plain delta pass in the "
+          f"traced steps (delta inside the dq kernel); device busy "
+          + (f"{busy:.3f}" if busy else "not measured")
+          + f" ms/step against {lo:.3f}-{hi:.3f} with the earlier "
+          f"mma.sync backward and its plain delta pass [{card_line}]")
 
 
 # -- 5. ----------------------------------------------------------------------
@@ -2333,7 +2446,7 @@ def main() -> int:
     attn_times = fwd_timings(ck, cfg, card_line)
     bwd_times = bwd_timings(ck, cfg, card_line)
     forward_timings(models, cfg, params, requests, attn_times, card_line)
-    train_timings(models, cfg, init(), rng, bwd_times, card_line)
+    train_timings(models, ck, cfg, init(), rng, bwd_times, card_line)
     del params, requests
     torch.cuda.empty_cache()
 
@@ -2380,6 +2493,7 @@ def main() -> int:
         "library_ms": t["library_ms"], "shape": [96, 512, 64, "bf16"],
     }]
     bh, s = TRAIN_TOKENS[0] * cfg.num_heads, TRAIN_TOKENS[1]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, line in (("flash_attention_bwd_dq", 95),
                        ("flash_attention_bwd_dkv", 126)):
         t = bwd_times[(name, bh, s)]
@@ -2388,12 +2502,15 @@ def main() -> int:
             "source": "mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
             **launches(name),
-            "max_abs_err": bwd_err[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library": "scaled_dot_product_attention backward, against "
-                       "dq + dk/dv + delta",
+            "max_abs_err": bwd_err[name], **{k: t[k] for k in keys},
+            "library": "scaled_dot_product_attention backward (the whole "
+                       "backward, against `backward`)",
             "shape": [bh, s, 64, "bf16"],
+            "backward": {k: bwd_times[("backward", bh, s)][k] for k in keys},
+            "at_96_512_64": {
+                **{k: bwd_times[(name, 96, 512)][k] for k in keys},
+                "backward": {k: bwd_times[("backward", 96, 512)][k]
+                             for k in keys}},
         })
     for name, line in (("matmul_stats", 512), ("matmul_epilogue", 574)):
         sites = [dict(shape=[m, k, n, "bf16"], **epi_times[(name, m, k, n)])

@@ -4,10 +4,11 @@ Counterpart of ``mxnet_tpu/ops/pallas_kernels.py``. Each kernel here
 replaces one Pallas TPU kernel there; its CUDA source lives in ``csrc/`` and
 is built by :mod:`._build` at first use. So far: flash attention, forward
 (``csrc/flash_attention_fwd.cu``) and backward (``csrc/flash_attention_bwd.cu``,
-a dq kernel and a dk/dv kernel), joined in one ``torch.autograd.Function``;
-the fused 1x1-conv / batch-norm epilogue pair (``csrc/conv_bn_epilogue.cu``:
-``matmul_stats`` and ``matmul_epilogue``), joined in
-:func:`conv1x1_bn_act_train`, the counterpart of ``pallas_kernels.py:485-728``;
+a dq kernel that also computes δ, and a dk/dv kernel), joined in one
+``torch.autograd.Function``; the fused 1x1-conv / batch-norm epilogue pair
+(``csrc/conv_bn_epilogue.cu``: ``matmul_stats`` and ``matmul_epilogue``),
+joined in :func:`conv1x1_bn_act_train`, the counterpart of
+``pallas_kernels.py:485-728``;
 and the conv + batch-norm statistics kernels, ``matmul_bn_stats`` (in the
 same source) and ``convkxk_bn_stats`` (``csrc/convkxk_bn_stats.cu``), behind
 :func:`conv1x1_bn_stats_train` and :func:`convkxk_bn_stats_train`, the
@@ -212,7 +213,8 @@ def _bwd_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale):
 
 def _delta(o, do) -> torch.Tensor:
     """rowsum(do * o) in fp32, (bh, s, 1), as ``pallas_kernels._bwd``
-    computes it outside the kernels."""
+    computes it outside the kernels: the plain version's δ. On CUDA the dq
+    kernel computes it."""
     return (do.float() * o.float()).sum(-1, keepdim=True)
 
 
@@ -229,12 +231,16 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool,
     return (dq, *_bwd_dkv_plain(q, k, v, do, lse, delta, causal, sm_scale))
 
 
-def _launch_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
+def _launch_bwd_dq(q, k, v, o, do, lse, causal, sm_scale):
+    """The dq kernel: (dq, δ). It computes δ = rowsum(do * o) in fp32 for
+    its rows, uses it, and stores it to a (bh, s, 1) scratch that the dk/dv
+    kernel reads."""
     dq = torch.empty_like(q)
+    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     _launch("flash_attention_bwd", "mxt_flash_attention_bwd_dq",
-            (q, k, v, do, lse, delta, dq), q, causal, sm_scale)
+            (q, k, v, o, do, lse, delta, dq), q, causal, sm_scale)
     _LAUNCHES["flash_attention_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
@@ -246,14 +252,15 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal, sm_scale):
-    if do.dtype != q.dtype or lse.dtype != torch.float32:
-        raise TypeError(f"flash attention backward kernels need do in q's "
-                        f"dtype {q.dtype} and lse in float32, got "
-                        f"{do.dtype} and {lse.dtype}")
+    if do.dtype != q.dtype or o.dtype != q.dtype or \
+            lse.dtype != torch.float32:
+        raise TypeError(f"flash attention backward kernels need o and do in "
+                        f"q's dtype {q.dtype} and lse in float32, got "
+                        f"{o.dtype}, {do.dtype} and {lse.dtype}")
     _check_kernel_inputs("backward", q.shape[-1], q.dtype, q=q, k=k, v=v,
-                         do=do, lse=lse)
-    delta = _delta(o, do)
-    dq = _launch_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale)
+                         o=o, do=do, lse=lse)
+    # dq first: it writes the δ that the dk/dv kernel reads (same stream)
+    dq, delta = _launch_bwd_dq(q, k, v, o, do, lse, causal, sm_scale)
     return (dq, *_launch_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale))
 
 
@@ -262,8 +269,8 @@ def _bwd(q3, k3, v3, o3, lse, do3, causal: bool, sm_scale: float
     """Backward on (bh, s, d) tensors -> (dq, dk, dv) in q's dtype, like
     ``pallas_kernels._bwd``: ``o3`` and ``lse`` (bh, s, 1) fp32 are the
     forward's outputs, ``do3`` the gradient of ``o3``. CUDA tensors launch
-    the dq and dk/dv kernels; CPU tensors run
-    :func:`flash_attention_bwd_reference`."""
+    the dq kernel (which also computes δ) and then the dk/dv kernel, nothing
+    else; CPU tensors run :func:`flash_attention_bwd_reference`."""
     _check_qkv(q3, k3, v3)
     if o3.shape != q3.shape or do3.shape != q3.shape or \
             lse.shape != (*q3.shape[:2], 1):

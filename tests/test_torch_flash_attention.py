@@ -195,6 +195,38 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing():
     assert _build._LIBS == libs
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_on_cpu_launches_nothing_and_returns_the_plain_version(dtype,
+                                                                   causal):
+    before, libs = ck.launch_counts(), dict(_build._LIBS)
+    rng = onp.random.RandomState(14)
+    q, k, v, do = (torch.from_numpy(rng.randn(3, 77, 24).astype(onp.float32))
+                   .to(dtype) for _ in range(4))
+    out, lse = ck._fwd(q, k, v, causal, 0.25)
+    grads = ck._bwd(q, k, v, out, lse, do, causal, 0.25)
+    refs = ck.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                            0.25)
+    assert all(g.dtype == dtype and torch.equal(g, r)
+               for g, r in zip(grads, refs))
+    assert ck.launch_counts() == before
+    assert _build._LIBS == libs
+
+
+def test_delta_is_rowsum_of_do_times_o():
+    rng = onp.random.RandomState(15)
+    o, do = (rng.randn(2, 33, 40).astype(onp.float32) for _ in range(2))
+    got = ck._delta(torch.from_numpy(o).to(torch.bfloat16),
+                    torch.from_numpy(do).to(torch.bfloat16))
+    o16, do16 = (torch.from_numpy(a).to(torch.bfloat16).double().numpy()
+                 for a in (o, do))
+    want = (o16 * do16).sum(-1, keepdims=True)
+    assert got.dtype == torch.float32 and got.shape == (2, 33, 1)
+    # fp32 sums of exact products: summation order only
+    onp.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                atol=1e-6 * onp.abs(o16 * do16).sum(-1).max())
+
+
 @pytest.mark.parametrize("d,ok", [(64, True), (128, True), (8, True),
                                   (16, True), (12, False), (136, False),
                                   (0, False), (4, False)])
@@ -288,3 +320,87 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         ck._fwd(q.transpose(0, 1).contiguous().transpose(0, 1), q, q,
                 False, 1.0)
+
+
+def _bwd_inputs(device, bh, s, d, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(bh, s, d, generator=g, device=device).to(dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,dtype,causal", [
+    (384, 128, 64, torch.bfloat16, False),
+    (4, 200, 128, torch.float16, True),
+    (2, 77, 24, torch.bfloat16, True),
+    (3, 65, 16, torch.float32, False),
+])
+def test_bwd_kernels_are_bitwise_repeatable(cuda_device, bh, s, d, dtype,
+                                            causal):
+    q, k, v, do = _bwd_inputs(cuda_device, bh, s, d, dtype, 2)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = ck._fwd(q, k, v, causal, scale)
+    first = ck._bwd(q, k, v, out, lse, do, causal, scale)
+    second = ck._bwd(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,dtype,causal", [
+    (384, 128, 64, torch.bfloat16, False),
+    (2, 200, 128, torch.float16, True),
+    (2, 77, 8, torch.bfloat16, False),
+    (3, 65, 40, torch.float32, True),
+])
+def test_dq_kernel_delta_matches_plain_delta(cuda_device, bh, s, d, dtype,
+                                             causal):
+    q, k, v, do = _bwd_inputs(cuda_device, bh, s, d, dtype, 3)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = ck._fwd(q, k, v, causal, scale)
+    n0 = ck.launch_counts()["flash_attention_bwd_dq"]
+    _, delta = ck._launch_bwd_dq(q, k, v, out, do, lse, causal, scale)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["flash_attention_bwd_dq"] == n0 + 1
+    want = ck._delta(out, do)
+    assert delta.dtype == torch.float32 and delta.shape == want.shape
+    # fp32 sums of the same exact products in another order
+    mag = (do.float() * out.float()).abs().sum(-1, keepdim=True)
+    assert bool(((delta - want).abs() <= 1e-6 * mag).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [77, 200])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float16, 2e-3)])
+@pytest.mark.parametrize("d", [8, 24, 40, 64, 72, 120, 128])
+def test_bwd_kernels_match_plain_at_every_head_dim(cuda_device, d, dtype,
+                                                   tol, causal, s):
+    # d padded to one 64-column TMA box (d <= 64) or two, rows past s
+    # zero-filled; max |kernel - plain| <= tol * max |plain| as chip_smoke.py
+    q, k, v, do = _bwd_inputs(cuda_device, 2, s, d, dtype, d + s)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = ck._fwd(q, k, v, causal, scale)
+    n0 = ck.launch_counts()
+    grads = ck._bwd(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    n1 = ck.launch_counts()
+    assert n1["flash_attention_bwd_dq"] == n0["flash_attention_bwd_dq"] + 1
+    assert n1["flash_attention_bwd_dkv"] == n0["flash_attention_bwd_dkv"] + 1
+    refs = ck.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                            scale)
+    for got, want in zip(grads, refs):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bwd_kernel_rejects_o_of_another_dtype(cuda_device):
+    q = torch.randn(2, 16, 32, device=cuda_device, dtype=torch.bfloat16)
+    out, lse = ck._fwd(q, q, q, False, 1.0)
+    with pytest.raises(TypeError, match="o and do"):
+        ck._bwd(q, q, q, out.float(), lse, q, False, 1.0)
+
