@@ -6,14 +6,20 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. Card and build: print the card's name and power limit (nvidia-smi), build
-   every CUDA kernel from ``mxnet_tpu_torch/ops/csrc`` and print the seconds.
+   every CUDA kernel from ``mxnet_tpu_torch/ops/csrc`` and print the seconds,
+   then each wgmma kernel's registers, shared memory and spills (the
+   forward, the backward and the matmul epilogue; fails on a spill).
 2. Forward kernel vs. plain version on the card: the flash-attention
    forward's ``out`` and ``lse`` against ``flash_attention_fwd_reference`` on
    the same inputs, at the LM's shapes and at ragged / fp32 / fp16 / other
-   head-dim / sharp-softmax cases, each within its stated tolerance. This
-   phase is the gate on the kernel: its inputs give scores of std 1 (or 8),
-   where a wrong q k^T or a wrong rescale across k-tiles shows. 16-bit cases
-   are also held to the rounding the kernel's design allows (``check_p16``).
+   head-dim / sharp-softmax cases, at the train step's shape (384, 128, 64),
+   and at every head dim of ``BWD_HEAD_DIMS`` in bf16 and fp16, causal and
+   not, at s in ``FWD_SEQS``, each within its stated tolerance. This phase
+   is the gate on the kernel: its inputs give scores of std 1 (or 8), where
+   a wrong q k^T or a wrong rescale across k-tiles shows. 16-bit cases are
+   also held to the rounding the kernel's design allows (``check_p16``).
+   Every case is held to bitwise repeatability of out and lse over two
+   calls, and to the kernel's q-tile choice being ``flash_fwd_q_tile``'s.
 2b. Backward kernels vs. plain version: ``dq``, ``dk``, ``dv`` of ``_bwd``
    (the dq kernel, which also computes delta, and the dk/dv kernel) against
    ``flash_attention_bwd_reference`` on the same (q, k, v, out, lse, do), out
@@ -42,7 +48,8 @@ Phases, in order; any failure exits non-zero before the result line:
    step at tokens (8, 512).
 4. Timings: each kernel, its plain version and the library call that
    computes the same function (``scaled_dot_product_attention`` and its
-   backward; never called by the port) at the main paths' shapes, each
+   backward; never called by the port) at the main paths' shapes (the
+   forward at both requests' and at the train step's), each
    timed as interleaved replays of a CUDA graph, beside its bound: the dq
    kernel (delta included), the dk/dv kernel, the whole backward as
    ``_bwd`` runs it, and the plain delta pass as a yardstick; median
@@ -52,9 +59,11 @@ Phases, in order; any failure exits non-zero before the result line:
 5. Epilogue kernels vs. plain version: ``matmul_stats`` and
    ``matmul_epilogue`` (``conv_bn_epilogue.cu``) against their plain
    versions, bf16 and fp32, ragged M, K in {64, 256, 1024}, N in {64, 256,
-   2048}, with and without the residual and the ReLU, and at every distinct
-   site shape of the ResNet-50 step (bf16 at batch 128, fp32 at batch 32);
-   the statistics must also be bitwise repeatable.
+   2048}, with and without the residual and the ReLU, at the narrow edges N
+   in {8, 24, 72} and K in {8, 24} with ragged M, and at every distinct site
+   shape of the ResNet-50 step (bf16 at batch 128, fp32 at batch 32); both
+   kernels' outputs must also be bitwise repeatable, and the epilogue
+   kernel's tile width ``epilogue_tile_n``'s.
 5b. Conv + batch-norm statistics kernels vs plain version: ``matmul_bn_stats``
    (``conv_bn_epilogue.cu``) and ``convkxk_bn_stats``
    (``convkxk_bn_stats.cu``) against their plain versions, bf16 and fp32,
@@ -84,7 +93,9 @@ Phases, in order; any failure exits non-zero before the result line:
    one step with both knobs on.
 7. ResNet timings: both epilogue kernels, their plain versions and
    ``torch.matmul`` of the same product at two site shapes, timed as CUDA
-   graph replays, each beside its bound; the bf16 step fused and unfused
+   graph replays, each beside its bound; ``matmul_epilogue`` and
+   ``torch.matmul`` at all 16 site shapes, and their sums over the 36
+   launches of a step beside the bound's; the bf16 step fused and unfused
    (10 interleaved steps after 3 warm-up); a profile of each.
 7b. The same for the conv + batch-norm kernels (library: ``torch.matmul``,
    cuDNN ``F.conv2d``) and for the step on that route.
@@ -152,6 +163,21 @@ ATTN_CASES = [
     (3, 65, 16, torch.float32, True, 1.0),
     (2, 1000, 128, torch.float32, False, 1.0),
 ]
+# The forward kernel at every head dim of the backward's cases: d padded to
+# one 64-column TMA box (8, 24, 40, 64) and to two (72, 120, 128), bf16 and
+# fp16, causal and not, at s of one row, of one 64-row q-tile and a row
+# (65), ragged (77, 200) and long (1000), so that the zero fill of columns
+# past d and of rows past s, and the stores' clipping, show
+FWD_SEQS = (1, 65, 77, 200, 1000)
+FWD_HEAD_DIM_CASES = [(2, s, d, dtype, causal, 1.0) for d in (8, 24, 40, 64,
+                                                              72, 120, 128)
+                      for dtype in (torch.bfloat16, torch.float16)
+                      for causal in (False, True) for s in FWD_SEQS]
+# the train path's attention shape, tokens (32, 128), 12 heads
+FWD_TRAIN_CASE = (384, 128, 64, torch.bfloat16, False, 1.0)
+# timed forward shapes (bh, s) at d 64, bf16: the two requests and the
+# train step's
+FWD_TIMED = [(48, 128), (96, 512), (384, 128)]
 # max |kernel - plain| <= atol + rtol * |plain|, per output and dtype. 16-bit:
 # the kernel rounds p to 16 bits before p v and both round out to 16 bits.
 OUT_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float16: (4e-3, 4e-3),
@@ -253,6 +279,13 @@ PROFILE_STEPS = 3
 EPI_MS = (1000, 3001)
 EPI_KS = (64, 256, 1024)
 EPI_NS = (64, 256, 2048)
+# ... and at the narrowest N and K the kernels take, where the copies'
+# zero fill and the stores' clipping do the work: N in {8, 24, 72} (inside
+# one 64- or 128-column tile) and K in {8, 24} (inside one 64-wide k-box),
+# ragged M
+EPI_EDGE_MS = (77, 1000)
+EPI_EDGE_KS = (8, 24)
+EPI_EDGE_NS = (8, 24, 72)
 # the ResNet-50 bf16 batch-128 sites that are timed: stage-1 conv3 and
 # stage-4 conv3, both with the residual
 EPI_SITES = [(401408, 64, 256), (6272, 512, 2048)]
@@ -294,6 +327,11 @@ RESNET_SITE_SHAPES = [
                  (side, cin, 4 * mid, False, False),
                  (side, mid, 4 * mid, True, True),
                  (side, 4 * mid, mid, False, True))]
+# launches of each site shape per step: blocks (3, 4, 6, 3) per stage; the
+# first block's conv1 and downsample once, conv3 in every block, the other
+# blocks' conv1 in all but the first
+RESNET_BLOCKS = (3, 4, 6, 3)
+RESNET_SITE_LAUNCHES = [n for nb in RESNET_BLOCKS for n in (1, 1, nb, nb - 1)]
 BN_EPS = 1e-5              # the zoo's BatchNorm epsilon
 # The fp32 fused-vs-unfused steps run at FP32_LR, where the first update
 # moves a 1x1 conv weight by about 1% of its norm: there the steps stay
@@ -640,43 +678,80 @@ def build_phase(_build) -> str:
                                       for k, v in per_src.items()}))
     for name in per_src:
         print(f"  ptxas {name}: {ptxas_summary(_build.build_log(name))}")
-    bwd_wgmma_report(_build)
+    wgmma_report(_build)
     return card_line
 
 
-def bwd_wgmma_report(_build) -> None:
-    """The ptxas report of each wgmma backward kernel (registers, spills,
-    stack) beside its dynamic shared memory; fails on a spill or a stack
-    frame."""
-    log = _build.build_log("flash_attention_bwd")
-    smem = _build.load("flash_attention_bwd").mxt_flash_attention_bwd_smem
-    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
-    kern, seen = None, 0
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(dq|dkv)_wgmmaI"
-                      r"\d+(__nv_bfloat16|__half)Li(\d+)E", line)
-        if m:
-            kern, spill, stack = m.groups(), 0, 0
-            continue
-        if kern is None:
-            continue
-        if "spill" in line:
-            spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
-                                                   line))
-            stack = int(re.search(r"(\d+) bytes stack frame", line)[1])
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            which, dtype, hdp = kern
-            nbytes = smem(0 if which == "dq" else 1, int(hdp))
-            print(f"  ptxas {which}_wgmma<{dtype.strip('_')}, {hdp}>: "
-                  f"{m[1]} registers, {nbytes} bytes of dynamic shared "
-                  f"memory, {spill} bytes of spill, {stack} bytes of stack")
-            if spill or stack:
-                fail(f"{which}_wgmma<{dtype}, {hdp}> spills or uses a stack")
-            kern, seen = None, seen + 1
-    if log and seen != 4 * 2:
-        fail(f"the build log reports {seen} wgmma backward kernels, want 8 "
-             f"(dq, dk/dv x bf16, fp16 x head dims 64, 128)")
+def _c_int_fn(_build, source, symbol, n_args):
+    fn = getattr(_build.load(source), symbol)
+    fn.argtypes, fn.restype = [ctypes.c_int] * n_args, ctypes.c_int
+    return fn
+
+
+# Each wgmma kernel, by source: a pattern of its mangled name, the template
+# arguments it names, and how many instantiations the build must report
+WGMMA_KERNELS = {
+    "flash_attention_fwd": (r"fwd_wgmmaI\d+(__nv_bfloat16|__half)Li(\d)ELi"
+                            r"(\d+)E", 8),
+    "flash_attention_bwd": (r"(dq|dkv)_wgmmaI\d+(__nv_bfloat16|__half)Li"
+                            r"(\d+)E", 8),
+    "conv_bn_epilogue": (r"epilogue_wgmmaILi(\d+)ELi(\d)E", 4),
+}
+
+
+def wgmma_report(_build) -> None:
+    """The ptxas report of each wgmma kernel (registers, spills, stack)
+    beside its dynamic shared memory; fails on a spill or a stack frame, or
+    on a kernel missing from a build log."""
+    fwd_smem = _c_int_fn(_build, "flash_attention_fwd",
+                         "mxt_flash_attention_fwd_smem", 2)
+    bwd_smem = _c_int_fn(_build, "flash_attention_bwd",
+                         "mxt_flash_attention_bwd_smem", 2)
+    epi_config = _c_int_fn(_build, "conv_bn_epilogue",
+                           "mxt_matmul_epilogue_config", 3)
+
+    def describe(source, args):
+        if source == "flash_attention_fwd":
+            dtype, nwg, hdp = args
+            return (f"fwd_wgmma<{dtype.strip('_')}, {nwg}, {hdp}>",
+                    fwd_smem(64 * int(nwg), int(hdp)))
+        if source == "flash_attention_bwd":
+            which, dtype, hdp = args
+            return (f"{which}_wgmma<{dtype.strip('_')}, {hdp}>",
+                    bwd_smem(0 if which == "dq" else 1, int(hdp)))
+        bn, nrb = int(args[0]), int(args[1])
+        k = 64 if nrb == 2 else 4096      # the ring depth follows K
+        stages = epi_config(bn, k, 1)
+        return (f"epilogue_wgmma<{bn}, {nrb}> ({stages}-stage ring, {nrb} "
+                f"tile buffer{'s' if nrb > 1 else ''})",
+                epi_config(bn, k, 0))
+
+    for source, (pattern, want) in WGMMA_KERNELS.items():
+        log = _build.build_log(source)
+        kern, seen = None, 0
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '\S*?" + pattern, line)
+            if m:
+                kern, spill, stack = m.groups(), 0, 0
+                continue
+            if kern is None:
+                continue
+            if "spill" in line:
+                spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill",
+                                                       line))
+                stack = int(re.search(r"(\d+) bytes stack frame", line)[1])
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                name, nbytes = describe(source, kern)
+                print(f"  ptxas {name}: {m[1]} registers, {nbytes} bytes of "
+                      f"dynamic shared memory, {spill} bytes of spill, "
+                      f"{stack} bytes of stack")
+                if spill or stack:
+                    fail(f"{name} spills or uses a stack")
+                kern, seen = None, seen + 1
+        if log and seen != want:
+            fail(f"the build log of {source} reports {seen} wgmma kernels, "
+                 f"want {want}")
 
 
 def ptxas_summary(log: str) -> str:
@@ -696,15 +771,28 @@ def ptxas_summary(log: str) -> str:
 # -- 2. ----------------------------------------------------------------------
 
 
-def fwd_kernel_phase(ck) -> float:
+def fwd_kernel_phase(ck, _build) -> float:
     """Phase 2; returns the max abs err of out at the forward path's
     shapes."""
     main_err = 0.0
-    for i, (bh, s, d, dtype, causal, q_scale) in enumerate(ATTN_CASES):
+    q_tile = _c_int_fn(_build, "flash_attention_fwd",
+                       "mxt_flash_attention_fwd_q_tile", 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = ATTN_CASES + [FWD_TRAIN_CASE] + FWD_HEAD_DIM_CASES
+    for i, (bh, s, d, dtype, causal, q_scale) in enumerate(cases):
         q, k, v = attn_inputs(bh, s, d, dtype, seed=i, q_scale=q_scale)
         scale = 1.0 / math.sqrt(d)
         out, lse = ck._fwd(q, k, v, causal, scale)
+        again = ck._fwd(q, k, v, causal, scale)
         torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            fail(f"case {i} {(bh, s, d, str(dtype), causal)}: out or lse "
+                 f"differs between two calls")
+        rows = q_tile(bh, s, d, ck._FLASH_DTYPES[dtype])
+        if rows != ck.flash_fwd_q_tile(bh, s, dtype, sms):
+            fail(f"case {i}: the kernel takes q-tiles of {rows} rows, "
+                 f"flash_fwd_q_tile says "
+                 f"{ck.flash_fwd_q_tile(bh, s, dtype, sms)}")
         ref_out, ref_lse = ck.flash_attention_fwd_reference(q, k, v, causal,
                                                              scale)
         if out.shape != ref_out.shape or out.dtype != ref_out.dtype or \
@@ -731,8 +819,12 @@ def fwd_kernel_phase(ck) -> float:
             p16 = (f"; vs exact fp32 {exact_err:.3e}, p-rounding gap "
                    f"{gap:.3e}, max excess over half an ulp {excess:.3e}")
         print(f"kernel vs plain: bh={bh} s={s} d={d} {str(dtype)[6:]} "
-              f"causal={causal} q*{q_scale:g}: max abs err out {errs[0]:.3e} "
-              f"lse {errs[1]:.3e}{p16}  ok")
+              f"causal={causal} q*{q_scale:g}, {rows}-row q-tiles: max abs "
+              f"err out {errs[0]:.3e} lse {errs[1]:.3e}{p16}; bitwise "
+              f"repeatable  ok")
+    print(f"forward kernel: out and lse bitwise equal over two calls in all "
+          f"{len(cases)} cases; the q-tile rule of flash_fwd_q_tile matches "
+          f"the kernel's on {sms} SMs")
     torch.cuda.synchronize()
     return main_err
 
@@ -1022,8 +1114,12 @@ def train_path(models, ck, cfg, init, rng):
 
 
 def fwd_timings(ck, cfg, card_line) -> dict:
+    """The forward kernel, its plain version and SDPA's forward at the two
+    requests' and the train step's shapes, by (bh, s)."""
     attn_times = {}
-    for bh, s, d, dtype, causal, _ in ATTN_CASES[:2]:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    dtype, d, causal = torch.bfloat16, 64, False
+    for bh, s in FWD_TIMED:
         q, k, v = attn_inputs(bh, s, d, dtype, seed=100)
         scale = 1.0 / math.sqrt(d)
         B = bh // cfg.num_heads
@@ -1037,12 +1133,16 @@ def fwd_timings(ck, cfg, card_line) -> dict:
         bound, bound_by = attn_bound_ms(bh, s, d, dtype, causal)
         attn_times[(bh, s)] = dict(bound_ms=bound, bound_by=bound_by, **{
             key: statistics.median(t) for key, t in times.items()})
-        print(f"flash fwd bh={bh} s={s} d={d} bf16, {TIMING_ROUNDS} "
-              f"interleaved rounds of a CUDA graph of {TIMING_ITERS} calls: "
-              + ", ".join(
+        med = attn_times[(bh, s)]
+        print(f"flash fwd bh={bh} s={s} d={d} bf16, "
+              f"{ck.flash_fwd_q_tile(bh, s, dtype, sms)}-row q-tiles, "
+              f"{TIMING_ROUNDS} interleaved rounds of a CUDA graph of "
+              f"{TIMING_ITERS} calls: " + ", ".join(
                   f"{what} {spread(t)}" for what, t in zip(
                       ("kernel", "plain", "sdpa"), times.values()))
-              + f"; bound {bound:.5f} ms ({bound_by}) [{card_line}]")
+              + f"; bound {bound:.5f} ms ({bound_by}), "
+              f"{med['ms'] / bound:.2f}x it, "
+              f"{med['ms'] / med['library_ms']:.2f}x sdpa [{card_line}]")
     return attn_times
 
 
@@ -1229,7 +1329,11 @@ def check_stats(ck, x, w, what) -> float:
 
 
 def check_epilogue(ck, x, w, sc, sh, r, relu, what) -> float:
+    """matmul_epilogue against its plain version, and bitwise equal over two
+    calls; returns the max abs err."""
     out = ck.matmul_epilogue(x, w, sc, sh, r, relu)
+    if not torch.equal(out, ck.matmul_epilogue(x, w, sc, sh, r, relu)):
+        fail(f"{what}: matmul_epilogue is not bitwise repeatable")
     ref = ck.matmul_epilogue_reference(x, w, sc, sh, r, relu)
     if out.shape != ref.shape or out.dtype != x.dtype:
         fail(f"{what}: out {out.shape} {out.dtype}")
@@ -1243,9 +1347,36 @@ def check_epilogue(ck, x, w, sc, sh, r, relu, what) -> float:
     return err.max().item()
 
 
-def epilogue_kernel_phase(ck) -> dict:
+def epilogue_kernel_phase(ck, _build) -> dict:
     """Phase 5; returns the max abs err of each kernel at the timed
     sites."""
+    tile_n = _c_int_fn(_build, "conv_bn_epilogue",
+                       "mxt_matmul_epilogue_tile_n", 1)
+    for n in sorted({*EPI_NS, *EPI_EDGE_NS,
+                     *(n for _, _, n, _, _ in RESNET_SITE_SHAPES)}):
+        if tile_n(n) != ck.epilogue_tile_n(n):
+            fail(f"N {n}: the epilogue kernel takes tiles of {tile_n(n)} "
+                 f"columns, epilogue_tile_n says {ck.epilogue_tile_n(n)}")
+    seed = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = (-1.0, None)
+        for m in EPI_EDGE_MS:
+            for k in EPI_EDGE_KS:
+                for n in EPI_EDGE_NS:
+                    seed += 1
+                    x, w, sc, sh, r = epi_inputs(m, k, n, dtype, 900 + seed)
+                    what = f"edge ({m}, {k}, {n}) {str(dtype)[6:]}"
+                    for res in (None, r):
+                        for relu in (False, True):
+                            worst = max(worst, (check_epilogue(
+                                ck, x, w, sc, sh, res, relu, what),
+                                (m, k, n, res is not None, relu)),
+                                key=lambda t: t[0])
+        print(f"epilogue kernel vs plain at the narrow edges, "
+              f"{str(dtype)[6:]}: M {EPI_EDGE_MS} x K {EPI_EDGE_KS} x N "
+              f"{EPI_EDGE_NS}, with and without the residual and the relu: "
+              f"all within bounds and bitwise repeatable; largest abs err "
+              f"{worst[0]:.3e} at (M, K, N, residual, relu) {worst[1]}  ok")
     seed = 0
     for dtype in (torch.bfloat16, torch.float32):
         worst_s = worst_e = (-1.0, None)
@@ -1265,7 +1396,8 @@ def epilogue_kernel_phase(ck) -> dict:
                                 (m, k, n, res is not None, relu)), key=first)
         print(f"epilogue kernels vs plain, {str(dtype)[6:]}: M {EPI_MS} x "
               f"K {EPI_KS} x N {EPI_NS}, epilogue with and without the "
-              f"residual and the relu: all within bounds; largest stats "
+              f"residual and the relu: all within bounds, both bitwise "
+              f"repeatable; largest stats "
               f"|Δ| {worst_s[0]:.3e} at {worst_s[1]}, largest epilogue abs "
               f"err {worst_e[0]:.3e} at (M, K, N, residual, relu) "
               f"{worst_e[1]}  ok")
@@ -1827,11 +1959,12 @@ def resnet_reference_recipe(mx, ck, resnet, config) -> None:
 # -- 7. ----------------------------------------------------------------------
 
 
-def epi_bound_ms(m, k, n, with_out):
-    """Least time: x and w read once, and (with_out) the residual read and
-    the output written once (bf16), else 2N fp32 statistics written; 2MKN
-    bf16 tensor-core operations of the product."""
-    nbytes = 2 * (m * k + k * n) + (4 * m * n + 8 * n if with_out else 8 * n)
+def epi_bound_ms(m, k, n, with_out, with_res=True):
+    """Least time: x and w read once, and (with_out) the output written
+    once (bf16) and, with_res, the residual read once, else 2N fp32
+    statistics written; 2MKN bf16 tensor-core operations of the product."""
+    nbytes = 2 * (m * k + k * n) + (
+        (2 + 2 * with_res) * m * n + 8 * n if with_out else 8 * n)
     t_mem = nbytes / HBM_BYTES_PER_S
     t_ops = 2 * m * k * n / PEAK_FLOPS[torch.bfloat16]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
@@ -1869,6 +2002,48 @@ def epilogue_timings(ck, card_line) -> dict:
               f"computes neither the statistics nor the epilogue: "
               f"{spread(times['torch.matmul'])} [{card_line}]")
     return out
+
+
+def epilogue_site_timings(ck, card_line) -> dict:
+    """matmul_epilogue and torch.matmul of the same product at every
+    distinct site shape of the bf16 batch-128 step, with the site's residual
+    and relu, beside the bound (the residual counted where the site has
+    one); then the sums over the 36 launches of a step."""
+    sites = []
+    for i, ((side, k, n, res, relu), launches) in enumerate(
+            zip(RESNET_SITE_SHAPES, RESNET_SITE_LAUNCHES)):
+        m = RESNET_BATCH * side * side
+        x, w, sc, sh, r = epi_inputs(m, k, n, torch.bfloat16, seed=800 + i)
+        r = r if res else None
+        times = time_ms({
+            "ms": lambda: ck.matmul_epilogue(x, w, sc, sh, r, relu),
+            "library_ms": lambda: torch.matmul(x, w)})
+        bound, bound_by = epi_bound_ms(m, k, n, True, res)
+        site = dict(shape=[m, k, n, "bf16"], residual=res, relu=relu,
+                    launches=launches, bound_ms=bound, bound_by=bound_by,
+                    tile_n=ck.epilogue_tile_n(n), **{
+                        key: statistics.median(t)
+                        for key, t in times.items()})
+        sites.append(site)
+        print(f"matmul_epilogue site ({m}, {k}, {n}) residual={res} "
+              f"relu={relu}, x{launches} per step, "
+              f"{site['tile_n']}-column tiles: kernel {spread(times['ms'])}, "
+              f"torch.matmul {spread(times['library_ms'])}; bound "
+              f"{bound:.5f} ms ({bound_by}), {site['ms'] / bound:.2f}x it "
+              f"[{card_line}]")
+        del x, w, sc, sh, r
+    if sum(RESNET_SITE_LAUNCHES) != RESNET_SITES:
+        fail(f"RESNET_SITE_LAUNCHES sums to {sum(RESNET_SITE_LAUNCHES)}, "
+             f"want {RESNET_SITES}")
+    step = {key: sum(t["launches"] * t[key] for t in sites)
+            for key in ("ms", "bound_ms", "library_ms")}
+    step["over_bound_ms"] = step["ms"] - step["bound_ms"]
+    print(f"matmul_epilogue over the {sum(RESNET_SITE_LAUNCHES)} launches of "
+          f"a step: {step['ms']:.4f} ms against a bound of "
+          f"{step['bound_ms']:.4f} ms; sum of launches x (time - bound) "
+          f"{step['over_bound_ms']:.4f} ms; torch.matmul of the bare "
+          f"products {step['library_ms']:.4f} ms [{card_line}]")
+    return dict(sites=sites, step=step)
 
 
 def resnet_timings(resnet, config, step, card_line,
@@ -2424,9 +2599,9 @@ def main() -> int:
 
     card_line = build_phase(_build)
     ck.reset_launch_counts()
-    fwd_err = fwd_kernel_phase(ck)
+    fwd_err = fwd_kernel_phase(ck, _build)
     bwd_err = bwd_kernel_phase(ck)
-    epi_err = epilogue_kernel_phase(ck)
+    epi_err = epilogue_kernel_phase(ck, _build)
     cbn_err = conv_bn_kernel_phase(ck)
     print(f"launch counts after the comparisons: {ck.launch_counts()}")
 
@@ -2455,6 +2630,7 @@ def main() -> int:
                                                   card_line)
     site_backward_phase(ck, nn_ops)
     epi_times = epilogue_timings(ck, card_line)
+    epi_sites = epilogue_site_timings(ck, card_line)
     resnet_timings(resnet, config, step, card_line)
     del _net, step
     torch.cuda.empty_cache()
@@ -2483,17 +2659,22 @@ def main() -> int:
                 "launches_by_path": by_path}
 
     t = attn_times[(96, 512)]
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/flash_attention_fwd.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:49",
+        "design": "persistent TMA + wgmma (fwd_wgmma): 128-key K/V ring of "
+                  "2 stages, P as register A of P V, ex2.approx, mask on "
+                  "edge tiles only, 64- or 128-row q-tiles, TMA store",
         **launches("flash_attention_fwd"),
-        "max_abs_err": fwd_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"], "shape": [96, 512, 64, "bf16"],
+        "max_abs_err": fwd_err, **{k: t[k] for k in keys},
+        "library": "scaled_dot_product_attention forward",
+        "shape": [96, 512, 64, "bf16"],
+        **{f"at_{bh}_{s}_64": {k: attn_times[(bh, s)][k] for k in keys}
+           for bh, s in FWD_TIMED if (bh, s) != (96, 512)},
     }]
     bh, s = TRAIN_TOKENS[0] * cfg.num_heads, TRAIN_TOKENS[1]
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, line in (("flash_attention_bwd_dq", 95),
                        ("flash_attention_bwd_dkv", 126)):
         t = bwd_times[(name, bh, s)]
@@ -2512,19 +2693,28 @@ def main() -> int:
                 "backward": {k: bwd_times[("backward", 96, 512)][k]
                              for k in keys}},
         })
-    for name, line in (("matmul_stats", 512), ("matmul_epilogue", 574)):
+    for name, line, design in (
+            ("matmul_stats", 512, "mma.sync GEMM (stats_bf16), 2-stage "
+             "cp.async ring, per-CTA partial sums"),
+            ("matmul_epilogue", 574, "persistent TMA + wgmma GEMM "
+             "(epilogue_wgmma): 128-row tiles of 64/128/256 columns, n-tile "
+             "fastest, k-box ring, residual by TMA into a tile buffer, "
+             "epilogue in place, TMA store")):
         sites = [dict(shape=[m, k, n, "bf16"], **epi_times[(name, m, k, n)])
                  for m, k, n in EPI_SITES]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mxnet_tpu_torch/ops/csrc/conv_bn_epilogue.cu",
             "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
+            "design": design,
             **launches(name), "max_abs_err": epi_err[name],
-            **{k: sites[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
+            **{k: sites[0][k] for k in keys},
             "library": "torch.matmul of the same product, which computes "
                        "neither the statistics nor the epilogue",
             "shape": sites[0]["shape"], "sites": sites,
+            **({"all_sites": epi_sites["sites"],
+                "per_step": epi_sites["step"]}
+               if name == "matmul_epilogue" else {}),
         })
     for name, line, src in (("matmul_bn_stats", 316, "conv_bn_epilogue"),
                             ("convkxk_bn_stats", 880, "convkxk_bn_stats")):

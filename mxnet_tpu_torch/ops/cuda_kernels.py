@@ -39,6 +39,7 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd_reference",
            "flash_attention_bwd_reference", "flash_head_dim_ok",
+           "flash_fwd_q_tile", "epilogue_tile_n",
            "matmul_stats", "matmul_stats_reference", "matmul_epilogue",
            "matmul_epilogue_reference", "epilogue_fits",
            "conv1x1_bn_act_train", "matmul_bn_stats",
@@ -72,11 +73,25 @@ def reset_launch_counts() -> None:
 
 
 def flash_head_dim_ok(head_dim: int) -> bool:
-    """Whether the flash-attention kernel takes this head dim: a multiple of
-    8 (rows are read as 16-byte vectors) and at most 128 (the Q fragments and
-    the output accumulator of a warp's 16 rows stay in registers). Any
-    sequence length is taken: the kernel masks the ragged last tile."""
+    """Whether the flash-attention kernels take this head dim: a multiple of
+    8 (a TMA map's row stride is a multiple of 16 bytes; the fp32 kernels
+    read 16-byte vectors) and at most 128 (two 64-column TMA boxes, and the
+    output accumulator of a warpgroup's 64 rows stays in registers). Any
+    sequence length is taken: the copies zero-fill the ragged last tile and
+    the kernels mask it."""
     return head_dim % 8 == 0 and 8 <= head_dim <= 128
+
+
+def flash_fwd_q_tile(bh: int, s: int, dtype, sm_count: int) -> int:
+    """Query rows per CTA of the forward kernel on a card with ``sm_count``
+    SMs, as ``q_rows`` in ``csrc/flash_attention_fwd.cu`` chooses them (its
+    ``mxt_flash_attention_fwd_q_tile`` reports the choice on the card): 64
+    for float32; for 16-bit inputs 128 (two consumer warpgroups) where
+    bh * ceil(s / 128) such CTAs fill every SM, else 64, so that a small
+    request still spreads over the card."""
+    if dtype == torch.float32:
+        return 64
+    return 128 if bh * -(-s // 128) >= sm_count else 64
 
 
 # ---------------------------------------------------------------------------
@@ -344,12 +359,23 @@ _MM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def epilogue_fits(m: int, k: int, n: int, dtype) -> bool:
     """Whether the matmul-stats and matmul-epilogue kernels take an (m, k) x
-    (k, n) product: fp32 or bf16, k and n multiples of 8 (rows are read as
-    16-byte vectors, columns stored in pairs), any m >= 1 (the kernels mask
-    the ragged last m-tile). A Hopper rule of the port's own: the TPU's
+    (k, n) product: fp32 or bf16, k and n multiples of 8 (the TMA maps' row
+    strides are multiples of 16 bytes; the other kernels read 16-byte
+    vectors), any m >= 1 (the copies zero-fill the ragged last m-tile and
+    the stores clip it). A Hopper rule of the port's own: the TPU's
     ``fused_blocks`` models Mosaic's (8, 128) tiling instead."""
     return (dtype in _MM_DTYPES and m >= 1 and k >= 8 and n >= 8
             and k % 8 == 0 and n % 8 == 0)
+
+
+def epilogue_tile_n(n: int) -> int:
+    """Output columns per tile of the bf16 matmul-epilogue kernel, as
+    ``wg::tile_n`` in ``csrc/conv_bn_epilogue.cu`` chooses them (its
+    ``mxt_matmul_epilogue_tile_n`` reports the choice): the least of 64, 128
+    and 256 that covers n, so that one tile spans the whole of n up to 256
+    and x is read once; 256 for wider n, whose tiles of one row block run
+    next to each other."""
+    return 64 if n <= 64 else 128 if n <= 128 else 256
 
 
 def matmul_stats_reference(x, w) -> Tuple[torch.Tensor, torch.Tensor]:

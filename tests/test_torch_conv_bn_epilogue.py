@@ -290,3 +290,84 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, m, k, n):
     torch.testing.assert_close(ss, rss, rtol=1e-5, atol=1e-3)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(out.float(), ro.float(), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 matmul-epilogue kernel's host-side rules (on the CPU) and its
+# edges (on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,cols", [(8, 64), (64, 64), (72, 128), (128, 128),
+                                    (136, 256), (256, 256), (512, 256),
+                                    (2048, 256)])
+def test_epilogue_tile_n_rule(n, cols):
+    # one tile spans the whole of N up to 256 columns, so x is read once
+    assert ck.epilogue_tile_n(n) == cols
+
+
+def test_kernel_operands_refuse_what_the_tma_maps_cannot_take():
+    # the residual and output maps need 16-byte aligned bases and rows laid
+    # out contiguously; the checks run before any launch, so they hold on
+    # the CPU too
+    x = torch.zeros(16, 8, dtype=torch.bfloat16)
+    w = torch.zeros(8, 16, dtype=torch.bfloat16)
+    r = torch.zeros(16, 16, dtype=torch.bfloat16)
+    assert ck._kernel_operands("matmul_epilogue", x, w,
+                               residual=r).shape == (16, 8)
+    shifted = torch.zeros(16 * 16 + 1, dtype=torch.bfloat16)[1:].view(16, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck._kernel_operands("matmul_epilogue", x, w, residual=shifted)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck._kernel_operands("matmul_epilogue", x, w, residual=r.t())
+
+
+@pytest.fixture
+def bf16_epilogue_inputs(cuda_device):
+    def make(m, k, n, seed):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        x = torch.randn(m, k, generator=g, device=cuda_device) \
+            .to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device=cuda_device)
+             / k ** 0.5).to(torch.bfloat16).t()
+        sc = torch.rand(n, generator=g, device=cuda_device) + 0.5
+        sh = torch.randn(n, generator=g, device=cuda_device)
+        r = torch.randn(m, n, generator=g, device=cuda_device) \
+            .to(torch.bfloat16)
+        return x, w, sc, sh, r
+    return make
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("m,k,n", [(77, 8, 8), (77, 24, 72), (1000, 8, 24),
+                                   (1000, 24, 72), (129, 8, 136),
+                                   (300, 512, 256), (300, 256, 520)])
+def test_epilogue_kernel_matches_plain_at_the_edges(bf16_epilogue_inputs, m,
+                                                    k, n, res, relu):
+    # N and K inside one tile or k-box (the copies' zero fill and the
+    # stores' clipping do the work), ragged M, the deep ring of 256-column
+    # tiles (K >= 256) and N past 256; chip_smoke.py's EPI_TOL
+    x, w, sc, sh, r = bf16_epilogue_inputs(m, k, n, m + k + n)
+    r = r if res else None
+    n0 = ck.launch_counts()["matmul_epilogue"]
+    out = ck.matmul_epilogue(x, w, sc, sh, r, relu)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["matmul_epilogue"] == n0 + 1
+    ref = ck.matmul_epilogue_reference(x, w, sc, sh, r, relu)
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(401408, 64, 256), (6272, 512, 2048),
+                                   (1000, 24, 72)])
+def test_epilogue_kernel_is_bitwise_repeatable(bf16_epilogue_inputs, m, k,
+                                               n):
+    x, w, sc, sh, r = bf16_epilogue_inputs(m, k, n, 7)
+    first = ck.matmul_epilogue(x, w, sc, sh, r, True)
+    second = ck.matmul_epilogue(x, w, sc, sh, r, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -404,3 +404,104 @@ def test_bwd_kernel_rejects_o_of_another_dtype(cuda_device):
     with pytest.raises(TypeError, match="o and do"):
         ck._bwd(q, q, q, out.float(), lse, q, False, 1.0)
 
+
+
+# --------------------------------------------------------------------------
+# the forward kernel's host-side rules (on the CPU) and its edges (on the
+# card)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bh,s,dtype,sms,rows", [
+    (48, 128, torch.bfloat16, 132, 64),     # the (4, 128) request: 96 CTAs
+    (96, 512, torch.bfloat16, 132, 128),    # the (8, 512) request
+    (384, 128, torch.float16, 132, 128),    # the train step's (32, 128)
+    (132, 128, torch.bfloat16, 132, 128),   # 128-row items fill every SM
+    (131, 128, torch.bfloat16, 132, 64),    # ... one short of it
+    (66, 129, torch.bfloat16, 132, 128),    # a ragged second q-tile counts
+    (2, 1, torch.float16, 132, 64),
+    (384, 128, torch.float32, 132, 64),     # fp32: the FMA kernel's tile
+    (96, 512, torch.bfloat16, 400, 64),     # a card with more SMs
+])
+def test_flash_fwd_q_tile_rule(bh, s, dtype, sms, rows):
+    assert ck.flash_fwd_q_tile(bh, s, dtype, sms) == rows
+
+
+def test_kernel_input_checks_refuse_what_the_tma_maps_cannot_take():
+    # a TMA map needs a 16-byte aligned base and rows laid out contiguously;
+    # the checks run before any launch, so they hold on the CPU too
+    q = torch.zeros(2, 16, 40, dtype=torch.bfloat16)
+    ck._check_kernel_inputs("forward", 40, q.dtype, q=q)
+    shifted = torch.zeros(2 * 16 * 40 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ck._check_kernel_inputs("forward", 40, q.dtype,
+                                q=shifted.view(2, 16, 40))
+    with pytest.raises(ValueError, match="contiguous"):
+        ck._check_kernel_inputs("forward", 40, q.dtype,
+                                q=q.transpose(0, 1).contiguous()
+                                .transpose(0, 1))
+    with pytest.raises(ValueError, match="head_dim"):
+        ck._check_kernel_inputs("forward", 36, q.dtype, q=q[..., :36])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 65, 1000])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,atol", [(torch.bfloat16, 2e-2),
+                                        (torch.float16, 4e-3)])
+@pytest.mark.parametrize("d", [8, 24, 40, 64, 72, 120, 128])
+def test_kernel_matches_plain_at_every_head_dim(cuda_device, d, dtype, atol,
+                                                causal, s):
+    # d padded to one 64-column TMA box (d <= 64) or two, rows past s
+    # zero-filled on load and clipped on store; chip_smoke.py's OUT_TOL and
+    # LSE_TOL
+    g = torch.Generator(device=cuda_device).manual_seed(d + s)
+    q, k, v = (torch.randn(2, s, d, generator=g, device=cuda_device)
+               .to(dtype) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    n0 = ck.launch_counts()["flash_attention_fwd"]
+    out, lse = ck._fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["flash_attention_fwd"] == n0 + 1
+    ref_out, ref_lse = ck.flash_attention_fwd_reference(q, k, v, causal,
+                                                        scale)
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=atol,
+                               rtol=atol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,s,d,dtype,causal", [
+    (96, 512, 64, torch.bfloat16, False),   # 128-row q-tiles, persistent
+    (384, 128, 64, torch.bfloat16, True),
+    (48, 128, 64, torch.bfloat16, False),   # 64-row q-tiles
+    (2, 77, 24, torch.float16, True),
+    (3, 65, 16, torch.float32, False),
+])
+def test_kernel_is_bitwise_repeatable(cuda_device, bh, s, d, dtype, causal):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+               .to(dtype) for _ in range(3))
+    first = ck._fwd(q, k, v, causal, 1.0 / math.sqrt(d))
+    second = ck._fwd(q, k, v, causal, 1.0 / math.sqrt(d))
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sm_scale", [-0.125, 0.0])
+def test_kernel_takes_any_scale(cuda_device, sm_scale):
+    # a negative scale flips the scores' order (the kernel negates them);
+    # a zero scale makes every kept key equally likely
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(4, 200, 64, generator=g, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    for causal in (False, True):
+        out, lse = ck._fwd(q, k, v, causal, sm_scale)
+        ref_out, ref_lse = ck.flash_attention_fwd_reference(q, k, v, causal,
+                                                            sm_scale)
+        torch.testing.assert_close(out.float(), ref_out.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-5)
