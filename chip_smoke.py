@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero before the result line:
 1. Card and build: print the card's name and power limit (nvidia-smi), build
    every CUDA kernel from ``mxnet_tpu_torch/ops/csrc`` and print the seconds,
    then each wgmma kernel's registers, shared memory and spills (the
-   forward, the backward and the matmul epilogue; fails on a spill).
+   forward, the backward, and the GEMM core's matmul epilogue and
+   statistics kernels; fails on a spill).
 2. Forward kernel vs. plain version on the card: the flash-attention
    forward's ``out`` and ``lse`` against ``flash_attention_fwd_reference`` on
    the same inputs, at the LM's shapes and at ragged / fp32 / fp16 / other
@@ -63,13 +64,16 @@ Phases, in order; any failure exits non-zero before the result line:
    in {8, 24, 72} and K in {8, 24} with ragged M, and at every distinct site
    shape of the ResNet-50 step (bf16 at batch 128, fp32 at batch 32); both
    kernels' outputs must also be bitwise repeatable, and the epilogue
-   kernel's tile width ``epilogue_tile_n``'s.
+   kernel's tile width ``epilogue_tile_n``'s. ``matmul_stats`` also at the
+   edges with N in ``STATS_EDGE_NS`` and at ``STATS_WALK_CASES``, where
+   every CTA sums several m-tiles of its n-tile.
 5b. Conv + batch-norm statistics kernels vs plain version: ``matmul_bn_stats``
    (``conv_bn_epilogue.cu``) and ``convkxk_bn_stats``
    (``convkxk_bn_stats.cu``) against their plain versions, bf16 and fp32,
    ragged M, the ``KXK_CASES`` geometries with the image border scaled by
-   ``BORDER``, and every distinct site shape of the ResNet-50 step; the
-   statistics must also be bitwise repeatable.
+   ``BORDER``, and every distinct site shape of the ResNet-50 step, and
+   ``matmul_bn_stats`` at the edges and walks of phase 5, with and without
+   the relu; the statistics must also be bitwise repeatable.
 6. The ResNet train path (``MXNET_FUSED_EPILOGUE=1``): the Gluon
    ResNet-50 v1 (NHWC, 1000 classes, Xavier from a seeded generator) takes
    5 SGD-momentum steps (momentum 0.9, wd 1e-4: ``bench.py``'s ResNet lane,
@@ -98,7 +102,10 @@ Phases, in order; any failure exits non-zero before the result line:
    launches of a step beside the bound's; the bf16 step fused and unfused
    (10 interleaved steps after 3 warm-up); a profile of each.
 7b. The same for the conv + batch-norm kernels (library: ``torch.matmul``,
-   cuDNN ``F.conv2d``) and for the step on that route.
+   cuDNN ``F.conv2d``) and for the step on that route; ``matmul_stats`` and
+   ``matmul_bn_stats`` and ``torch.matmul`` at every distinct 1x1 site
+   shape, and each kernel's sums over the 36 launches of a step beside its
+   bound's.
 9. int8: the path of ``benchmark/microbench_tpu.py`` ``section_int8_pallas``
    and the int8 op surface. (a) ``int8_matmul`` (``int8_matmul.cu``) at
    (M, K, N) = (25088, 512, 128) (ResNet-50's 1x1 conv at batch 32, 28x28,
@@ -286,6 +293,14 @@ EPI_NS = (64, 256, 2048)
 EPI_EDGE_MS = (77, 1000)
 EPI_EDGE_KS = (8, 24)
 EPI_EDGE_NS = (8, 24, 72)
+# ... and for the statistics kernels also N in {264, 2048}: several n-tiles,
+# the last of them narrow (264 = 256 + 8)
+STATS_EDGE_NS = EPI_EDGE_NS + (264, 2048)
+# the statistics kernels' static walk: (M, K, N) where every CTA takes
+# several m-tiles of its one n-tile, with several n-tiles (the scratch rows
+# of every n-tile written, each by one CTA) and a narrow last n-tile
+STATS_WALK_CASES = [(40000, 64, 2048), (20000, 24, 264), (10000, 136, 1032),
+                    (70000, 64, 64)]
 # the ResNet-50 bf16 batch-128 sites that are timed: stage-1 conv3 and
 # stage-4 conv3, both with the residual
 EPI_SITES = [(401408, 64, 256), (6272, 512, 2048)]
@@ -695,8 +710,11 @@ WGMMA_KERNELS = {
                             r"(\d+)E", 8),
     "flash_attention_bwd": (r"(dq|dkv)_wgmmaI\d+(__nv_bfloat16|__half)Li"
                             r"(\d+)E", 8),
-    "conv_bn_epilogue": (r"epilogue_wgmmaILi(\d+)ELi(\d)E", 4),
+    "conv_bn_epilogue": (r"gemm_wgmmaILi(\d+)ELi(\d)ELi(\d)E", 8),
 }
+# gemm_wgmma's KIND, by the kernel it serves
+GEMM_KINDS = {"0": "matmul_epilogue", "1": "matmul_stats",
+              "2": "matmul_bn_stats"}
 
 
 def wgmma_report(_build) -> None:
@@ -709,6 +727,8 @@ def wgmma_report(_build) -> None:
                          "mxt_flash_attention_bwd_smem", 2)
     epi_config = _c_int_fn(_build, "conv_bn_epilogue",
                            "mxt_matmul_epilogue_config", 3)
+    stats_config = _c_int_fn(_build, "conv_bn_epilogue", "mxt_stats_config",
+                             4)
 
     def describe(source, args):
         if source == "flash_attention_fwd":
@@ -719,12 +739,14 @@ def wgmma_report(_build) -> None:
             which, dtype, hdp = args
             return (f"{which}_wgmma<{dtype.strip('_')}, {hdp}>",
                     bwd_smem(0 if which == "dq" else 1, int(hdp)))
-        bn, nrb = int(args[0]), int(args[1])
-        k = 64 if nrb == 2 else 4096      # the ring depth follows K
-        stages = epi_config(bn, k, 1)
-        return (f"epilogue_wgmma<{bn}, {nrb}> ({stages}-stage ring, {nrb} "
-                f"tile buffer{'s' if nrb > 1 else ''})",
-                epi_config(bn, k, 0))
+        bn, nrb, kind = int(args[0]), int(args[1]), args[2]
+        k = 4096 if nrb == 1 else 64      # the ring depth follows K
+        if kind == "0":
+            cfg = lambda what: epi_config(bn, k, what)
+        else:
+            cfg = lambda what: stats_config(bn, k, int(kind == "2"), what)
+        return (f"gemm_wgmma<{bn}, {nrb}, {GEMM_KINDS[kind]}> ({cfg(1)}-stage "
+                f"ring, {nrb} tile buffer{'' if nrb == 1 else 's'})", cfg(0))
 
     for source, (pattern, want) in WGMMA_KERNELS.items():
         log = _build.build_log(source)
@@ -1357,6 +1379,26 @@ def epilogue_kernel_phase(ck, _build) -> dict:
         if tile_n(n) != ck.epilogue_tile_n(n):
             fail(f"N {n}: the epilogue kernel takes tiles of {tile_n(n)} "
                  f"columns, epilogue_tile_n says {ck.epilogue_tile_n(n)}")
+    worst = (-1.0, None)
+    seed = 0
+    for m in EPI_EDGE_MS:
+        for k in EPI_EDGE_KS:
+            for n in STATS_EDGE_NS:
+                seed += 1
+                x, w = epi_inputs(m, k, n, torch.bfloat16, 950 + seed)[:2]
+                worst = max(worst, (check_stats(
+                    ck, x, w, f"edge ({m}, {k}, {n}) bf16"), (m, k, n)),
+                    key=lambda t: t[0])
+    for i, (m, k, n) in enumerate(STATS_WALK_CASES):
+        x, w = epi_inputs(m, k, n, torch.bfloat16, 980 + i)[:2]
+        worst = max(worst, (check_stats(ck, x, w, f"walk ({m}, {k}, {n}) "
+                                        f"bf16"), (m, k, n)),
+                    key=lambda t: t[0])
+    print(f"matmul_stats vs plain at the edges M {EPI_EDGE_MS} x K "
+          f"{EPI_EDGE_KS} x N {STATS_EDGE_NS} and where every CTA walks "
+          f"several m-tiles of its n-tile {STATS_WALK_CASES}, bf16: within "
+          f"bounds and bitwise repeatable; largest |Δ| {worst[0]:.3e} at "
+          f"{worst[1]}  ok")
     seed = 0
     for dtype in (torch.bfloat16, torch.float32):
         worst = (-1.0, None)
@@ -1505,6 +1547,23 @@ def conv_bn_kernel_phase(ck) -> dict:
     """Phase 5b; returns the max abs err of each kernel's z at the bf16
     site shapes."""
     first = lambda t: t[0]
+    worst_y = (-1.0, None)
+    seed = 2400
+    cases = [(m, k, n) for m in EPI_EDGE_MS for k in EPI_EDGE_KS
+             for n in STATS_EDGE_NS] + STATS_WALK_CASES
+    for m, k, n in cases:
+        seed += 1
+        x, w = epi_inputs(m, k, n, torch.bfloat16, seed)[:2]
+        for relu in (False, True):
+            worst_y = max(worst_y, (check_bn_stats(
+                ck, x, w, relu, f"({m}, {k}, {n}) relu {relu} bf16"),
+                (m, k, n, relu)), key=first)
+    print(f"matmul_bn_stats vs plain at the edges M {EPI_EDGE_MS} x K "
+          f"{EPI_EDGE_KS} x N {STATS_EDGE_NS} and where every CTA walks "
+          f"several m-tiles of its n-tile {STATS_WALK_CASES}, bf16, with and "
+          f"without the relu: y and statistics within bounds and bitwise "
+          f"repeatable; largest y abs err {worst_y[0]:.3e} at (M, K, N, "
+          f"relu) {worst_y[1]}  ok")
     seed = 2000
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
@@ -2044,6 +2103,69 @@ def epilogue_site_timings(ck, card_line) -> dict:
           f"{step['over_bound_ms']:.4f} ms; torch.matmul of the bare "
           f"products {step['library_ms']:.4f} ms [{card_line}]")
     return dict(sites=sites, step=step)
+
+
+STATS_KERNELS = ("matmul_stats", "matmul_bn_stats")
+
+
+def stats_bound_ms(name, m, k, n):
+    """B5's bound (x and w read, 2N floats written) or B4's (y written
+    too); 2 M K N tensor-core operations."""
+    if name == "matmul_stats":
+        return epi_bound_ms(m, k, n, False)
+    return conv_bn_bound_ms(2 * (m * k + k * n + m * n) + 8 * n,
+                            2 * m * k * n)
+
+
+def stats_site_timings(ck, _build, card_line) -> dict:
+    """matmul_stats (B5, the epilogue route) and matmul_bn_stats (B4,
+    the conv + BN route) at every distinct 1x1 site shape of the bf16
+    batch-128 step, with torch.matmul of the bare product, each beside its
+    bound; then, for each kernel, the sums over the 36 launches of a step:
+    launches x ms, the bound's, and launches x (ms - bound)."""
+    launches = dict.fromkeys(C1X1_SITE_SHAPES, 0)
+    for (side, k, n, _res, _relu), count in zip(RESNET_SITE_SHAPES,
+                                               RESNET_SITE_LAUNCHES):
+        launches[(side, k, n)] += count
+    sites = {name: [] for name in STATS_KERNELS}
+    tile_n = _c_int_fn(_build, "conv_bn_epilogue", "mxt_stats_tile_n", 1)
+    for i, ((side, k, n), count) in enumerate(launches.items()):
+        m = RESNET_BATCH * side * side
+        x, w = epi_inputs(m, k, n, torch.bfloat16, seed=820 + i)[:2]
+        times = time_ms({
+            "matmul_stats": lambda: ck.matmul_stats(x, w),
+            "matmul_bn_stats": lambda: ck.matmul_bn_stats(x, w),
+            "torch.matmul": lambda: torch.matmul(x, w)})
+        med = {key: statistics.median(t) for key, t in times.items()}
+        line = []
+        for name in STATS_KERNELS:
+            bound, bound_by = stats_bound_ms(name, m, k, n)
+            sites[name].append(dict(
+                shape=[m, k, n, "bf16"], launches=count, ms=med[name],
+                bound_ms=bound, bound_by=bound_by,
+                library_ms=med["torch.matmul"]))
+            line.append(f"{name} {spread(times[name])}, bound {bound:.5f} "
+                        f"ms ({bound_by}), {med[name] / bound:.2f}x it")
+        print(f"site ({m}, {k}, {n}), x{count} per step, "
+              f"{tile_n(n)}-column tiles: " + "; ".join(line)
+              + f"; torch.matmul {spread(times['torch.matmul'])} "
+              f"[{card_line}]")
+        del x, w
+    if sum(launches.values()) != RESNET_SITES:
+        fail(f"the 1x1 site launches sum to {sum(launches.values())}, want "
+             f"{RESNET_SITES}")
+    out = {}
+    for name in STATS_KERNELS:
+        step = {key: sum(t["launches"] * t[key] for t in sites[name])
+                for key in ("ms", "bound_ms", "library_ms")}
+        step["over_bound_ms"] = step["ms"] - step["bound_ms"]
+        out[name] = dict(sites=sites[name], step=step)
+        print(f"{name} over the {RESNET_SITES} launches of a step: "
+              f"{step['ms']:.4f} ms against a bound of "
+              f"{step['bound_ms']:.4f} ms; sum of launches x (time - bound) "
+              f"{step['over_bound_ms']:.4f} ms; torch.matmul of the bare "
+              f"products {step['library_ms']:.4f} ms [{card_line}]")
+    return out
 
 
 def resnet_timings(resnet, config, step, card_line,
@@ -2639,6 +2761,7 @@ def main() -> int:
     cbn_counts, step = resnet_conv_bn_path(mx, ck, resnet, config, nn_ops,
                                            card_line)
     cbn_times = conv_bn_timings(ck, card_line)
+    stats_sites = stats_site_timings(ck, _build, card_line)
     resnet_timings(resnet, config, step, card_line, CONV_BN)
     del step
     torch.cuda.empty_cache()
@@ -2693,9 +2816,14 @@ def main() -> int:
                 "backward": {k: bwd_times[("backward", 96, 512)][k]
                              for k in keys}},
         })
+    stats_design = ("persistent TMA + wgmma GEMM (gemm_wgmma, the core of "
+                    "matmul_epilogue): 128-row tiles of 64/128 columns, "
+                    "each CTA keeps one n-tile, k-box ring, "
+                    "running column sums per thread across the CTA's "
+                    "tiles, one scratch row per CTA, the final sum by the "
+                    "last CTA of each n-tile")
     for name, line, design in (
-            ("matmul_stats", 512, "mma.sync GEMM (stats_bf16), 2-stage "
-             "cp.async ring, per-CTA partial sums"),
+            ("matmul_stats", 512, stats_design),
             ("matmul_epilogue", 574, "persistent TMA + wgmma GEMM "
              "(epilogue_wgmma): 128-row tiles of 64/128/256 columns, n-tile "
              "fastest, k-box ring, residual by TMA into a tile buffer, "
@@ -2714,7 +2842,9 @@ def main() -> int:
             "shape": sites[0]["shape"], "sites": sites,
             **({"all_sites": epi_sites["sites"],
                 "per_step": epi_sites["step"]}
-               if name == "matmul_epilogue" else {}),
+               if name == "matmul_epilogue" else
+               {"all_sites": stats_sites[name]["sites"],
+                "per_step": stats_sites[name]["step"]}),
         })
     for name, line, src in (("matmul_bn_stats", 316, "conv_bn_epilogue"),
                             ("convkxk_bn_stats", 880, "convkxk_bn_stats")):
@@ -2731,6 +2861,10 @@ def main() -> int:
                         "cuDNN F.conv2d of the same conv")
             + ", which computes no statistics",
             "shape": sites[0]["shape"], "sites": sites,
+            **({"design": stats_design + ", y by TMA store from a tile "
+                "buffer", "all_sites": stats_sites[name]["sites"],
+                "per_step": stats_sites[name]["step"]}
+               if name == "matmul_bn_stats" else {}),
         })
     t = int8_times["micro"]
     kernels.append({

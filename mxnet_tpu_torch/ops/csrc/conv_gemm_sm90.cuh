@@ -1,5 +1,8 @@
-// Tiled GEMM building blocks of the conv / batch-norm kernels
-// (conv_bn_epilogue.cu, convkxk_bn_stats.cu).
+// Tiled GEMM building blocks of the conv / batch-norm kernels that are not
+// on wgmma_sm90.cuh: the KxK conv with batch-norm statistics
+// (convkxk_bn_stats.cu, bf16 and fp32) and the fp32 kernels of
+// conv_bn_epilogue.cu. conv_bn_epilogue.cu's bf16 kernels are persistent
+// TMA + wgmma GEMMs on wgmma_sm90.cuh.
 //
 // Each CTA computes one (m-tile, n-tile) of z = A @ wt^T in fp32 registers:
 // A has M rows and K columns and is read through a loader, wt is the

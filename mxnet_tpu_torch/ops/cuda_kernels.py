@@ -470,8 +470,35 @@ def _stat_parts(source: str, symbol: str, code: int, m: int, n: int,
                        device=device)
 
 
+def _launch_stats_wgmma(what: str, x, wt, y, relu: bool
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 statistics kernel (y None: matmul_stats): (s, ss) summed on
+    the card, by the last CTA of each n-tile, from the per-CTA rows."""
+    (m, k), n = x.shape, wt.shape[0]
+    with torch.cuda.device(x.device):
+        rows = _build.load("conv_bn_epilogue").mxt_stats_rows(m, n)
+    if rows < 1:
+        raise RuntimeError(f"{what}: mxt_stats_rows({m}, {n}) failed")
+    # the launch's own scratch: 2 x rows x n partial sums, then a counter
+    # per n-tile of at least 64 columns, which the launch zeroes
+    scratch = torch.empty(2 * rows * n + -(-n // 64), dtype=torch.float32,
+                          device=x.device)
+    sums = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    if y is None:
+        _run(what, "mxt_matmul_stats_wgmma", (x, wt, scratch, sums),
+             (m, n, k, rows), x.device)
+    else:
+        _run(what, "mxt_matmul_bn_stats_wgmma", (x, wt, y, scratch, sums),
+             (m, n, k, rows, int(bool(relu))), x.device)
+    return sums[0], sums[1]
+
+
 def _launch_matmul_stats(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
     wt = _kernel_operands("matmul_stats", x, w)
+    if x.dtype == torch.bfloat16:
+        s, ss = _launch_stats_wgmma("matmul_stats", x, wt, None, False)
+        _LAUNCHES["matmul_stats"] += 1
+        return s, ss
     (m, k), n = x.shape, w.shape[1]
     code = _MM_DTYPES[x.dtype]
     parts = _stat_parts("conv_bn_epilogue", "mxt_conv_bn_m_tile", code, m,
@@ -671,8 +698,12 @@ def matmul_bn_stats_reference(x, w, relu: bool = False
 def _launch_matmul_bn_stats(x, w, relu):
     wt = _kernel_operands("matmul_bn_stats", x, w)
     (m, k), n = x.shape, w.shape[1]
-    code = _MM_DTYPES[x.dtype]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    if x.dtype == torch.bfloat16:
+        s, ss = _launch_stats_wgmma("matmul_bn_stats", x, wt, y, relu)
+        _LAUNCHES["matmul_bn_stats"] += 1
+        return y, s, ss
+    code = _MM_DTYPES[x.dtype]
     parts = _stat_parts("conv_bn_epilogue", "mxt_conv_bn_m_tile", code, m,
                         n, x.device)
     _run("matmul_bn_stats", "mxt_matmul_bn_stats",

@@ -371,3 +371,142 @@ def test_epilogue_kernel_is_bitwise_repeatable(bf16_epilogue_inputs, m, k,
     second = ck.matmul_epilogue(x, w, sc, sh, r, True)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 matmul_stats at the kernel's edges: against the Pallas kernel (on
+# the CPU) and against the plain version, with the kernel's static schedule
+# and its own scratch per launch (on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m", [77, 200])
+@pytest.mark.parametrize("k", [8, 24])
+@pytest.mark.parametrize("n", [8, 72, 264])
+def test_bf16_matmul_stats_matches_pallas_at_the_edges(m, k, n):
+    # the shapes the card's kernel takes at its edges: ragged M, K inside
+    # one k-box, N inside one tile or over several n-tiles
+    x = jnp.asarray(_rand(m + k + n, m, k)).astype(jnp.bfloat16)
+    w = jnp.asarray(_rand(n, k, n, scale=k ** -0.5)).astype(jnp.bfloat16)
+    js, jss = pk.matmul_stats(x, w, block_m=m, block_n=n, block_k=k)
+
+    def tb(a):
+        return _t(onp.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+
+    ts, tss = ck.matmul_stats(tb(x), tb(w))
+    assert ts.dtype == tss.dtype == torch.float32 and ts.shape == (n,)
+    onp.testing.assert_allclose(ts.numpy(), onp.asarray(js), **OUT_TOL)
+    onp.testing.assert_allclose(tss.numpy(), onp.asarray(jss), **OUT_TOL)
+
+
+def _stats_walk(m, n_tiles, rows):
+    """The bf16 statistics kernels' static walk, a plain mirror of their
+    loop: {cta: [(m-tile, n-tile), ...]} in the order each CTA takes its
+    tiles, tile cta + i * grid with the n-tile fastest, for the grid of
+    rows x n-tiles CTAs."""
+    tiles = -(-m // 128) * n_tiles
+    grid = rows * n_tiles
+    return {b: [divmod(t, n_tiles) for t in range(b, tiles, grid)]
+            for b in range(grid)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(401408, 256), (6272, 2048), (40000, 2048),
+                                 (20000, 264), (3001, 520), (77, 8),
+                                 (1000, 51200), (401408, 64)])
+def test_stats_walk_gives_every_tile_once_and_each_cta_one_n_tile(
+        cuda_device, m, n):
+    # what the kernels' running sums rest on, for the tile width and the
+    # scratch rows that the C side chooses on this card: a CTA's tiles
+    # share one n-tile, so one scratch row per CTA holds all its columns,
+    # and every (row, n-tile) of the scratch is written by exactly one CTA
+    from mxnet_tpu_torch.ops import _build
+    lib = _build.load("conv_bn_epilogue")
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n_tiles = -(-n // lib.mxt_stats_tile_n(n))
+    rows = lib.mxt_stats_rows(m, n)
+    assert rows == max(1, min(-(-m // 128), sms // n_tiles))
+    walk = _stats_walk(m, n_tiles, rows)
+    seen = sorted(t for tiles in walk.values() for t in tiles)
+    assert seen == [(mt, nt) for mt in range(-(-m // 128))
+                    for nt in range(n_tiles)]
+    for cta, tiles in walk.items():
+        assert tiles, "every CTA writes its row, so it takes a tile"
+        assert {nt for _, nt in tiles} == {cta % n_tiles}
+        assert [mt for mt, _ in tiles] == sorted(mt for mt, _ in tiles)
+
+
+def _stats_bounds(x, w, s, ss):
+    # chip_smoke.py's check_col_sums: fp32 sums of the same exact products
+    # in another order, within 1e-5 of the sum of magnitudes
+    z = x.float() @ w.float()
+    assert torch.isfinite(s).all() and torch.isfinite(ss).all()
+    assert ((s - z.sum(0)).abs() <= 1e-5 * z.abs().sum(0)).all()
+    assert ((ss - (z * z).sum(0)).abs() <= 1e-5 * (z * z).sum(0)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [77, 1000])
+@pytest.mark.parametrize("k", [8, 24])
+@pytest.mark.parametrize("n", [8, 72, 264, 2048])
+def test_stats_kernel_matches_plain_at_the_edges(bf16_epilogue_inputs, m, k,
+                                                 n):
+    # N inside one tile, and several n-tiles with a narrow last one; K inside
+    # one k-box; ragged M
+    x, w = bf16_epilogue_inputs(m, k, n, m + k + n)[:2]
+    n0 = ck.launch_counts()["matmul_stats"]
+    s, ss = ck.matmul_stats(x, w)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["matmul_stats"] == n0 + 1
+    assert s.shape == ss.shape == (n,)
+    _stats_bounds(x, w, s, ss)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(40000, 64, 2048), (20000, 24, 264),
+                                   (10000, 136, 1032), (401408, 64, 256),
+                                   (6272, 512, 2048)])
+def test_stats_kernel_walks_several_tiles_bitwise_repeatably(
+        bf16_epilogue_inputs, m, k, n):
+    # every CTA sums several m-tiles of its n-tile; every column of the
+    # scratch is written, and the sums repeat bit for bit
+    x, w = bf16_epilogue_inputs(m, k, n, 11)[:2]
+    first = ck.matmul_stats(x, w)
+    second = ck.matmul_stats(x, w)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _stats_bounds(x, w, *first)
+
+
+@pytest.mark.cuda
+def test_stats_kernels_replayed_in_two_graphs_at_once(bf16_epilogue_inputs):
+    # each launch zeroes the counters of its own scratch, so two CUDA
+    # graphs captured on torch's shared capture stream and replayed at the
+    # same time on two streams each keep their own sums, bit for bit
+    x1, w1 = bf16_epilogue_inputs(200000, 64, 256, 21)[:2]
+    x2, w2 = bf16_epilogue_inputs(200000, 64, 256, 22)[:2]
+    want1 = ck.matmul_stats(x1, w1)
+    want2 = ck.matmul_bn_stats(x2, w2, True)[1:]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the default stream
+        ck.matmul_stats(x1, w1)
+        ck.matmul_bn_stats(x2, w2, True)
+    torch.cuda.current_stream().wait_stream(side)
+    g1, g2 = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g1):
+        out1 = [ck.matmul_stats(x1, w1) for _ in range(4)]
+    with torch.cuda.graph(g2):
+        out2 = [ck.matmul_bn_stats(x2, w2, True)[1:] for _ in range(4)]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for _ in range(20):
+        s1.wait_stream(torch.cuda.current_stream())
+        s2.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s1):
+            g1.replay()
+        with torch.cuda.stream(s2):
+            g2.replay()
+        torch.cuda.synchronize()
+        for outs, want in ((out1, want1), (out2, want2)):
+            for got in outs:
+                assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -86,6 +86,27 @@ def test_matmul_bn_stats_matches_pallas(m, k, n, blocks, relu):
         assert (ty >= 0).all()
 
 
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("k", [8, 24])
+@pytest.mark.parametrize("n", [8, 72, 264])
+def test_bf16_matmul_bn_stats_matches_pallas_at_the_edges(k, n, relu):
+    # the shapes the card's kernel takes at its edges: ragged M, K inside
+    # one k-box, N inside one tile or over several n-tiles
+    m = 77
+    jx, tx = _bf16(_rand(m + k + n, m, k))
+    jw, tw = _bf16(_rand(n, k, n, scale=k ** -0.5))
+    jy, js, jss = pk.matmul_bn_stats(jx, jw, relu=relu, block_m=m,
+                                     block_n=n, block_k=k)
+    ty, ts, tss = ck.matmul_bn_stats(tx, tw, relu=relu)
+    assert ty.dtype == torch.bfloat16 and ty.shape == (m, n)
+    onp.testing.assert_allclose(ty.float().numpy(),
+                                onp.asarray(jy.astype(jnp.float32)),
+                                **BF16_TOL)
+    # the statistics come from the fp32 values, before y's rounding
+    onp.testing.assert_allclose(ts.numpy(), onp.asarray(js), **OUT_TOL)
+    onp.testing.assert_allclose(tss.numpy(), onp.asarray(jss), **OUT_TOL)
+
+
 def test_matmul_bn_stats_bf16_matches_pallas():
     jx, tx = _bf16(_rand(1, 64, 32))
     jw, tw = _bf16(_rand(2, 32, 16, scale=0.25))
@@ -315,3 +336,67 @@ def test_kernels_match_plain_on_card(cuda_device, dtype):
                          ck.convkxk_bn_stats_reference(img, wk, (1, 1))):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.fixture
+def bf16_stats_inputs(cuda_device):
+    def make(m, k, n, seed):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        x = torch.randn(m, k, generator=g, device=cuda_device) \
+            .to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=g, device=cuda_device)
+             / k ** 0.5).to(torch.bfloat16).t()
+        return x, w
+    return make
+
+
+def _check_bn_stats(x, w, relu, out):
+    # chip_smoke.py's check_bn_stats bounds: the sums within 1e-5 of the
+    # sum of magnitudes (fp32 sums in another order); y within 1e-5 of
+    # |x| @ |w| plus one bf16 ulp (2^-7 relative) of the fp32 act(z)
+    y, s, ss = out
+    z = x.float() @ w.float()
+    if relu:
+        z = torch.clamp_min(z, 0.0)
+    assert y.shape == z.shape and y.dtype == torch.bfloat16
+    assert torch.isfinite(s).all() and torch.isfinite(ss).all()
+    assert ((s - z.sum(0)).abs() <= 1e-5 * z.abs().sum(0)).all()
+    assert ((ss - (z * z).sum(0)).abs() <= 1e-5 * (z * z).sum(0)).all()
+    mag = x.float().abs() @ w.float().abs()
+    ref = z.to(torch.bfloat16).float()
+    assert ((y.float() - ref).abs()
+            <= 1e-5 * mag + 2.0 ** -7 * ref.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("m", [77, 1000])
+@pytest.mark.parametrize("k", [8, 24])
+@pytest.mark.parametrize("n", [8, 72, 264, 2048])
+def test_bn_stats_kernel_matches_plain_at_the_edges(bf16_stats_inputs, m, k,
+                                                    n, relu):
+    # N inside one tile, and several n-tiles with a narrow last one (the
+    # TMA store clips it, the sums skip it); K inside one k-box; ragged M
+    x, w = bf16_stats_inputs(m, k, n, m + k + n)
+    n0 = ck.launch_counts()["matmul_bn_stats"]
+    out = ck.matmul_bn_stats(x, w, relu)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["matmul_bn_stats"] == n0 + 1
+    _check_bn_stats(x, w, relu, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("m,k,n", [(40000, 64, 2048), (20000, 24, 264),
+                                   (10000, 136, 1032), (401408, 64, 256),
+                                   (6272, 512, 2048)])
+def test_bn_stats_kernel_walks_several_tiles_bitwise_repeatably(
+        bf16_stats_inputs, m, k, n, relu):
+    # every CTA sums several m-tiles of its n-tile (the scratch's every
+    # column written), and y and the sums repeat bit for bit
+    x, w = bf16_stats_inputs(m, k, n, 12)
+    first = ck.matmul_bn_stats(x, w, relu)
+    second = ck.matmul_bn_stats(x, w, relu)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _check_bn_stats(x, w, relu, first)
