@@ -8,8 +8,8 @@ Phases, in order; any failure exits non-zero before the result line:
 1. Card and build: print the card's name and power limit (nvidia-smi), build
    every CUDA kernel from ``mxnet_tpu_torch/ops/csrc`` and print the seconds,
    then each wgmma kernel's registers, shared memory and spills (the
-   forward, the backward, and the GEMM core's matmul epilogue and
-   statistics kernels; fails on a spill).
+   forward, the backward, the GEMM core's matmul epilogue, statistics and
+   KxK conv-statistics kernels, and the s8 matmul; fails on a spill).
 2. Forward kernel vs. plain version on the card: the flash-attention
    forward's ``out`` and ``lse`` against ``flash_attention_fwd_reference`` on
    the same inputs, at the LM's shapes and at ragged / fp32 / fp16 / other
@@ -102,10 +102,11 @@ Phases, in order; any failure exits non-zero before the result line:
    launches of a step beside the bound's; the bf16 step fused and unfused
    (10 interleaved steps after 3 warm-up); a profile of each.
 7b. The same for the conv + batch-norm kernels (library: ``torch.matmul``,
-   cuDNN ``F.conv2d``) and for the step on that route; ``matmul_stats`` and
-   ``matmul_bn_stats`` and ``torch.matmul`` at every distinct 1x1 site
-   shape, and each kernel's sums over the 36 launches of a step beside its
-   bound's.
+   cuDNN ``F.conv2d``) and for the step on that route: ``convkxk_bn_stats``
+   at all four 3x3 site shapes with its sums over the 16 launches of a
+   step; ``matmul_stats`` and ``matmul_bn_stats`` and ``torch.matmul`` at
+   every distinct 1x1 site shape, and each kernel's sums over the 36
+   launches of a step beside its bound's.
 9. int8: the path of ``benchmark/microbench_tpu.py`` ``section_int8_pallas``
    and the int8 op surface. (a) ``int8_matmul`` (``int8_matmul.cu``) at
    (M, K, N) = (25088, 512, 128) (ResNet-50's 1x1 conv at batch 32, 28x28,
@@ -386,6 +387,7 @@ CONV_BN_KERNELS = ("matmul_bn_stats", "convkxk_bn_stats")
 C1X1_SITE_SHAPES = list(dict.fromkeys(
     (side, k, n) for side, k, n, _res, _relu in RESNET_SITE_SHAPES))
 KXK_SITE_SHAPES = [(56 >> st, 64 << st) for st in range(4)]
+KXK_SITE_LAUNCHES = list(RESNET_BLOCKS)   # one 3x3 conv per bottleneck block
 # convkxk_bn_stats vs plain beyond the sites, (x shape, Cout, kernel, pad):
 # M not a multiple of either m-tile, rectangular images, the s2d stem's
 # 4x4/pad 0, non-square kernels with unequal padding, a 5x5/pad 2, and
@@ -415,10 +417,11 @@ INT8_MICRO = (32 * 28 * 28, 512, 128)
 INT8_SCALE, INT8_OUT_SCALE = 3e-4, 31.0
 INT8_BATCH = 32
 # int8_matmul vs plain beyond the microbench shape, (M, K, N): a ragged M
-# (batch 8 at 7x7, which the TPU's tiles refuse), K = 2048 (32 k-tiles),
-# and K and N that end inside the kernel's 64-wide k- and n-tiles
+# (batch 8 at 7x7, which the TPU's tiles refuse), K = 2048 (16 k-boxes,
+# past the K up to which each CTA transposes w itself), and K and N that
+# end inside the kernel's 128-wide k-boxes and n-tiles, K = 16 the least
 INT8_CASES = [(392, 512, 2048), (INT8_BATCH * 7 * 7, 2048, 512),
-              (1000, 48, 80), (77, 208, 16)]
+              (1000, 48, 80), (77, 208, 16), (333, 16, 48)]
 # the 1x1 sites timed beside the microbench shape: stage-1 conv3 and
 # stage-4 conv3 at batch 32
 INT8_TIMED_SITES = [(INT8_BATCH * 56 * 56, 64, 256),
@@ -711,10 +714,12 @@ WGMMA_KERNELS = {
     "flash_attention_bwd": (r"(dq|dkv)_wgmmaI\d+(__nv_bfloat16|__half)Li"
                             r"(\d+)E", 8),
     "conv_bn_epilogue": (r"gemm_wgmmaILi(\d+)ELi(\d)ELi(\d)E", 8),
+    "convkxk_bn_stats": (r"gemm_wgmmaILi(\d+)ELi(\d)ELi(\d)E", 3),
+    "int8_matmul": (r"int8_wgmmaILb(\d)ELb(\d)E", 4),
 }
 # gemm_wgmma's KIND, by the kernel it serves
 GEMM_KINDS = {"0": "matmul_epilogue", "1": "matmul_stats",
-              "2": "matmul_bn_stats"}
+              "2": "matmul_bn_stats", "3": "convkxk_bn_stats"}
 
 
 def wgmma_report(_build) -> None:
@@ -729,6 +734,10 @@ def wgmma_report(_build) -> None:
                            "mxt_matmul_epilogue_config", 3)
     stats_config = _c_int_fn(_build, "conv_bn_epilogue", "mxt_stats_config",
                              4)
+    kxk_config = _c_int_fn(_build, "convkxk_bn_stats", "mxt_convkxk_config",
+                           2)
+    int8_config = _c_int_fn(_build, "int8_matmul", "mxt_int8_matmul_config",
+                            3)
 
     def describe(source, args):
         if source == "flash_attention_fwd":
@@ -739,9 +748,18 @@ def wgmma_report(_build) -> None:
             which, dtype, hdp = args
             return (f"{which}_wgmma<{dtype.strip('_')}, {hdp}>",
                     bwd_smem(0 if which == "dq" else 1, int(hdp)))
+        if source == "int8_matmul":
+            res, req = int(args[0]), int(args[1])
+            cfg = lambda what: int8_config(res, req, what)
+            return (f"int8_wgmma<{'resident w' if res else 'wt in the ring'}"
+                    f", {'s8' if req else 'fp32'} out> ({cfg(1)}-stage ring, "
+                    f"{cfg(2)} tile buffer{'' if cfg(2) == 1 else 's'})",
+                    cfg(0))
         bn, nrb, kind = int(args[0]), int(args[1]), args[2]
         k = 4096 if nrb == 1 else 64      # the ring depth follows K
-        if kind == "0":
+        if kind == "3":
+            cfg = lambda what: kxk_config(bn, what)
+        elif kind == "0":
             cfg = lambda what: epi_config(bn, k, what)
         else:
             cfg = lambda what: stats_config(bn, k, int(kind == "2"), what)
@@ -2353,12 +2371,14 @@ def conv_bn_bound_ms(nbytes, ops):
 
 
 def conv_bn_timings(ck, card_line) -> dict:
-    """B4 at the stage-1 and stage-4 conv3 sites and B8 at the stage-1 and
-    stage-4 3x3 sites (bf16, batch 128), their plain versions and the
-    library call of the bare conv (``torch.matmul`` / cuDNN ``F.conv2d`` on
-    channels_last views), which computes no statistics, each as CUDA-graph
-    replays beside its bound: x and w read once, z (or y) written once, 2
-    fp32 sums per channel; 2 M K N tensor-core operations."""
+    """B4 at the stage-1 and stage-4 conv3 sites and B8 at all four 3x3
+    sites (bf16, batch 128), their plain versions and the library call of
+    the bare conv (``torch.matmul`` / cuDNN ``F.conv2d`` on channels_last
+    views), which computes no statistics, each as CUDA-graph replays beside
+    its bound: x and w read once, z (or y) written once, 2 fp32 sums per
+    channel; 2 M K N tensor-core operations. Then B8's sums over the 16
+    launches of a step: launches x ms, the bound's, cuDNN's, and launches
+    x (ms - bound)."""
     import torch.nn.functional as F
     out = {}
     for m, k, n in EPI_SITES:
@@ -2382,9 +2402,11 @@ def conv_bn_timings(ck, card_line) -> dict:
               f"{spread(times['plain'])}, torch.matmul of the product (no "
               f"statistics) {spread(times['torch.matmul'])}; bound "
               f"{bound:.5f} ms ({bound_by}) [{card_line}]")
-    for side, c in (KXK_SITE_SHAPES[0], KXK_SITE_SHAPES[-1]):
+    sites = []
+    for i, ((side, c), launches) in enumerate(zip(KXK_SITE_SHAPES,
+                                                   KXK_SITE_LAUNCHES)):
         xshape = (RESNET_BATCH, side, side, c)
-        x, w = kxk_inputs(xshape, c, (3, 3), torch.bfloat16, seed=730)
+        x, w = kxk_inputs(xshape, c, (3, 3), torch.bfloat16, seed=730 + i)
         xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
         times = time_ms({
             "convkxk_bn_stats": lambda: ck.convkxk_bn_stats(x, w, (1, 1)),
@@ -2394,19 +2416,31 @@ def conv_bn_timings(ck, card_line) -> dict:
         m, kk = RESNET_BATCH * side * side, 9 * c
         bound, bound_by = conv_bn_bound_ms(
             2 * (2 * x.numel() + w.numel()) + 8 * c, 2 * m * kk * c)
-        out[("convkxk_bn_stats", xshape)] = dict(
-            shape=[*xshape, c, "bf16"], ms=statistics.median(
-                times["convkxk_bn_stats"]),
+        site = dict(
+            shape=[*xshape, c, "bf16"], launches=launches,
+            ms=statistics.median(times["convkxk_bn_stats"]),
             plain_ms=statistics.median(times["plain"]),
             library_ms=statistics.median(times["F.conv2d"]),
             bound_ms=bound, bound_by=bound_by)
-        print(f"convkxk_bn_stats {xshape} -> {c}, 3x3 pad 1, bf16, "
-              f"{TIMING_ROUNDS} interleaved rounds of a CUDA graph of "
-              f"{TIMING_ITERS} calls: kernel "
+        sites.append(site)
+        print(f"convkxk_bn_stats {xshape} -> {c}, 3x3 pad 1, bf16, x{launches}"
+              f" per step, {TIMING_ROUNDS} interleaved rounds of a CUDA graph "
+              f"of {TIMING_ITERS} calls: kernel "
               f"{spread(times['convkxk_bn_stats'])}, plain "
               f"{spread(times['plain'])}, cuDNN F.conv2d on channels_last "
               f"(no statistics) {spread(times['F.conv2d'])}; bound "
-              f"{bound:.5f} ms ({bound_by}) [{card_line}]")
+              f"{bound:.5f} ms ({bound_by}), {site['ms'] / bound:.2f}x it, "
+              f"{site['ms'] / site['library_ms']:.2f}x cuDNN [{card_line}]")
+        del x, w, xc, wc
+    step = {key: sum(s["launches"] * s[key] for s in sites)
+            for key in ("ms", "bound_ms", "library_ms")}
+    step["over_bound_ms"] = step["ms"] - step["bound_ms"]
+    print(f"convkxk_bn_stats over the {sum(KXK_SITE_LAUNCHES)} launches of a "
+          f"step: {step['ms']:.4f} ms against a bound of "
+          f"{step['bound_ms']:.4f} ms; sum of launches x (time - bound) "
+          f"{step['over_bound_ms']:.4f} ms; cuDNN F.conv2d of the bare convs "
+          f"{step['library_ms']:.4f} ms [{card_line}]")
+    out["convkxk_bn_stats"] = dict(sites=sites, step=step)
     return out
 
 
@@ -2846,31 +2880,52 @@ def main() -> int:
                {"all_sites": stats_sites[name]["sites"],
                 "per_step": stats_sites[name]["step"]}),
         })
-    for name, line, src in (("matmul_bn_stats", 316, "conv_bn_epilogue"),
-                            ("convkxk_bn_stats", 880, "convkxk_bn_stats")):
-        sites = [t for (kname, _), t in cbn_times.items() if kname == name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"mxnet_tpu_torch/ops/csrc/{src}.cu",
-            "replaces": f"mxnet_tpu/ops/pallas_kernels.py:{line}",
-            **launches(name), "max_abs_err": cbn_err[name],
-            **{k: sites[0][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
-            "library": ("torch.matmul of the same product"
-                        if name == "matmul_bn_stats" else
-                        "cuDNN F.conv2d of the same conv")
-            + ", which computes no statistics",
-            "shape": sites[0]["shape"], "sites": sites,
-            **({"design": stats_design + ", y by TMA store from a tile "
-                "buffer", "all_sites": stats_sites[name]["sites"],
-                "per_step": stats_sites[name]["step"]}
-               if name == "matmul_bn_stats" else {}),
-        })
+    sites = [t for key, t in cbn_times.items()
+             if key[0] == "matmul_bn_stats"]
+    kernels.append({
+        "name": "matmul_bn_stats", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/conv_bn_epilogue.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:316",
+        "design": stats_design + ", y by TMA store from a tile buffer",
+        **launches("matmul_bn_stats"),
+        "max_abs_err": cbn_err["matmul_bn_stats"],
+        **{k: sites[0][k] for k in keys},
+        "library": "torch.matmul of the same product, which computes no "
+                   "statistics",
+        "shape": sites[0]["shape"], "sites": sites,
+        "all_sites": stats_sites["matmul_bn_stats"]["sites"],
+        "per_step": stats_sites["matmul_bn_stats"]["step"],
+    })
+    kxk = cbn_times["convkxk_bn_stats"]
+    kernels.append({
+        "name": "convkxk_bn_stats", "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/convkxk_bn_stats.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:880",
+        "design": "persistent TMA + wgmma implicit GEMM on the statistics "
+                  "kernels' core (gemm_wgmma, KIND kConvStats): x by TMA "
+                  "im2col loads, one per (tap, 64-channel block) k-box of "
+                  "128 output pixels, the OHWI weight as a 3-D map, 64-, "
+                  "128- or 256-column tiles (256 where the waves allow, "
+                  "lanes splitting the running sums), the statistics' "
+                  "running sums and in-kernel final sum, z by TMA store",
+        **launches("convkxk_bn_stats"),
+        "max_abs_err": cbn_err["convkxk_bn_stats"],
+        **{k: kxk["sites"][0][k] for k in keys},
+        "library": "cuDNN F.conv2d of the same conv, which computes no "
+                   "statistics",
+        "shape": kxk["sites"][0]["shape"], "sites": kxk["sites"],
+        "per_step": kxk["step"],
+    })
     t = int8_times["micro"]
     kernels.append({
         "name": "int8_matmul", "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/int8_matmul.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:752",
+        "design": "persistent TMA + wgmma s8 GEMM (int8_wgmma): one "
+                  "128-column n-tile per CTA, x k-boxes through a ring, w's "
+                  "panel transposed K-major once per CTA (K <= 512; a "
+                  "K-major copy of w above), epilogue in registers, TMA "
+                  "store of the fp32 or s8 tile",
         **launches("int8_matmul"), "max_abs_err": int8_err,
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms")},

@@ -2,9 +2,11 @@
 // wgmma.
 //
 // Small inline-PTX primitives for kernels that stream tiles into shared
-// memory with the Tensor Memory Accelerator, multiply them with warpgroup
-// MMAs (wgmma) and store result tiles back with TMA, and the host side that
-// encodes the TMA tensor maps. Nothing here is specific to attention.
+// memory with the Tensor Memory Accelerator (tiled boxes, and the im2col
+// boxes of a convolution), multiply them with warpgroup MMAs (wgmma:
+// 16-bit types into fp32, s8 into s32) and store result tiles back with
+// TMA, and the host side that encodes the TMA tensor maps. Nothing here is
+// specific to attention.
 //
 // Shared-memory tiles. A 16-bit (rows, 64) box loaded by TMA with 128-byte
 // swizzle lies as `rows` rows of 128 bytes, 16-byte chunk j of row r stored
@@ -119,6 +121,25 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The im2col box of a 4-D (c, w, h, n) `map` (`encode_im2col_4d`): the
+// map's pixels-per-column pixels, channels c .. c + channels-per-pixel - 1
+// of each, walked from pixel (w, h, n) along w, then h, then n inside the
+// map's bounding box, each read at (w + dw, h + dh); pixels and channels
+// outside the tensor read as zero.
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c,
+                                                   int w, int h, int n,
+                                                   int dw, int dh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(w), "r"(h), "r"(n), "h"((uint16_t)dw), "h"((uint16_t)dh)
+      : "memory");
+}
+
 // The shared-memory box at src into the box of `map` at coordinates (c0,
 // c1, c2); elements outside the tensor are not written. Completion is
 // tracked by bulk groups: commit with `bulk_commit`, and wait with
@@ -195,6 +216,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Register budget of a warpgroup (all four warps execute it together).
@@ -403,6 +429,43 @@ MXT_WGMMA_WIDE_DEFS(__nv_bfloat16, "bf16")
 MXT_WGMMA_WIDE_DEFS(__half, "f16")
 #undef MXT_WGMMA_WIDE_DEFS
 
+// d (m64n128, s32) = [d if scale_d] + A B for s8 A and B, both K-major
+// descriptors (8-bit wgmma has no transpose bit), exact in s32. One k32
+// step: 32 bytes of each operand's 128-byte rows.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // -- host: TMA tensor maps ------------------------------------------------
 
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
@@ -446,6 +509,88 @@ inline cudaError_t encode_rows_map(CUtensorMap* map, const void* base, int n,
   CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box,
                   estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Map of a contiguous (n, rows, cols) tensor of `elem`-byte elements as
+// 3-D (cols, rows, n) with a (box_cols, box_rows, box_n) box: the general
+// form of `encode_rows_map` for any element size, box and swizzle. Returns
+// as `encode_rows_map`.
+inline cudaError_t encode_map_3d(CUtensorMap* map, const void* base, int n,
+                                 int rows, int cols, int elem, int box_cols,
+                                 int box_rows, int box_n,
+                                 CUtensorMapDataType type,
+                                 CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem,
+                                 (cuuint64_t)rows * cols * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows,
+                             (cuuint32_t)box_n};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                  estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+using EncodeIm2col = decltype(&cuTensorMapEncodeIm2col);
+
+// cuTensorMapEncodeIm2col, fetched as `encode_tiled_fn` fetches its
+// encoder.
+inline EncodeIm2col encode_im2col_fn() {
+  static EncodeIm2col fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeIm2col", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &p,
+                                            cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeIm2col>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// Im2col map of a contiguous NHWC 16-bit tensor (n, h, w, c) for a
+// stride-1 conv with kernel (kh, kw) and zero padding (ph, pw): the
+// bounding box walks the output pixels' tap-(0, 0) corners, from (-pw,
+// -ph) to (w - 1 + pw - kw + 1, h - 1 + ph - kh + 1) (corners innermost
+// first); a load (`tma_load_im2col_4d`) takes `pixels` pixels of 64
+// channels in 128-byte swizzle, each tap by its offsets (dx, dy). The
+// encoder takes corners in [-128, 127] (`im2col_fits`). Returns as
+// `encode_rows_map`.
+inline bool im2col_fits(int kh, int kw, int ph, int pw) {
+  return ph <= 128 && pw <= 128 && kh - 1 - ph <= 128 && kw - 1 - pw <= 128 &&
+         kh <= 256 && kw <= 256;
+}
+
+inline cudaError_t encode_im2col_4d(CUtensorMap* map, const void* base,
+                                    int n, int h, int w, int c, int kh,
+                                    int kw, int ph, int pw, int pixels,
+                                    CUtensorMapDataType type) {
+  EncodeIm2col fn = encode_im2col_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  if (!im2col_fits(kh, kw, ph, pw)) return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h,
+                              (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 2, (cuuint64_t)w * c * 2,
+                                 (cuuint64_t)h * w * c * 2};
+  const int lower[2] = {-pw, -ph};
+  const int upper[2] = {pw - (kw - 1), ph - (kh - 1)};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, lower,
+                  upper, 64, (cuuint32_t)pixels, estr,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

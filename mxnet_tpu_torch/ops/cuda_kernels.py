@@ -817,11 +817,12 @@ def convkxk_fits(xshape, cout: int, kernel=(3, 3), pad=(1, 1),
                  dtype=torch.bfloat16) -> bool:
     """Whether the convkxk-bn-stats kernel takes a stride-1 conv of an NHWC
     input of shape ``xshape`` to ``cout`` channels: fp32 or bf16, Cin and
-    Cout multiples of 8 (16-byte vectors of one tap, columns stored in
-    pairs), 0 <= pad < kernel per dim, a non-empty output, and output pixels
-    and K = kh·kw·Cin below 2³¹. Any image size: the kernel gathers each
-    tile from the image and masks the ragged last one. A Hopper rule of the
-    port's own: the TPU's ``convkxk_fits`` models Mosaic's VMEM instead."""
+    Cout multiples of 8 (a TMA map's strides are multiples of 16 bytes; the
+    fp32 kernel reads 16-byte vectors of one tap), 0 <= pad < kernel per
+    dim, a non-empty output, and output pixels and K = kh·kw·Cin below 2³¹.
+    Any image size: the copies zero-fill the padding and the ragged last
+    tile, and the stores clip it. A Hopper rule of the port's own: the
+    TPU's ``convkxk_fits`` models Mosaic's VMEM instead."""
     n, h, w, cin = xshape
     kh, kw = kernel
     ph, pw = pad
@@ -854,18 +855,46 @@ def _launch_convkxk_bn_stats(x, w, pad):
     cout, kh, kw, _ = w.shape
     ph, pw = pad
     ho, wo = h + 2 * ph - kh + 1, wd + 2 * pw - kw + 1
-    code = _MM_DTYPES[x.dtype]
+    m = n * ho * wo
+    geometry = (n, h, wd, cin, cout, kh, kw, ph, pw)
+    lib = _build.load("convkxk_bn_stats")
+    if x.dtype == torch.bfloat16:
+        if lib.mxt_convkxk_tma_fits(kh, kw, ph, pw):
+            z = torch.empty((n, ho, wo, cout), dtype=x.dtype,
+                            device=x.device)
+            with torch.cuda.device(x.device):
+                rows = lib.mxt_convkxk_stats_rows(m, cout)
+            if rows < 1:
+                raise RuntimeError(f"convkxk_bn_stats: "
+                                   f"mxt_convkxk_stats_rows({m}, {cout}) "
+                                   f"failed")
+            # the launch's own scratch: 2 x rows x cout partial sums, then
+            # a counter per n-tile of at least 64 columns, which the launch
+            # zeroes
+            scratch = torch.empty(2 * rows * cout + -(-cout // 64),
+                                  dtype=torch.float32, device=x.device)
+            sums = torch.empty((2, cout), dtype=torch.float32,
+                               device=x.device)
+            _run("convkxk_bn_stats", "mxt_convkxk_bn_stats_wgmma",
+                 (x, w, z, scratch, sums), (*geometry, rows), x.device,
+                 source="convkxk_bn_stats")
+            _LAUNCHES["convkxk_bn_stats"] += 1
+            return (z, *_mean_var(sums[0], sums[1], m))
+        # a kernel or pad beyond the im2col map's reach: the fp32 kernel,
+        # whose fp32 sums of the exact bf16 products are the bf16 kernel's
+        # arithmetic, z rounded once to bf16
+        z, mean, var = _launch_convkxk_bn_stats(x.float(), w.float(), pad)
+        return z.to(x.dtype), mean, var
     z = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
-    parts = _stat_parts("convkxk_bn_stats", "mxt_convkxk_m_tile", code,
-                        n * ho * wo, cout, x.device)
+    parts = _stat_parts("convkxk_bn_stats", "mxt_convkxk_m_tile",
+                        _MM_DTYPES[x.dtype], m, cout, x.device)
     _run("convkxk_bn_stats", "mxt_convkxk_bn_stats",
-         (x, w, z, parts[0], parts[1]),
-         (n, h, wd, cin, cout, kh, kw, ph, pw, code), x.device,
-         source="convkxk_bn_stats")
+         (x, w, z, parts[0], parts[1]), (*geometry, _MM_DTYPES[x.dtype]),
+         x.device, source="convkxk_bn_stats")
     _LAUNCHES["convkxk_bn_stats"] += 1
     # the second pass: the per-m-tile partials summed in a fixed order
     s, ss = parts.sum(1)
-    return (z, *_mean_var(s, ss, n * ho * wo))
+    return (z, *_mean_var(s, ss, m))
 
 
 def convkxk_bn_stats(x, w, pad=(1, 1)
@@ -943,9 +972,10 @@ def _f32(v: float) -> float:
 
 def int8_fits(m: int, k: int, n: int) -> bool:
     """Whether the int8 matmul kernel takes an (m, k) x (k, n) product: any
-    m >= 1 (the kernel masks the ragged last m-tile), k and n multiples of 16
-    (16-byte vectors of x, 8-byte vectors of w, two-column stores), and
-    k <= 131071, so that no s32 sum of products |x w| <= 2^14 can overflow.
+    m >= 1 (the copies zero-fill the ragged last m-tile and the stores clip
+    it), k and n multiples of 16 (a TMA map's row stride is a multiple of 16
+    bytes), and k <= 131071, so that no s32 sum of products |x w| <= 2^14
+    can overflow.
     A Hopper rule of the port's own: the TPU's ``int8_blocks`` models
     Mosaic's tiling and refuses an m that its tiles do not divide."""
     return (m >= 1 and k >= 16 and n >= 16 and k % 16 == 0 and n % 16 == 0
@@ -976,15 +1006,20 @@ def _launch_int8_matmul(x, w, scale, relu, out_scale) -> torch.Tensor:
     requant = out_scale is not None
     out = torch.empty((m, n), device=x.device,
                       dtype=torch.int8 if requant else torch.float32)
-    fn = getattr(_build.load("int8_matmul"), "mxt_int8_matmul")
+    lib = _build.load("int8_matmul")
+    fn = lib.mxt_int8_matmul
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, ci, ci, ci, cf, ci, ci, cf, vp]
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, cf, ci, ci, cf, vp]
         fn.restype = ci
+    # where K is too long for the CTA to keep w's panel, the kernel reads a
+    # K-major copy of w (8-bit wgmma takes no transposed operand)
+    wt = w.t().contiguous() if lib.mxt_int8_matmul_needs_wt(k) else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                float(scale), int(bool(relu)), int(requant),
+        rc = fn(x.data_ptr(), w.data_ptr(),
+                None if wt is None else wt.data_ptr(), out.data_ptr(), m, n,
+                k, float(scale), int(bool(relu)), int(requant),
                 float(out_scale) if requant else 0.0, stream)
     if rc != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: cudaError_t "

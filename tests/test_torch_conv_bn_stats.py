@@ -400,3 +400,148 @@ def test_bn_stats_kernel_walks_several_tiles_bitwise_repeatably(
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     _check_bn_stats(x, w, relu, first)
+
+
+# (x shape, Cout, kernel, pad) beyond the ResNet-50 sites, as chip_smoke.py's
+# KXK_CASES: Cin 8 to 128 (a k-box reaching past Cin), M not a multiple of
+# the 128-pixel tiles, rectangular images, 4x4/pad 0, non-square kernels
+# with unequal padding, 5x5/pad 2, Cout not a multiple of a tile
+KXK_CARD_CASES = [((3, 13, 11, 16), 24, (3, 3), (1, 1)),
+                  ((2, 17, 9, 32), 64, (4, 4), (0, 0)),
+                  ((1, 9, 23, 8), 16, (3, 5), (1, 2)),
+                  ((5, 7, 7, 64), 8, (1, 3), (0, 1)),
+                  ((2, 30, 30, 128), 136, (3, 3), (1, 1)),
+                  ((1, 11, 10, 24), 40, (5, 5), (2, 2)),
+                  ((7, 5, 6, 16), 72, (2, 2), (1, 0))]
+# the four 3x3 site shapes of the ResNet-50 step at batch 128
+KXK_SITES = [((128, 56 >> st, 56 >> st, 64 << st), 64 << st)
+             for st in range(4)]
+
+
+@pytest.fixture
+def kxk_inputs(cuda_device):
+    def make(xshape, cout, kernel, seed):
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        x = torch.randn(*xshape, generator=g, device=cuda_device)
+        x[:, [0, -1]] *= BORDER
+        x[:, :, [0, -1]] *= BORDER
+        w = torch.randn(cout, *kernel, xshape[3], generator=g,
+                        device=cuda_device) \
+            / (kernel[0] * kernel[1] * xshape[3]) ** 0.5
+        return x.to(torch.bfloat16), w.to(torch.bfloat16)
+    return make
+
+
+def _check_convkxk(x, w, pad, out):
+    # chip_smoke.py's check_convkxk bounds: z within 1e-5 of the conv of
+    # |x| and |w| plus one bf16 ulp (2^-7 relative) of the fp32 z; mean and
+    # var within the error of fp32 sums in another order
+    z, mean, var = out
+    rz, rmean, rvar = ck.convkxk_bn_stats_reference(x, w, pad)
+    assert z.shape == rz.shape and z.dtype == torch.bfloat16
+    z32 = ck.convkxk_bn_stats_reference(x.float(), w.float(), pad)[0]
+    z32 = z32.reshape(-1, w.shape[0])
+    m = z32.shape[0]
+    dmean = 1e-5 * z32.abs().sum(0) / m
+    dvar = 1e-5 * (z32 * z32).sum(0) / m + 2 * rmean.abs() * dmean \
+        + dmean * dmean
+    assert torch.isfinite(mean).all() and torch.isfinite(var).all()
+    assert ((mean - rmean).abs() <= dmean).all()
+    assert ((var - rvar).abs() <= dvar).all()
+    mag = ck.convkxk_bn_stats_reference(x.float().abs(), w.float().abs(),
+                                        pad)[0]
+    assert ((z.float() - rz.float()).abs()
+            <= 1e-5 * mag + 2.0 ** -7 * rz.float().abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xshape,cout,kernel,pad", KXK_CARD_CASES)
+def test_convkxk_kernel_matches_plain_beyond_the_sites(kxk_inputs, xshape,
+                                                       cout, kernel, pad):
+    torch.backends.cudnn.allow_tf32 = False
+    x, w = kxk_inputs(xshape, cout, kernel, sum(xshape) + cout)
+    n0 = ck.launch_counts()["convkxk_bn_stats"]
+    first = ck.convkxk_bn_stats(x, w, pad)
+    second = ck.convkxk_bn_stats(x, w, pad)
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["convkxk_bn_stats"] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _check_convkxk(x, w, pad, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xshape,cout", KXK_SITES)
+def test_convkxk_kernel_walks_several_tiles_bitwise_repeatably(
+        kxk_inputs, xshape, cout):
+    # each CTA sums its n-tile's m-tiles (several of them at stages 1 to 3,
+    # one at stage 4's 256-column tiles: the rows and tile width the C
+    # library chooses on this card), and z and the statistics repeat bit
+    # for bit
+    from mxnet_tpu_torch.ops import _build
+    torch.backends.cudnn.allow_tf32 = False
+    lib = _build.load("convkxk_bn_stats")
+    m = xshape[0] * xshape[1] * xshape[2]
+    rows = lib.mxt_convkxk_stats_rows(m, cout)
+    assert lib.mxt_convkxk_tile_n(m, cout) in (64, 128, 256)
+    assert 1 <= rows <= -(-m // 128)
+    if cout < 512:
+        assert rows < -(-m // 128)
+    x, w = kxk_inputs(xshape, cout, (3, 3), 7)
+    first = ck.convkxk_bn_stats(x, w, (1, 1))
+    second = ck.convkxk_bn_stats(x, w, (1, 1))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _check_convkxk(x, w, (1, 1), first)
+
+
+@pytest.mark.cuda
+def test_convkxk_kernel_replayed_in_two_graphs_at_once(kxk_inputs):
+    # each launch zeroes the counters of its own scratch, so two CUDA
+    # graphs replayed at the same time on two streams each keep their own
+    # statistics, bit for bit
+    x1, w1 = kxk_inputs((32, 56, 56, 64), 64, (3, 3), 31)
+    x2, w2 = kxk_inputs((64, 14, 14, 256), 256, (3, 3), 32)
+    want1 = ck.convkxk_bn_stats(x1, w1, (1, 1))
+    want2 = ck.convkxk_bn_stats(x2, w2, (1, 1))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the default stream
+        ck.convkxk_bn_stats(x1, w1, (1, 1))
+        ck.convkxk_bn_stats(x2, w2, (1, 1))
+    torch.cuda.current_stream().wait_stream(side)
+    g1, g2 = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g1):
+        out1 = [ck.convkxk_bn_stats(x1, w1, (1, 1)) for _ in range(4)]
+    with torch.cuda.graph(g2):
+        out2 = [ck.convkxk_bn_stats(x2, w2, (1, 1)) for _ in range(4)]
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for _ in range(10):
+        s1.wait_stream(torch.cuda.current_stream())
+        s2.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s1):
+            g1.replay()
+        with torch.cuda.stream(s2):
+            g2.replay()
+        torch.cuda.synchronize()
+        for outs, want in ((out1, want1), (out2, want2)):
+            for got in outs:
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_convkxk_wider_than_the_im2col_map_runs_the_fp32_kernel(
+        kxk_inputs):
+    # a kernel 131 taps wide with pad 1 puts the im2col map's bounding box
+    # corner at -129, outside what the encoder takes: the bf16 call runs
+    # the fp32 kernel on the same values (one launch) and rounds z once
+    from mxnet_tpu_torch.ops import _build
+    torch.backends.cudnn.allow_tf32 = False
+    lib = _build.load("convkxk_bn_stats")
+    assert not lib.mxt_convkxk_tma_fits(1, 131, 0, 1)
+    assert lib.mxt_convkxk_tma_fits(3, 3, 1, 1)
+    x, w = kxk_inputs((2, 3, 140, 8), 16, (1, 131), 41)
+    n0 = ck.launch_counts()["convkxk_bn_stats"]
+    out = ck.convkxk_bn_stats(x, w, (0, 1))
+    torch.cuda.synchronize()
+    assert ck.launch_counts()["convkxk_bn_stats"] == n0 + 1
+    _check_convkxk(x, w, (0, 1), out)

@@ -579,3 +579,31 @@ def test_s8_matmul_s32_is_exact_on_card(cuda_device, m, k, n):
                            torch.from_numpy(w).to(cuda_device))
     onp.testing.assert_array_equal(got.cpu().numpy(),
                                    x.astype(onp.int64) @ w.astype(onp.int64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (392, 512, 2048), (1568, 2048, 512), (1000, 48, 80), (77, 208, 16),
+    (333, 16, 48), (5, 16, 16), (129, 48, 16), (1000, 640, 80),
+    (25088, 512, 128), (100352, 64, 256)])
+def test_int8_kernel_bitwise_at_the_edges(cuda_device, m, k, n):
+    """chip_smoke.py's INT8_CASES and timed shapes, K = 16 and 48 (inside
+    one 128-byte k-box), N = 16 and 80 (inside one 128-column tile, the
+    rest clipped), ragged M, and K past the 512 up to which each CTA
+    transposes w's panel itself (640, 2048: the kernel reads a K-major copy
+    of w), each bitwise equal to the plain version with the fp32 and the
+    s8 output."""
+    g = torch.Generator(device=cuda_device).manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, device=cuda_device,
+                      dtype=torch.int8)
+    for relu, out_scale in ((False, None), (True, 31.0), (False, 0.07)):
+        n0 = ck.launch_counts()["int8_matmul"]
+        out = ck.int8_matmul(x, w, 3e-4, relu=relu, out_scale=out_scale)
+        torch.cuda.synchronize()
+        assert ck.launch_counts()["int8_matmul"] == n0 + 1
+        want = ck.int8_matmul_reference(x, w, 3e-4, relu=relu,
+                                        out_scale=out_scale)
+        assert out.dtype == want.dtype and out.shape == (m, n)
+        assert torch.equal(out, want)

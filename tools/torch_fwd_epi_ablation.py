@@ -60,8 +60,8 @@ VARIANTS = {
     },
     EPI: {
         "as built": [],
-        "wt reloaded for every tile": [("const bool w_fixed = n_nt == 1 && "
-                                        "n_kb == 1;",
+        "wt reloaded for every tile": [("const bool w_fixed = n_kb == 1 && "
+                                        "gridDim.x % n_nt == 0;",
                                         "const bool w_fixed = false;")],
         "2-stage ring at every K": [("constexpr int DEEP_K = 256;",
                                      "constexpr int DEEP_K = 1 << 30;")],
@@ -100,13 +100,17 @@ def build_variants(_build) -> dict:
             shutil.rmtree(out, ignore_errors=True)
             shutil.copytree(_build.CSRC_DIR, out / "csrc")
             src = out / "csrc" / f"{source}.cu"
-            text = src.read_text()
+            # each edit applies to the source where it holds the edit's
+            # text, else to the one header that does
+            headers = sorted((out / "csrc").glob("*.cuh"))
             for old, new in edits:
-                if old not in text:
-                    raise SystemExit(f"variant {name!r}: {old!r} not in "
-                                     f"{source}.cu")
-                text = text.replace(old, new)
-            src.write_text(text)
+                hits = [src] if old in src.read_text() else [
+                    f for f in headers if old in f.read_text()]
+                if len(hits) != 1:
+                    raise SystemExit(f"variant {name!r}: {old!r} is in "
+                                     f"{[f.name for f in hits]}, want one "
+                                     f"file")
+                hits[0].write_text(hits[0].read_text().replace(old, new))
             lib = out / f"lib{source}.so"
             procs[(source, name)] = (subprocess.Popen(
                 [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(src)],

@@ -2,13 +2,15 @@
 """Ablations of the port's bf16 batch-norm statistics kernels, B4
 (``matmul_bn_stats``) and B5 (``matmul_stats``), on one GPU.
 
-    python3 tools/torch_stats_ablation.py [--first-source PATH]
+    python3 tools/torch_stats_ablation.py [--first-dir DIR]
 
 Builds ``mxnet_tpu_torch/ops/csrc/conv_bn_epilogue.cu`` as it is and in
-variants made by named text edits of the source (each into its own
-directory under the git-ignored ``ops/_build/``, all ``nvcc`` runs started
-together), holds every variant against the plain versions with
-``chip_smoke``'s statistics checks (``STATS_RTOL``, ``Z_ULP``), and times
+variants made by named text edits of the sources (each edit applies to the
+source where it holds the edit's text, else to the one header that does;
+each variant into its own directory under the git-ignored ``ops/_build/``,
+all ``nvcc`` runs started together), holds every variant against the plain
+versions with ``chip_smoke``'s statistics checks (``STATS_RTOL``,
+``Z_ULP``), and times
 them as interleaved CUDA-graph replays (``chip_smoke.time_ms``) beside
 ``torch.matmul`` of the bare product and the first, per-tile ``mma.sync``
 kernels: at the two timed ResNet-50 sites, then at every distinct 1x1 site
@@ -18,11 +20,13 @@ host's time per call, eager, of the final sum in the kernel and by torch.
 The first kernels are those of ``conv_bn_epilogue.cu`` as of commit
 ``FIRST_COMMIT`` (``mxt_matmul_stats`` / ``mxt_matmul_bn_stats`` with
 dtype 1, their per-m-tile partial rows summed by torch as the wrappers did
-then), built beside today's headers. The tool reads that source with
-``git show``; where the checkout has no ``.git``, extract it first and
-pass its path as ``--first-source``:
+then), built with that commit's ``conv_gemm_sm90.cuh`` (whose ``mma.sync``
+tiles they run on) beside today's other headers. The tool reads both with
+``git show``; where the checkout has no ``.git``, extract them first and
+pass their directory as ``--first-dir``:
 
-    git show FIRST_COMMIT:mxnet_tpu_torch/ops/csrc/conv_bn_epilogue.cu > f.cu
+    mkdir -p d && for f in conv_bn_epilogue.cu conv_gemm_sm90.cuh; do \\
+        git show FIRST_COMMIT:mxnet_tpu_torch/ops/csrc/$f > d/$f; done
 
 Each variant undoes one design choice:
 
@@ -35,8 +39,8 @@ Each variant undoes one design choice:
 - a 2-stage ring in place of the deepest that fits;
 - 256-column tiles wherever N > 128 (lanes g and g ^ 4 splitting the
   column groups, one shuffle per value kept, since a thread's running sums
-  of 64 columns would not fit the registers beside its 128 accumulators)
-  in place of 128.
+  of 64 columns would not fit the registers beside its 128 accumulators:
+  the split the KxK conv kernel's 256-column tiles use) in place of 128.
 
 Exits non-zero without a CUDA device.
 """
@@ -57,6 +61,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(os.path.dirname(__file__)))
 EPI = "conv_bn_epilogue"
 FIRST_COMMIT = "8552156"
+FIRST_FILES = (f"{EPI}.cu", "conv_gemm_sm90.cuh")
 FIRST = "mma.sync, per tile (first kernel)"
 ADD_TILE = "  add_tile<BN>(rs, rq, acc);"
 VARIANTS = {
@@ -83,31 +88,6 @@ VARIANTS = {
     "2-stage ring": [("static constexpr int NST = FIT < 8 ? FIT : 8;",
                       "static constexpr int NST = FIT < 2 ? FIT : 2;")],
     "256-column tiles above 128": [
-        ("  static constexpr int NV = 2 * J;",
-         "  static constexpr bool SPLIT = BN == 256;\n"
-         "  static constexpr int KEEP = SPLIT ? J / 2 : J;\n"
-         "  static constexpr int NV = 2 * KEEP;"),
-        ("i < Cols<BN>::J; ++i)", "i < Cols<BN>::KEEP; ++i)"),
-        ("      rs[2 * i + p] += s;\n", """      if constexpr (Cols<BN>::SPLIT) {
-        // lanes with g >= 4 keep groups J/2.., the others ..J/2
-        const bool hi = threadIdx.x & 16;
-        const int o = 4 * (i + Cols<BN>::J / 2);
-        const float a1 = acc[o + p], b1 = acc[o + 2 + p];
-        const float s1 = a1 + b1, q1 = fmaf(a1, a1, b1 * b1);
-        const float send_s = hi ? s : s1, send_q = hi ? q : q1;
-        s = (hi ? s1 : s) + __shfl_xor_sync(mxt::kFull, send_s, 16);
-        q = (hi ? q1 : q) + __shfl_xor_sync(mxt::kFull, send_q, 16);
-      }
-      rs[2 * i + p] += s;
-"""),
-        ("for (int off = 4; off < 32; off <<= 1)",
-         "for (int off = 4; off < (Cols<BN>::SPLIT ? 16 : 32); off <<= 1)"),
-        ("  if (g == 0) {\n",
-         "  if ((g & (Cols<BN>::SPLIT ? 3 : 7)) == 0) {\n"
-         "    const int j0 = Cols<BN>::SPLIT && (g & 4) ? Cols<BN>::J / 2 : "
-         "0;\n"),
-        ("const int col = 8 * i + 2 * c4 + p;",
-         "const int col = 8 * (j0 + i) + 2 * c4 + p;"),
         ("inline int stats_tile_n(int N) { return N <= 64 ? 64 : 128; }",
          "inline int stats_tile_n(int N) { return N <= 64 ? 64 : N <= 128 ? "
          "128 : 256; }"),
@@ -122,39 +102,59 @@ CHECKS = [(77, 8, 8), (1000, 24, 72), (77, 8, 264), (3001, 256, 264),
           (6272, 512, 2048)]
 
 
-def first_source(path) -> str:
-    """The text of conv_bn_epilogue.cu with the first kernels: ``path``, or
-    ``git show`` of it at FIRST_COMMIT."""
-    if path:
-        with open(path) as f:
-            return f.read()
-    try:
-        return subprocess.run(
-            ["git", "-C", ROOT, "show",
-             f"{FIRST_COMMIT}:mxnet_tpu_torch/ops/csrc/{EPI}.cu"],
-            check=True, capture_output=True, text=True).stdout
-    except (OSError, subprocess.CalledProcessError) as e:
-        raise SystemExit(f"no git history here ({e}); pass --first-source "
-                         f"with the source as of {FIRST_COMMIT}")
+def first_sources(first_dir) -> dict:
+    """{file name: text} of FIRST_FILES as of FIRST_COMMIT: from
+    ``first_dir``, or ``git show``."""
+    out = {}
+    for name in FIRST_FILES:
+        if first_dir:
+            with open(os.path.join(first_dir, name)) as f:
+                out[name] = f.read()
+            continue
+        try:
+            out[name] = subprocess.run(
+                ["git", "-C", ROOT, "show",
+                 f"{FIRST_COMMIT}:mxnet_tpu_torch/ops/csrc/{name}"],
+                check=True, capture_output=True, text=True).stdout
+        except (OSError, subprocess.CalledProcessError) as e:
+            raise SystemExit(f"no git history here ({e}); pass --first-dir "
+                             f"with {FIRST_FILES} as of {FIRST_COMMIT}")
+    return out
 
 
-def build_variants(_build, first_text: str) -> dict:
+def apply_edits(csrc, name, edits) -> None:
+    """Each (old, new) edit replaces text in conv_bn_epilogue.cu where it
+    holds the text, else in the one header that does; exits if none or
+    several do."""
+    src, headers = csrc / f"{EPI}.cu", sorted(csrc.glob("*.cuh"))
+    for old, new in edits:
+        hits = [src] if old in src.read_text() else [
+            f for f in headers if old in f.read_text()]
+        if len(hits) != 1:
+            raise SystemExit(f"variant {name!r}: {old!r} is in "
+                             f"{[f.name for f in hits]}, want one file")
+        hits[0].write_text(hits[0].read_text().replace(old, new))
+
+
+def build_variants(_build, first: dict) -> dict:
     """{variant: loaded library}, each built from an edited copy of csrc/,
-    and the first kernels from their own source beside today's headers."""
+    and the first kernels from their own sources beside today's other
+    headers."""
     nvcc = _build.nvcc_path()
-    procs = {}
+    dirs = {}
     for name, edits in [*VARIANTS.items(), (FIRST, None)]:
-        out = _build.BUILD_DIR / "ablation" / "stats" / re.sub(
+        out = dirs[name] = _build.BUILD_DIR / "ablation" / "stats" / re.sub(
             r"\W+", "_", name)
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(_build.CSRC_DIR, out / "csrc")
+        if edits is None:
+            for fname, text in first.items():
+                (out / "csrc" / fname).write_text(text)
+        else:
+            apply_edits(out / "csrc", name, edits)
+    procs = {}
+    for name, out in dirs.items():
         src = out / "csrc" / f"{EPI}.cu"
-        text = src.read_text() if edits is not None else first_text
-        for old, new in edits or ():
-            if old not in text:
-                raise SystemExit(f"variant {name!r}: {old!r} not in {EPI}.cu")
-            text = text.replace(old, new)
-        src.write_text(text)
         lib = out / f"lib{EPI}.so"
         procs[name] = (subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
@@ -247,7 +247,7 @@ def host_us(fn, calls: int = 400, reps: int = 7) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--first-source", help="conv_bn_epilogue.cu as of "
+    ap.add_argument("--first-dir", help=f"{FIRST_FILES} as of "
                     f"{FIRST_COMMIT} (default: git show)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -259,9 +259,9 @@ def main() -> int:
     _models, ck, _build = cs.port()
     card = cs.card()
     print(card)
-    first_text = first_source(args.first_source)
+    first = first_sources(args.first_dir)
     _build.build([EPI])
-    libs = build_variants(_build, first_text)
+    libs = build_variants(_build, first)
     fns = {name: Stats(lib, fold=name != "final sum by torch",
                        per_tile=name == FIRST)
            for name, lib in libs.items()}
