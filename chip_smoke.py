@@ -40,9 +40,10 @@ Phases, in order; any failure exits non-zero before the result line:
    a plain masked NLL (``F.cross_entropy``) of the einsum path's logits. At
    random init the scores are near zero, so this phase checks the model
    around the kernel, not the kernel.
-3b. The train path at the same width: ``make_train_step`` takes 5 Adam and 5
-   LAMB steps on a fixed batch of tokens (32, 128) (``bench.py``'s bert
-   lane), with the counts zeroed just before and read just after: falling
+3b. The train path at the same width: ``make_train_step`` (captured, the
+   default) takes 5 Adam and 5 LAMB steps on a fixed batch of tokens
+   (32, 128) (``bench.py``'s bert lane), with the counts zeroed just
+   before and read just after: falling
    finite loss, exactly one launch of each of the three kernels per layer per
    step, no fallback. Then single steps: attention's gradients through the
    kernels against the einsum path, ``grad_accum=2``, ``remat=True``, and a
@@ -107,6 +108,23 @@ Phases, in order; any failure exits non-zero before the result line:
    step; ``matmul_stats`` and ``matmul_bn_stats`` and ``torch.matmul`` at
    every distinct 1x1 site shape, and each kernel's sums over the 36
    launches of a step beside its bound's.
+8. Capture (``program_store``, ``cached_step``): the LM forward at both
+   request shapes through ``program_store.capture``; 5 Adam and 5 LAMB LM
+   steps at tokens (32, 128) through the captured ``make_train_step``; the
+   bf16 ResNet-50 step at batch 128 through ``trainer.compile_step`` on
+   each route (unfused, ``MXNET_FUSED_EPILOGUE=1``,
+   ``MXNET_FUSED_CONV_BN=1``), its learning rate lowered after step 3; and
+   the hybridized ResNet-50 forward in predict mode. Each runs twice
+   eagerly and once captured from the same state, with the counts zeroed
+   before the phase and read after it: captured equal to eager bitwise
+   where the two eager runs are bitwise equal, else within FUSED_SPREAD x
+   their spread (the rule used is printed); 1 capture, 1 dispatch a step
+   or call and none after warm-up; launches and fused sites per step as
+   eager's; no fallback on a timed step; each call's output its own. Then
+   eager against captured wall (10 host-clock calls, unprofiled), device
+   busy, event span, the host's ms a call, idle share and peak memory of
+   each path, and a JSON line of them. The captured wall must be below the
+   eager wall for the LM forward at (4, 128) and the LM train step.
 9. int8: the path of ``benchmark/microbench_tpu.py`` ``section_int8_pallas``
    and the int8 op surface. (a) ``int8_matmul`` (``int8_matmul.cu``) at
    (M, K, N) = (25088, 512, 128) (ResNet-50's 1x1 conv at batch 32, 28x28,
@@ -407,6 +425,15 @@ BORDER = 10.0
 # x |z|: in bf16 each side rounds its fp32 z once, so the two may land one
 # bf16 ulp (2^-7 relative at most) apart
 Z_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 0.0}
+
+# -- the capture phase (program_store, cached_step) --
+# the captured ResNet step's learning rate drops to CAPTURE_LR2 after
+# CAPTURE_LR_STEP steps: the next steps must take it with no new capture,
+# as the eager runs that take it too show
+CAPTURE_LR_STEP, CAPTURE_LR2 = 3, RESNET_LR / 2
+CAPTURE_TIMED = 10       # host-clock samples of each path, eager and captured
+# the routes of the ResNet step under capture (see capture_route)
+CAPTURE_ROUTES = ("unfused", "epilogue", "conv_bn")
 
 
 # -- the int8 path --
@@ -1035,54 +1062,119 @@ TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
 
 
-def run_steps(models, ck, step, params, tokens, labels, n):
-    """n train steps from fresh moments; returns (losses, launch counts of
-    each step)."""
+_PROFILER_WARM = []
+
+
+def traced_launches(ck, fn, trace=True, total=None):
+    """fn(), under a profiler that traces the device only if ``trace``:
+    (its result, the port's kernel launches that the wrappers counted, and
+    those the trace saw run on the device, each by wrapper and without
+    zeros; None untraced). A replayed graph runs no Python, so only the
+    trace sees its launches; a call that captures is not traced. The
+    traced counts are added into ``total``."""
+    from torch.profiler import ProfilerActivity, profile as trace_
+    if trace and not _PROFILER_WARM:
+        # the first trace of a process can miss its first kernels
+        with trace_(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        _PROFILER_WARM.append(True)
+    c0 = ck.launch_counts()
+    if not trace:
+        out, traced = fn(), None
+    else:
+        torch.cuda.synchronize()
+        with trace_(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        traced = {}
+        for evt in prof.events():
+            name = ck.kernel_of(evt.name) \
+                if evt.device_type == torch.autograd.DeviceType.CUDA else None
+            if name:
+                traced[name] = traced.get(name, 0) + 1
+        if total is not None:
+            for k, n in traced.items():
+                total[k] = total.get(k, 0) + n
+    c1 = ck.launch_counts()
+    return out, {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}, traced
+
+
+def times(d: dict, n: int) -> dict:
+    return {k: n * v for k, v in d.items() if v}
+
+
+def check_step_launches(what, counted, traced, want: dict,
+                        captured: bool) -> None:
+    """The launches of each step of a run against one step's ``want``.
+    Eager, every step's counted and traced launches are ``want``. Captured,
+    the first call counts ``want`` twice (its eager run, which launches,
+    and its capture, which records), untraced; each replay counts nothing
+    and runs ``want`` on the device, as its trace shows."""
+    want = times(want, 1)
+    for i, (c, t) in enumerate(zip(counted, traced)):
+        if captured and i == 0:
+            ok = c == times(want, 2) and t is None
+        else:
+            ok = c == ({} if captured else want) and t == want
+        if not ok:
+            fail(f"{what}, step {i + 1}{' (replay)' if captured and i else ''}"
+                 f": counted launches {c}, traced {t}; want {want} a step "
+                 f"({'captured' if captured else 'eager'})")
+
+
+def run_steps(models, ck, step, params, tokens, labels, n, captured,
+              total=None):
+    """n train steps from fresh moments; returns (losses, counted launches
+    of each step, traced launches of each step but a capturing one, the
+    params and moments after them)."""
     m, v = models.init_opt_state(params)
-    losses, per_step = [], []
+    losses, counted, traced = [], [], []
     for t in range(1, n + 1):
-        c0 = ck.launch_counts()
-        params, m, v, loss = step(params, m, v, tokens, labels, t)
-        c1 = ck.launch_counts()
+        (params, m, v, loss), c, tr = traced_launches(
+            ck, lambda: step(params, m, v, tokens, labels, t),
+            trace=not (captured and t == 1), total=total)
         losses.append(loss)
-        per_step.append({k: c1[k] - c0[k] for k in TRAIN_KERNELS})
-    return [x.item() for x in losses], per_step
+        counted.append(c)
+        traced.append(tr)
+    return losses, counted, traced, (params, m, v)
 
 
-def check_launches(what, per_step, want: dict) -> None:
-    for i, got in enumerate(per_step):
-        if got != want:
-            fail(f"{what}, step {i + 1}: launches {got}, want {want}")
-
-
-def train_path(models, ck, cfg, init, rng):
+def train_path(models, ck, cfg, init, rng, config):
     """Phase 3b; returns the launch counts of the train path's main run (5
-    Adam and 5 LAMB steps at TRAIN_TOKENS)."""
+    Adam and 5 LAMB steps at TRAIN_TOKENS, captured as the knob
+    MXNET_COMPILED_STEP says, on by default): those the wrappers counted,
+    and those traced on the device."""
     L = cfg.num_layers
     per_layer = {k: L for k in TRAIN_KERNELS}
+    captured = bool(config.get("MXNET_COMPILED_STEP"))
     tokens, labels = batch(rng, cfg, *TRAIN_TOKENS)
     fallback0 = models.flash_fallback_count()
     ck.reset_launch_counts()
-    runs = {}
+    runs, traced_total = {}, {}
     for opt in ("adam", "lamb"):
         step = models.make_train_step(cfg, optimizer=opt, lr=TRAIN_LR)
         runs[opt] = run_steps(models, ck, step, init(), tokens, labels,
-                              TRAIN_STEPS)
+                              TRAIN_STEPS, captured, traced_total)
     torch.cuda.synchronize()
     counts = ck.launch_counts()
     fallbacks = models.flash_fallback_count() - fallback0
     print(f"train path launch counts ({TRAIN_STEPS} adam + {TRAIN_STEPS} "
-          f"lamb steps, tokens {TRAIN_TOKENS}): {counts}, flash fallbacks "
-          f"{fallbacks}")
+          f"lamb steps, tokens {TRAIN_TOKENS}, "
+          f"{'captured' if captured else 'eager'}): counted by the wrappers "
+          f"{counts}; traced on the device in the "
+          f"{'replays' if captured else 'steps'} {traced_total}; flash "
+          f"fallbacks {fallbacks}")
     if fallbacks:
         fail(f"{fallbacks} flash fallbacks on the train path")
     if any(counts[k] == 0 for k in TRAIN_KERNELS):
         fail(f"a kernel of the train path never launched: {counts}")
-    for opt, (losses, per_step) in runs.items():
+    for opt, (losses, counted, traced, _) in runs.items():
+        losses = [x.item() for x in losses]
         print(f"train {opt}, lr {TRAIN_LR}, tokens {TRAIN_TOKENS}: losses "
               + " ".join(f"{x:.6f}" for x in losses)
-              + f"; launches per step {per_step[0]}")
-        check_launches(opt, per_step, per_layer)
+              + f"; launches per step {traced[-1]} (traced)")
+        check_step_launches(opt, counted, traced, per_layer, captured)
         if not all(math.isfinite(x) for x in losses):
             fail(f"{opt}: non-finite loss {losses}")
         if not losses[-1] < losses[0]:
@@ -1116,9 +1208,11 @@ def train_path(models, ck, cfg, init, rng):
         p = {n: w.clone() for n, w in params.items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        (loss,), (n,) = run_steps(models, ck, step, p, tokens, labels, 1)
+        (loss,), counted, traced, _ = run_steps(models, ck, step, p, tokens,
+                                                labels, 1, captured)
         torch.cuda.synchronize()
-        single[what] = (loss, n, torch.cuda.max_memory_allocated())
+        single[what] = (loss.item(), counted, traced,
+                        torch.cuda.max_memory_allocated())
         del p
     want = {"plain": per_layer,
             "grad_accum=2": {k: 2 * L for k in TRAIN_KERNELS},
@@ -1126,28 +1220,30 @@ def train_path(models, ck, cfg, init, rng):
                       "flash_attention_bwd_dq": L,
                       "flash_attention_bwd_dkv": L}}
     base = single["plain"][0]
-    for what, (loss, n, mem) in single.items():
+    for what, (loss, counted, traced, mem) in single.items():
         print(f"one adam step, {what}: loss {loss:.6f} (|diff| to plain "
               f"{abs(loss - base):.3e}, bound {TRAIN_LOSS_ATOL}), launches "
-              f"{n}, peak memory {mem / 2**30:.3f} GiB")
-        check_launches(what, [n], want[what])
+              f"counted {counted[0]}, peak memory {mem / 2**30:.3f} GiB")
+        check_step_launches(what, counted, traced, want[what], captured)
         if not abs(loss - base) <= TRAIN_LOSS_ATOL:
             fail(f"{what}: loss {loss} vs {base} of the plain step")
 
     # the multi-tile backward inside the model
     tokens_l, labels_l = batch(rng, cfg, *TRAIN_LONG_TOKENS)
     step = models.make_train_step(cfg, lr=TRAIN_LR)
-    (loss,), per_step = run_steps(models, ck, step, params, tokens_l,
-                                  labels_l, 1)
+    (loss,), counted, traced, _ = run_steps(models, ck, step, params,
+                                            tokens_l, labels_l, 1, captured)
+    loss = loss.item()
     print(f"one adam step, tokens {TRAIN_LONG_TOKENS}: loss {loss:.6f}, "
-          f"launches {per_step[0]}")
-    check_launches(f"tokens {TRAIN_LONG_TOKENS}", per_step, per_layer)
+          f"launches counted {counted[0]}")
+    check_step_launches(f"tokens {TRAIN_LONG_TOKENS}", counted, traced,
+                        per_layer, captured)
     if not math.isfinite(loss):
         fail(f"tokens {TRAIN_LONG_TOKENS}: non-finite loss {loss}")
     fallbacks = models.flash_fallback_count() - fallback0
     if fallbacks:
         fail(f"{fallbacks} flash fallbacks in the train checks")
-    return counts
+    return counts, traced_total
 
 
 # -- 4. ----------------------------------------------------------------------
@@ -1282,14 +1378,16 @@ def forward_timings(models, cfg, params, requests, attn_times,
                     card_line)
 
 
-def train_timings(models, ck, cfg, params, rng, bwd_times,
-                  card_line) -> None:
+def train_timings(models, ck, cfg, params, rng, bwd_times, card_line,
+                  config) -> None:
     tokens, labels = batch(rng, cfg, *TRAIN_TOKENS)
+    # the eager step, whose Python the plain-delta check below watches
     step = models.make_train_step(cfg, lr=TRAIN_LR)
     m, v = models.init_opt_state(params)
     state = [params, m, v, 1]
 
     def one():
+        set_compiled(config, False)
         p, m, v, t = state
         p, m, v, _loss = step(p, m, v, tokens, labels, t)
         state[:] = [p, m, v, t + 1]
@@ -1315,6 +1413,7 @@ def train_timings(models, ck, cfg, params, rng, bwd_times,
                        card_line)
     finally:
         ck._delta = plain_delta
+        set_compiled(config, True)
     if delta_calls:
         fail(f"the train step ran the plain delta pass {len(delta_calls)} "
              f"times in {PROFILE_STEPS} steps")
@@ -2444,6 +2543,447 @@ def conv_bn_timings(ck, card_line) -> dict:
     return out
 
 
+# -- 8. ----------------------------------------------------------------------
+
+
+def port_capture():
+    """The port's program store and compiled step."""
+    from mxnet_tpu_torch import cached_step, program_store
+    return program_store, cached_step
+
+
+def no_grad(fn):
+    def call():
+        with torch.no_grad():
+            return fn()
+    return call
+
+
+def hold_captured(what, eager_a, eager_b, captured) -> str:
+    """Captured results against eager ones (lists of tensors in the same
+    order): where two eager runs from the same state are bitwise equal,
+    the captured run must be too; otherwise it must lie within
+    FUSED_SPREAD x their spread (max |Δ| over all values) plus FUSED_SLACK
+    of the largest value, the rule of fused against unfused. Prints and
+    returns the rule used."""
+    a, b, c = (torch.cat([t.detach().double().ravel() for t in ts])
+               for ts in (eager_a, eager_b, captured))
+    if torch.equal(a, b):
+        rule = "bitwise (two eager runs bitwise equal)"
+        if not torch.equal(c, a):
+            fail(f"{what}: captured differs from eager in "
+                 f"{(c != a).sum().item()} of {a.numel()} values (max |Δ| "
+                 f"{(c - a).abs().max().item():.3e}), where two eager runs "
+                 f"are bitwise equal")
+    else:
+        spread_ = (b - a).abs().max().item()
+        err = (c - a).abs().max().item()
+        lim = FUSED_SPREAD * spread_ + FUSED_SLACK * a.abs().max().item()
+        rule = (f"within {FUSED_SPREAD} x the eager spread (two eager runs "
+                f"differ): max |Δ| {err:.3e} <= {lim:.3e}, spread "
+                f"{spread_:.3e}")
+        if not err <= lim:
+            fail(f"{what}: captured vs eager max |Δ| {err:.3e} > {lim:.3e} "
+                 f"({FUSED_SPREAD} x the eager spread {spread_:.3e})")
+    print(f"{what}: captured vs eager over {a.numel()} values, {rule}  ok")
+    return rule
+
+
+def event_ms(fn, n=CAPTURE_TIMED) -> float:
+    """Median device span of one call of fn, CUDA events around it."""
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def call_host_ms(fn, n=CAPTURE_TIMED) -> float:
+    """Median host ms for a call of fn to return when the device is idle
+    before it (a synchronise between calls, none after): the host's own
+    work a call, with no queue to wait on. For a captured call that is its
+    key, its copies and the graph launch; for an eager call, every launch
+    of the step."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def capture_numbers(what, fns, kept, card_line) -> dict:
+    """Eager against captured: wall ms (median of CAPTURE_TIMED host-clock
+    calls after 3 warm-up, unprofiled), device ms (profile's busy time, or
+    where the trace holds none the CUDA-event span of a call), the host's
+    ms a call (``call_host_ms``), idle share, and peak memory: the most
+    allocated during the timed calls above what was live before them,
+    plus for the captured path ``kept``, the memory its program holds
+    (reserved at its capture)."""
+    out = {}
+    for mode, fn in fns.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = host_ms(fn, n=CAPTURE_TIMED)
+        peak = torch.cuda.max_memory_allocated() - base + \
+            (kept if mode == "captured" else 0)
+        span = event_ms(fn)
+        host = call_host_ms(fn)
+        busy = profile(fn, PROFILE_STEPS, f"{what}, {mode}", card_line)
+        wall = statistics.median(times)
+        device = busy if busy else span
+        out[mode] = dict(wall_ms=wall, wall_min_ms=min(times),
+                         wall_max_ms=max(times), busy_ms=busy,
+                         span_ms=span, host_ms=host,
+                         idle_share=1 - device / wall,
+                         peak_gib=peak / 2**30)
+        print(f"{what}, {mode}: wall median {wall:.3f} ms over "
+              f"{CAPTURE_TIMED} (min {min(times):.3f}, max "
+              f"{max(times):.3f}); device busy "
+              + (f"{busy:.3f} ms" if busy else
+                 "not in the trace (the event span stands in)")
+              + f"; event span {span:.3f} ms; host {host:.3f} ms a call from an "
+              f"idle device; idle share {1 - device / wall:.1%}; peak memory "
+              f"{peak / 2**30:.3f} GiB [{card_line}]")
+    e, c = out["eager"]["wall_ms"], out["captured"]["wall_ms"]
+    print(f"{what}: captured wall {c:.3f} ms against eager {e:.3f} ms, "
+          f"{e / c:.2f}x [{card_line}]")
+    return out
+
+
+def reserved_by(fn):
+    """(fn's result, the memory reserved by the allocator over its call,
+    after emptying the cache first)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_reserved() - r0
+
+
+def capture_forward_phase(models, ps, ck, cfg, params, requests,
+                          card_line, traced_total) -> dict:
+    """Phase 8a: the LM forward at each request shape captured through
+    ``program_store.capture``, held against the eager forward; 1 capture
+    per shape, 1 dispatch a call, the forward kernel's launches per call
+    as eager's (the eager forward's counted and traced, the first captured
+    call's counted, a replay's traced); then eager against captured
+    numbers."""
+    ns = ps.namespace("hybrid_forward")
+    fwd = ps.capture(lambda toks: models.forward(params, toks, cfg)[0])
+    want = {"flash_attention_fwd": cfg.num_layers}
+    numbers = {}
+    for tokens, _labels in requests:
+        B, S = tokens.shape
+        what = f"LM forward tokens ({B}, {S})"
+        t0, d0 = ns.traces, ns.dispatches
+        with torch.no_grad():
+            eager = [traced_launches(
+                ck, lambda: models.forward(params, tokens, cfg)[0])
+                for _ in range(2)]
+            (first, kept), c_first, _ = traced_launches(
+                ck, lambda: reserved_by(lambda: fwd(tokens)), trace=False)
+            replay, c_replay, t_replay = traced_launches(
+                ck, lambda: fwd(tokens), total=traced_total)
+        eager_launches = [(c, t) for _, c, t in eager]
+        eager = [e for e, _, _ in eager]
+        hold_captured(what, [eager[0]] * 2, [eager[1]] * 2, [first, replay])
+        if (ns.traces - t0, ns.dispatches - d0) != (1, 2):
+            fail(f"{what}: {ns.traces - t0} captures and "
+                 f"{ns.dispatches - d0} dispatches over 2 calls")
+        got = (eager_launches, c_first, c_replay, t_replay)
+        if got != ([(want, want)] * 2, times(want, 2), {}, want):
+            fail(f"{what}: launches (eager counted and traced, first "
+                 f"captured call counted, replay counted, replay traced) "
+                 f"{got}; want {want} a forward")
+        del eager, first, replay
+        calls = []
+        captured = no_grad(lambda: calls.append(1) or fwd(tokens))
+        t1, d1 = ns.traces, ns.dispatches
+        numbers[(B, S)] = capture_numbers(what, {
+            "eager": no_grad(lambda: models.forward(params, tokens, cfg)),
+            "captured": captured}, kept, card_line)
+        if (ns.traces - t1, ns.dispatches - d1) != (0, len(calls)):
+            fail(f"{what}: {ns.traces - t1} captures and "
+                 f"{ns.dispatches - d1} dispatches over {len(calls)} timed "
+                 f"calls")
+        print(f"{what}: 1 capture, 1 dispatch a call, 0 captures over "
+              f"{len(calls)} timed calls; forward-kernel launches: "
+              f"{cfg.num_layers} an eager forward (counted and traced), "
+              f"{2 * cfg.num_layers} counted at the first captured call "
+              f"(its eager run and its capture), {cfg.num_layers} traced in "
+              f"a replay, which counts none  ok")
+    n = numbers[tuple(REQUESTS[0])]
+    if not n["captured"]["wall_ms"] < n["eager"]["wall_ms"]:
+        fail(f"LM forward {REQUESTS[0]}: captured wall "
+             f"{n['captured']['wall_ms']:.3f} ms not below eager "
+             f"{n['eager']['wall_ms']:.3f} ms")
+    return numbers
+
+
+def capture_train_phase(models, ps, cs, ck, cfg, init, rng, card_line,
+                        config, traced_total) -> dict:
+    """Phase 8b: TRAIN_STEPS Adam and then TRAIN_STEPS LAMB steps of the
+    LM at TRAIN_TOKENS, each from the same initial state in two eager runs
+    (MXNET_COMPILED_STEP=0) and one captured run: losses, params and
+    moments held captured against eager; one capture per run however t
+    advances, one dispatch a step; the kernels' launches per step as
+    eager's (check_step_launches). Then eager against captured numbers of
+    the Adam step."""
+    L = cfg.num_layers
+    tokens, labels = batch(rng, cfg, *TRAIN_TOKENS)
+    for opt in ("adam", "lamb"):
+        runs = []
+        for capture in (False, False, True):
+            set_compiled(config, capture)
+            step = models.make_train_step(cfg, optimizer=opt, lr=TRAIN_LR)
+            t0, d0 = cs.trace_count(), cs.dispatch_count()
+            losses, counted, traced, state = run_steps(
+                models, ck, step, init(), tokens, labels, TRAIN_STEPS,
+                capture, traced_total if capture else None)
+            got = (cs.trace_count() - t0, cs.dispatch_count() - d0)
+            if got != ((1, TRAIN_STEPS) if capture else (0, 0)):
+                fail(f"LM train {opt}, capture={capture}: (captures, "
+                     f"dispatches) {got} over {TRAIN_STEPS} steps")
+            check_step_launches(f"LM train {opt}, capture={capture}",
+                                counted, traced,
+                                {k: L for k in TRAIN_KERNELS}, capture)
+            runs.append((losses, [x for d in state for x in d.values()]))
+            del state, step
+        (la, sa), (lb, sb), (lc, sc) = runs
+        print(f"LM train {opt}, tokens {TRAIN_TOKENS}, lr {TRAIN_LR}: losses "
+              f"eager " + " ".join(f"{x.item():.6f}" for x in la)
+              + "; captured " + " ".join(f"{x.item():.6f}" for x in lc)
+              + f"; 1 capture, 1 dispatch a step, launches per step "
+              f"{ {k: L for k in TRAIN_KERNELS} }")
+        hold_captured(f"LM train {opt} losses", la, lb, lc)
+        hold_captured(f"LM train {opt} params and moments after "
+                      f"{TRAIN_STEPS} steps", sa, sb, sc)
+        if not lc[-1].item() < lc[0].item():
+            fail(f"LM train {opt}, captured: the loss did not fall")
+        del runs, sa, sb, sc
+    torch.cuda.empty_cache()
+    fns, kept = {}, 0
+    for mode in ("eager", "captured"):
+        step = models.make_train_step(cfg, lr=TRAIN_LR)
+        p = init()
+        m, v = models.init_opt_state(p)
+        state = [p, m, v, 1]
+
+        def one(step=step, state=state, on=mode == "captured"):
+            set_compiled(config, on)
+            p, m, v, t = state
+            step(p, m, v, tokens, labels, t)
+            state[3] = t + 1
+
+        if mode == "captured":
+            _, kept = reserved_by(one)
+        fns[mode] = one
+    t0 = cs.trace_count()
+    numbers = capture_numbers(f"LM train step adam, tokens {TRAIN_TOKENS}",
+                              fns, kept, card_line)
+    set_compiled(config, True)
+    if cs.trace_count() != t0:
+        fail("LM train step: a capture after warm-up")
+    if not numbers["captured"]["wall_ms"] < numbers["eager"]["wall_ms"]:
+        fail(f"LM train step: captured wall "
+             f"{numbers['captured']['wall_ms']:.3f} ms not below eager "
+             f"{numbers['eager']['wall_ms']:.3f} ms")
+    return numbers
+
+
+def capture_route(config, name):
+    """Set the knobs of a ResNet route (unfused, the epilogue's, conv +
+    BN's); returns its Route, None for unfused."""
+    route = {"unfused": None, "epilogue": EPILOGUE, "conv_bn": CONV_BN}[name]
+    for r in (EPILOGUE, CONV_BN):
+        set_fused(config, int(r is route), r)
+    return route
+
+
+def set_compiled(config, on: bool) -> None:
+    os.environ["MXNET_COMPILED_STEP"] = "1" if on else "0"
+    config.refresh("MXNET_COMPILED_STEP")
+
+
+def resnet_site_counts(resnet):
+    return {**{f"epilogue.{k}": v
+               for k, v in resnet.fused_epilogue_counts().items()},
+            **{f"conv_bn.{k}": v
+               for k, v in resnet.fused_conv_bn_counts().items()}}
+
+
+def route_gates(route):
+    """(launches, site counts) of one step on ``route``."""
+    sites = {f"epilogue.{k}": v for k, v in (
+        EPILOGUE.fused_sites if route is EPILOGUE
+        else EPILOGUE.unfused_sites).items()}
+    sites.update({f"conv_bn.{k}": v for k, v in (
+        CONV_BN.fused_sites if route is CONV_BN
+        else CONV_BN.unfused_sites).items()})
+    return (route.launches if route else {}), sites
+
+
+def capture_resnet_phase(mx, ps, cs, ck, resnet, config, card_line,
+                         traced_total) -> dict:
+    """Phase 8c: the bf16 ResNet-50 step at batch 128 through
+    ``trainer.compile_step`` on each route, RESNET_STEPS steps from the
+    same weights in two eager runs (the same TrainStep with
+    MXNET_COMPILED_STEP=0: the eager tape) and one captured run, the
+    learning rate set to CAPTURE_LR2 after step CAPTURE_LR_STEP: losses,
+    params, running statistics and momenta held captured against eager;
+    1 capture and 1 dispatch a step, no fallback; launches per step as
+    the route's gates (check_step_launches), and sites: each eager step's
+    and the capture's as the route's gates (the first captured call counts
+    them twice, for its eager run and its capture), none in a replay,
+    which runs no Python; the loss falls. Then eager against captured
+    numbers. Then the hybridized predict-mode forward."""
+    x, y = image_batch(RESNET_BATCH, torch.bfloat16)
+    net = resnet50(mx, x[:2].float())
+    net.cast("bfloat16")
+    net.hybridize()
+    init = {k: p.data().clone() for k, p in net.collect_params().items()}
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(n, a, b):
+        return ce(n(a), b)
+
+    numbers = {}
+    for name in CAPTURE_ROUTES:
+        route = capture_route(config, name)
+        want_launches, want_sites = route_gates(route)
+        what = f"ResNet-50 bf16 b{RESNET_BATCH} compile_step, {name}"
+        runs, steps = [], {}
+        for compiled in (False, False, True):
+            set_compiled(config, compiled)
+            net.load_dict(init)
+            net.zero_grad()
+            trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                       dict(RESNET_OPT))
+            step = trainer.compile_step(net, loss_fn)
+            t0, d0 = cs.trace_count(), cs.dispatch_count()
+            losses, counted, traced = [], [], []
+            for i in range(RESNET_STEPS):
+                if i == CAPTURE_LR_STEP:
+                    trainer.set_learning_rate(CAPTURE_LR2)
+                s0 = resnet_site_counts(resnet)
+                if compiled and i == 0:
+                    (loss, kept), c, t = traced_launches(
+                        ck, lambda: reserved_by(lambda: step(x, y)),
+                        trace=False)
+                else:
+                    loss, c, t = traced_launches(
+                        ck, lambda: step(x, y),
+                        total=traced_total if compiled else None)
+                counted.append(c)
+                traced.append(t)
+                s1 = resnet_site_counts(resnet)
+                sites = {k: s1[k] - s0[k] for k in s1}
+                n = 2 if compiled and i == 0 else 0 if compiled else 1
+                if sites != {k: n * v for k, v in want_sites.items()}:
+                    fail(f"{what}, compiled={compiled}, step {i + 1}: "
+                         f"sites {sites}; want {n} x {want_sites}")
+                reason = step.last_fallback_reason
+                if reason != (None if compiled else "MXNET_COMPILED_STEP=0"):
+                    fail(f"{what}, compiled={compiled}, step {i + 1}: "
+                         f"last_fallback_reason {reason!r}")
+                if compiled and (cs.trace_count() - t0,
+                                 cs.dispatch_count() - d0) != (1, i + 1):
+                    fail(f"{what}, step {i + 1}: "
+                         f"{cs.trace_count() - t0} captures, "
+                         f"{cs.dispatch_count() - d0} dispatches")
+                losses.append(loss.float().mean().reshape(1))
+            check_step_launches(f"{what}, compiled={compiled}", counted,
+                                traced, want_launches, compiled)
+            lr = trainer._optimizer.scalars(x.device)["lr"].item()
+            if lr != np.float32(CAPTURE_LR2):
+                fail(f"{what}: the optimizer's lr scalar is {lr}")
+            state = [p.data().clone() for p in net.collect_params().values()]
+            state += [s.clone() for s in trainer._init_states()]
+            runs.append((losses, state))
+            steps[compiled] = (trainer, step)
+        (la, sa), (lb, sb), (lc, sc) = runs
+        gated_sites = {k: v for k, v in want_sites.items() if v}
+        print(f"{what}: losses eager " + " ".join(
+            f"{v.item():.6f}" for v in la) + "; captured " + " ".join(
+            f"{v.item():.6f}" for v in lc) + f"; lr {RESNET_LR} -> "
+            f"{CAPTURE_LR2} after step {CAPTURE_LR_STEP} with 0 new "
+            f"captures; launches per step {want_launches} (eager: counted "
+            f"and traced; captured: counted twice at the capture, traced in "
+            f"each replay), sites {gated_sites} "
+            f"a step (none counted in a replay)")
+        hold_captured(f"{what} losses", la, lb, lc)
+        hold_captured(f"{what} params, running statistics and momenta "
+                      f"after {RESNET_STEPS} steps", sa, sb, sc)
+        if not all(math.isfinite(v.item()) for v in lc) or \
+                not lc[-1].item() < lc[0].item():
+            fail(f"{what}: captured losses {[v.item() for v in lc]} did not "
+                 f"fall")
+        del runs, sa, sb, sc
+        calls = []
+
+        def eager(step=steps[False][1]):
+            set_compiled(config, False)
+            step(x, y)
+
+        def captured(step=steps[True][1]):
+            set_compiled(config, True)
+            step(x, y)
+            calls.append(1)
+            if step.last_fallback_reason is not None:
+                fail(f"{what}: a timed step ran eagerly "
+                     f"({step.last_fallback_reason})")
+
+        t1 = cs.trace_count()
+        numbers[name] = capture_numbers(what, {"eager": eager,
+                                               "captured": captured},
+                                        kept, card_line)
+        if cs.trace_count() != t1:
+            fail(f"{what}: a capture after warm-up")
+        print(f"{what}: 0 captures and no fallback over {len(calls)} timed "
+              f"steps  ok")
+        del steps, eager, captured
+        torch.cuda.empty_cache()
+    set_compiled(config, True)
+    capture_route(config, "unfused")
+
+    # the hybridized forward in predict mode
+    ns = ps.namespace("hybrid_forward")
+    x2 = x.roll(1, 0)
+    net.load_dict(init)
+    net.hybridize(False)
+    with torch.no_grad():
+        eager = [net(x) for _ in range(2)]
+        eager2 = net(x2)
+    net.hybridize()
+    t0, d0 = ns.traces, ns.dispatches
+    first = net(x)
+    replay = net(x)
+    kept_copy = replay.clone()
+    other = net(x2)
+    what = f"ResNet-50 bf16 b{RESNET_BATCH} hybridized predict forward"
+    hold_captured(what, [eager[0]] * 2 + [eager2],
+                  [eager[1]] * 2 + [eager2], [first, replay, other])
+    if not torch.equal(replay, kept_copy):
+        fail(f"{what}: call 2's output changed when call 3 ran")
+    if (ns.traces - t0, ns.dispatches - d0) != (1, 3):
+        fail(f"{what}: {ns.traces - t0} captures, {ns.dispatches - d0} "
+             f"dispatches over 3 calls")
+    print(f"{what}: 1 capture, 1 dispatch a call, each call's output its "
+          f"own  ok")
+    return numbers
+
+
 # -- 9. ----------------------------------------------------------------------
 
 
@@ -2772,12 +3312,14 @@ def main() -> int:
     rng = np.random.RandomState(0)
     requests = [batch(rng, cfg, B, S) for B, S in REQUESTS]
     fwd_counts = forward_path(models, ck, cfg, params, requests)
-    train_counts = train_path(models, ck, cfg, init, rng)
+    train_counts, train_traced = train_path(models, ck, cfg, init, rng,
+                                            config)
 
     attn_times = fwd_timings(ck, cfg, card_line)
     bwd_times = bwd_timings(ck, cfg, card_line)
     forward_timings(models, cfg, params, requests, attn_times, card_line)
-    train_timings(models, ck, cfg, init(), rng, bwd_times, card_line)
+    train_timings(models, ck, cfg, init(), rng, bwd_times, card_line,
+                  config)
     del params, requests
     torch.cuda.empty_cache()
 
@@ -2800,6 +3342,35 @@ def main() -> int:
     del step
     torch.cuda.empty_cache()
 
+    # -- 8. capture -----------------------------------------------------------
+    ps, cs = port_capture()
+    ck.reset_launch_counts()
+    capture_traced = {}
+    params = init()
+    rng = np.random.RandomState(0)
+    requests = [batch(rng, cfg, B, S) for B, S in REQUESTS]
+    cap_fwd = capture_forward_phase(models, ps, ck, cfg, params, requests,
+                                    card_line, capture_traced)
+    del params, requests
+    torch.cuda.empty_cache()
+    cap_train = capture_train_phase(models, ps, cs, ck, cfg, init, rng,
+                                    card_line, config, capture_traced)
+    torch.cuda.empty_cache()
+    cap_resnet = capture_resnet_phase(mx, ps, cs, ck, resnet, config,
+                                      card_line, capture_traced)
+    torch.cuda.synchronize()
+    capture_counts = ck.launch_counts()
+    print(f"capture phase launch counts: counted by the wrappers "
+          f"{capture_counts}; traced on the device in the checked replays "
+          f"{capture_traced}; program store {json.dumps(ps.stats())}")
+    print(json.dumps({"capture": {
+        "card": card_line,
+        **{f"lm_forward_{B}_{S}": v for (B, S), v in cap_fwd.items()},
+        f"lm_train_adam_{TRAIN_TOKENS[0]}_{TRAIN_TOKENS[1]}": cap_train,
+        **{f"resnet50_bf16_b{RESNET_BATCH}_{k}": v
+           for k, v in cap_resnet.items()}}}))
+    torch.cuda.empty_cache()
+
     # -- 9. int8 --------------------------------------------------------------
     int8_counts, int8_err = int8_path(ck)
     int8_ops_phase(port_int8())
@@ -2808,12 +3379,19 @@ def main() -> int:
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
-             "int8": int8_counts}
+             "capture": capture_counts, "int8": int8_counts}
+
+    # launches the wrappers counted (a capture's once, a replay's not at
+    # all), and those a profiler trace saw run in the replays that were
+    # checked (the captured runs of the train and capture phases)
+    traced_paths = {"train": train_traced, "capture": capture_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
         return {"launches": sum(by_path.values()),
-                "launches_by_path": by_path}
+                "launches_by_path": by_path,
+                "traced_replay_launches_by_path": {
+                    p: c.get(name, 0) for p, c in traced_paths.items()}}
 
     t = attn_times[(96, 512)]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

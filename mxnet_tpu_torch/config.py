@@ -49,6 +49,21 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "0 (the only valid value) counts each conv that the route would "
            "have claimed (quantization.pallas_skipped_count, logged once); "
            "nonzero refuses with MXNetError."),
+    EnvVar("MXNET_COMPILED_STEP", int, 1,
+           "Compiled whole train step (cached_step.TrainStep through "
+           "Trainer.compile_step, and models.make_train_step): forward, "
+           "backward and optimizer update captured as one CUDA graph over "
+           "fixed buffers, cached by input shapes and dtypes, the route "
+           "knobs and the parameters' storage, and replayed: 1 dispatch a "
+           "step. 1 = on (the setups TrainStep cannot capture run the eager "
+           "tape and name their reason), 0 = the eager tape everywhere."),
+    EnvVar("MXNET_COMPILED_STEP_CACHE", int, 16,
+           "Per-owner cap of the program store's 'train_step' namespace "
+           "(LRU over program keys); a new key past the cap evicts the "
+           "oldest program and frees its graph."),
+    EnvVar("MXNET_FORWARD_CACHE", int, 32,
+           "Per-owner cap of the program store's 'hybrid_forward' namespace "
+           "(the captured forwards of a hybridized block, LRU)."),
 )}
 
 _CACHE: Dict[str, Any] = {}

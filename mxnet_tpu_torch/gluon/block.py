@@ -8,23 +8,36 @@ by the layer's ``infer_shape`` on the first call, and ``cast``,
 ``load_dict`` and ``zero_grad`` act on every parameter. Blocks take and
 return ``torch.Tensor``s.
 
-``HybridBlock.hybridize()`` only sets a flag in the port so far: graph
-capture is later work. While the outermost hybridized block runs (its
-parameters initialized), :func:`in_hybridized_call` is true. The fused
-ResNet epilogue reads it where the reference asks whether it is being
-traced, so eager calls never take the fused sites, as in the reference.
+A hybridized block called outside ``autograd.record()`` runs its forward
+as a captured program (``program_store``, namespace ``hybrid_forward``):
+the counterpart of the reference's cached forward (``block.py:621-700``).
+Its key: the inputs' shapes, dtypes and device, ``autograd.is_training()``,
+the route knobs and math flags, and which tensors hold the parameters
+(``cast`` replaces them and so re-captures). It returns clones of the
+program's outputs, as the reference returns fresh arrays; batch-norm
+running statistics that a training-mode forward updates are updated in
+place by every replay. Under ``record()`` a hybridized block runs eagerly:
+its training counterpart is ``Trainer.compile_step``. (The reference
+records a hybridized forward as one tape node; that is not ported yet.)
+
+While the outermost hybridized block runs (its parameters initialized),
+:func:`in_hybridized_call` is true. The fused ResNet epilogue reads it
+where the reference asks whether it is being traced, so eager calls never
+take the fused sites, as in the reference.
 """
 from __future__ import annotations
 
 import threading
 from collections import OrderedDict
 
+import torch
 
-from .. import initializer
+from .. import autograd, initializer
+from .. import program_store as _pstore
 from ..context import resolve_device
 from .parameter import DeferredInitializationError, Parameter
 
-__all__ = ["Block", "HybridBlock", "in_hybridized_call"]
+__all__ = ["Block", "HybridBlock", "in_hybridized_call", "hybridized_flags"]
 
 
 class _Hybrid(threading.local):
@@ -40,6 +53,21 @@ def in_hybridized_call() -> bool:
     """True while a hybridized block (with its parameters initialized)
     runs its forward: the port's stand-in for the reference's trace."""
     return _HYBRID.depth > 0
+
+
+def hybridized_flags(block: "Block") -> tuple:
+    """Which blocks of ``block``'s tree are hybridized, in tree order: what
+    :func:`in_hybridized_call` reads while the tree runs (part of a
+    captured step's key)."""
+    out = []
+
+    def walk(b):
+        out.append(getattr(b, "_active", False))
+        for child in b._children.values():
+            walk(child)
+
+    walk(block)
+    return tuple(out)
 
 
 class Block:
@@ -143,27 +171,51 @@ class Block:
 
 
 class HybridBlock(Block):
-    """A block that can be hybridized. In the port ``hybridize()`` sets a
-    flag (see :func:`in_hybridized_call`); as in the reference, only the
-    outermost block's flag counts, since ``hybridize`` clears the
-    children's."""
+    """A block that can be hybridized (see the module docstring). As in the
+    reference, only the outermost block's flag counts, since ``hybridize``
+    clears the children's, and each ``hybridize`` call drops the block's
+    programs."""
 
     def __init__(self):
         super().__init__()
         self._active = False
+        self._programs = None
 
     def hybridize(self, active: bool = True, **kwargs) -> None:
         self._active = bool(active)
+        self._programs = None
         super().hybridize(False, **kwargs)
 
     def __call__(self, *args, **kwargs):
-        if not self._active or any(
-                p._data is None for p in self.collect_params().values()):
-            # not hybridized, or a first call that completes deferred
-            # initialization: runs eagerly, as in the reference
+        if not self._active:
+            return super().__call__(*args, **kwargs)
+        params = self.collect_params()
+        if any(p._data is None for p in params.values()):
+            # a first call that completes deferred initialization runs
+            # eagerly, as in the reference
             return super().__call__(*args, **kwargs)
         _HYBRID.depth += 1
         try:
-            return super().__call__(*args, **kwargs)
+            if kwargs or autograd.is_recording() or _pstore.in_program() \
+                    or not args or not all(isinstance(a, torch.Tensor)
+                                           for a in args):
+                return super().__call__(*args, **kwargs)
+            return self._call_cached(args, params)
         finally:
             _HYBRID.depth -= 1
+
+    def _call_cached(self, args, params):
+        """The forward as a program of this block's ``hybrid_forward``
+        scope, run with torch's grad mode off."""
+        if self._programs is None:
+            self._programs = _pstore.scope("hybrid_forward")
+        held = [p._data for p in params.values()]
+        key = (_pstore.tensor_key(args), autograd.is_training(),
+               _pstore.knob_key(), _pstore.storage_key(held))
+
+        def body(*inputs):
+            with torch.no_grad():
+                return Block.__call__(self, *inputs)
+
+        return _pstore.run(self._programs, key, lambda: body, args,
+                           keep=held)

@@ -5,8 +5,9 @@ tensor on one device (the reference keeps per-context replicas; the port
 has one device per process so far). Its gradient is torch's own: a
 parameter with ``grad_req`` ``"write"`` holds a leaf tensor that requires
 grad, and each ``backward`` replaces its ``.grad`` (a hook clears the old
-one before torch accumulates); ``"null"`` (the batch-norm running
-statistics) carries no gradient.
+one before torch accumulates); ``"add"`` keeps adding each backward's
+gradient to ``.grad`` until ``zero_grad``; ``"null"`` (the batch-norm
+running statistics) carries no gradient.
 
 Shapes may hold 0 (unknown): the layer completes them on its first forward
 and the deferred initialization then runs, as in the reference.
@@ -61,9 +62,11 @@ class Parameter:
         self.allow_deferred_init = allow_deferred_init
         self._data: Optional[torch.Tensor] = None
         self._deferred_init = ()   # (init, device, default_init)
-        self._grad_req = "null" if not differentiable else grad_req
-        if grad_req not in ("write", "null"):
+        self._differentiable = differentiable
+        self._hooked = False
+        if grad_req not in ("write", "add", "null"):
             raise ValueError(f"invalid grad_req {grad_req!r}")
+        self._grad_req = "null" if not differentiable else grad_req
 
     def __repr__(self):
         return (f"Parameter {self._name} (shape={self._shape}, "
@@ -76,6 +79,18 @@ class Parameter:
     @property
     def grad_req(self) -> str:
         return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req: str) -> None:
+        if req not in ("write", "add", "null"):
+            raise ValueError(f"invalid grad_req {req!r}")
+        if not self._differentiable:
+            req = "null"
+        self._grad_req = req
+        if self._data is not None:
+            self._data.grad = None
+            self._data.requires_grad_(req != "null")
+            self._hook()
 
     @property
     def shape(self):
@@ -146,14 +161,21 @@ class Parameter:
         self._set_leaf(data)
 
     def _set_leaf(self, data: torch.Tensor) -> None:
+        self._data = data
+        self._hooked = False
         if self._grad_req != "null":
             data.requires_grad_(True)
-            data.register_hook(self._write_hook)
-        self._data = data
+            self._hook()
+
+    def _hook(self) -> None:
+        if not self._hooked and self._data.requires_grad:
+            self._data.register_hook(self._write_hook)
+            self._hooked = True
 
     def _write_hook(self, grad):
-        # this backward's gradient replaces the last one
-        self._data.grad = None
+        # with "write", this backward's gradient replaces the last one
+        if self._grad_req == "write":
+            self._data.grad = None
         return grad
 
     # -- access ----------------------------------------------------------

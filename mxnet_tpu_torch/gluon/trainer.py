@@ -4,8 +4,9 @@ Applies an optimizer to a set of parameters: ``step(batch_size)`` sets
 ``rescale_grad = 1 / batch_size`` and updates every parameter that has a
 gradient request, in place (``trainer.py:240-292``). A parameter that the
 last backward did not reach updates with a zero gradient (weight decay and
-momentum still act), as in the reference. There is no kvstore, AMP or
-compiled step in the port yet.
+momentum still act), as in the reference. ``compile_step`` returns the
+compiled whole step (``cached_step.TrainStep``). There is no kvstore or AMP
+in the port yet.
 """
 from __future__ import annotations
 
@@ -40,19 +41,48 @@ class Trainer:
         self._scale = self._optimizer.rescale_grad
         self._states: Dict[int, object] = {}
 
+    @property
+    def learning_rate(self):
+        return self._optimizer.learning_rate
+
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
+
+    def _init_states(self) -> list:
+        """The optimizer state of every parameter, made where missing (a
+        compiled step makes them before its first capture); and the
+        optimizer's device scalars on their devices."""
+        for i, p in enumerate(self._params):
+            if i not in self._states:
+                w = p._check()
+                self._states[i] = self._optimizer.create_state(w)
+                self._optimizer.scalars(w.device)
+        return [self._states[i] for i in range(len(self._params))]
+
+    def compile_step(self, net, loss_fn, bucket=False, accum_steps=1):
+        """Forward, backward and the optimizer update as ONE captured
+        program (``cached_step.TrainStep``), the counterpart of the
+        reference's one donated XLA program a step. ``loss_fn(net, *args)``
+        returns the loss; the returned step is called as ``step(*args,
+        batch_size=...)`` and replaces the record / backward / ``step()``
+        triple. Setups it cannot capture (``MXNET_COMPILED_STEP=0``,
+        ``grad_req='add'``, a pending deferred initialization) run the
+        eager tape and name their reason in ``last_fallback_reason``.
+        ``bucket=True`` and ``accum_steps > 1`` are not ported yet and
+        raise ``NotImplementedError``."""
+        from ..cached_step import TrainStep
+
+        return TrainStep(net, loss_fn, self, bucket=bucket,
+                         accum_steps=accum_steps)
 
     def step(self, batch_size) -> None:
         """Normalize the gradients by ``batch_size`` and update."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        weights, grads, states = [], [], []
-        for i, p in enumerate(self._params):
+        states = self._init_states()
+        weights, grads = [], []
+        for p in self._params:
             w = p._check()
-            if i not in self._states:
-                self._states[i] = self._optimizer.create_state(w)
             weights.append(w)
             grads.append(w.grad if w.grad is not None
                          else torch.zeros_like(w))
-            states.append(self._states[i])
         self._optimizer.step(weights, grads, states)

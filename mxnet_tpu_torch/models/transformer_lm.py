@@ -11,7 +11,11 @@ the dq and dk/dv backward kernels) on CUDA.
 
 Ported so far: the single-device forward and loss, rematerialisation
 (``cfg.remat``), ``init_opt_state`` and the single-device
-``make_train_step`` with gradient accumulation. Mixture-of-experts layers,
+``make_train_step`` with gradient accumulation, whose step is captured
+once per input shape and replayed after that (``program_store``), the
+counterpart of the reference's ``jax.jit(step, donate_argnums=...)``.
+Callers capture the forward the same way (``program_store.capture``), as
+the reference's callers ``jax.jit`` it. Mixture-of-experts layers,
 ring attention and a device mesh raise ``NotImplementedError``; the
 sharding plan and pipeline stages are not ported yet.
 """
@@ -22,11 +26,12 @@ import logging
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import config as _config
+from .. import program_store as _pstore
 from .. import telemetry as _telemetry
 from ..context import resolve_device
 from ..ops import cuda_kernels as _kernels
@@ -239,7 +244,10 @@ def forward(params, tokens, cfg: TransformerLMConfig, mesh=None, *,
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         if remat:
-            x = checkpoint(_block, params, x, i, cfg, use_reentrant=False)
+            # no random ops to replay, and no RNG state to stash (which a
+            # captured step could not read)
+            x = checkpoint(_block, params, x, i, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             x = _block(params, x, i, cfg)
     x = _layer_norm(x, params["final_ln.gamma"], params["final_ln.beta"])
@@ -313,6 +321,15 @@ def _grads(params, tokens, labels, cfg: TransformerLMConfig, grad_accum: int,
     return loss, acc
 
 
+def _step_scalar(t, device) -> torch.Tensor:
+    """The step number as a 0-dim fp32 tensor on ``device``, made without
+    a host sync: a fill for a Python number or a CPU tensor, a cast for a
+    tensor already there."""
+    if isinstance(t, torch.Tensor) and t.device.type != "cpu":
+        return t.to(device=device, dtype=torch.float32)
+    return torch.full((), float(t), dtype=torch.float32, device=device)
+
+
 def make_train_step(cfg: TransformerLMConfig, mesh=None,
                     optimizer: str = "adam", lr: float = 1e-4,
                     beta1: float = 0.9, beta2: float = 0.999,
@@ -327,8 +344,8 @@ def make_train_step(cfg: TransformerLMConfig, mesh=None,
       k micro-batches normalised by the whole batch's valid-label count
       (the batch must divide by k);
     - ``optimizer="adam"``: Adam with decoupled decay, ``lr_t = lr *
-      sqrt(1 - beta2**t) / (1 - beta1**t)`` taken in fp32, ``w -= lr_t * m
-      / (sqrt(v) + epsilon) + lr * wd * w``;
+      sqrt(1 - beta2**t) / (1 - beta1**t)`` taken in fp32 on the device,
+      ``w -= lr_t * m / (sqrt(v) + epsilon) + lr * wd * w``;
     - ``optimizer="lamb"``: ``upd = m / (sqrt(v) + epsilon) + wd * w``,
       ``w -= lr * trust * upd`` with the per-tensor trust ratio
       ``|w| / |upd|`` (1 where either norm is 0), no bias correction.
@@ -338,10 +355,19 @@ def make_train_step(cfg: TransformerLMConfig, mesh=None,
     copy). In place of the reference's buffer donation, the step updates the
     caller's param and moment tensors in place and returns the same dicts;
     the params keep ``requires_grad=False``. ``t`` is the step number, a
-    Python number. The step never waits for the device: ``loss`` is a 0-dim
+    Python number or a 0-dim tensor, written into a device scalar before
+    each call. The step never waits for the device: ``loss`` is a 0-dim
     fp32 tensor there. Runs on ``device`` (``cuda`` if None), where the
     params must live; pass tokens and labels already on it to avoid a
-    host-to-device copy."""
+    host-to-device copy, which waits for the device.
+
+    With ``MXNET_COMPILED_STEP`` on (the default, read at each call) the
+    step is a program of the ``train_step`` namespace: captured at its
+    first call for each input shape and set of param and moment tensors,
+    and replayed after that (1 dispatch a step); a call with other param
+    or moment tensors drops the programs over the earlier ones. On the CPU
+    the same body runs through the same static buffers. With the knob at
+    0 the body runs eagerly, with the same arithmetic."""
     _check_ported(cfg, mesh)
     if optimizer not in ("adam", "lamb"):
         raise ValueError(f"optimizer must be 'adam' or 'lamb', not "
@@ -349,52 +375,74 @@ def make_train_step(cfg: TransformerLMConfig, mesh=None,
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     dev = resolve_device(device)
-    f32 = np.float32
+    programs = _pstore.scope("train_step")
 
-    def step(params, opt_m, opt_v, tokens, labels, t):
-        tokens = _tokens_on(tokens, params, dev)
-        labels = torch.as_tensor(labels, device=tokens.device).long()
-        loss, grads = _grads(params, tokens, labels, cfg, grad_accum,
-                             aux_weight, dev)
+    def update(ws, ms, vs, grads, t):
+        """The optimizer's update of ``ws``, ``ms`` and ``vs`` in place."""
+        # fp32 temporaries (each as large as the params in fp32) are
+        # released as soon as they are used, to keep the step's peak memory
+        # low; the rounding steps are the reference's
+        g = [x.float() for x in grads]      # the step owns these
+        del grads
+        torch._foreach_mul_(ms, beta1)
+        torch._foreach_add_(ms, torch._foreach_mul(g, 1 - beta1))
+        torch._foreach_mul_(g, g)
+        torch._foreach_mul_(g, 1 - beta2)
+        torch._foreach_mul_(vs, beta2)
+        torch._foreach_add_(vs, g)
+        del g
+        denom = torch._foreach_sqrt(vs)
+        torch._foreach_add_(denom, epsilon)
+        upd = torch._foreach_div(ms, denom)
+        del denom
+        wf = [w.float() for w in ws]
+        if optimizer == "lamb":
+            torch._foreach_add_(upd, torch._foreach_mul(wf, wd))
+            r1 = torch.stack(torch._foreach_norm(wf))
+            r2 = torch.stack(torch._foreach_norm(upd))
+            trust = torch.where((r1 > 0) & (r2 > 0), r1 / r2,
+                                torch.ones_like(r1))
+            new = [w - s * u for w, s, u in
+                   zip(wf, (lr * trust).unbind(0), upd)]
+        else:
+            # fp32 on the device, as the reference's jitted step takes it
+            lr_t = lr * torch.sqrt(1 - torch.pow(beta2, t)) \
+                / (1 - torch.pow(beta1, t))
+            torch._foreach_mul_(upd, lr_t)
+            new = torch._foreach_sub(wf, upd)
+            del upd
+            torch._foreach_sub_(new, torch._foreach_mul(wf, lr * wd))
+        torch._foreach_copy_(ws, new)
+
+    def body_for(params, opt_m, opt_v):
         names = list(params)
         ws = [params[n] for n in names]
         ms = [opt_m[n] for n in names]
         vs = [opt_v[n] for n in names]
-        # fp32 temporaries (each as large as the params in fp32) are
-        # released as soon as they are used, to keep the step's peak memory
-        # low; the rounding steps are the reference's
-        with torch.no_grad():
-            g = [x.float() for x in grads]      # the step owns these
-            del grads
-            torch._foreach_mul_(ms, beta1)
-            torch._foreach_add_(ms, torch._foreach_mul(g, 1 - beta1))
-            torch._foreach_mul_(g, g)
-            torch._foreach_mul_(g, 1 - beta2)
-            torch._foreach_mul_(vs, beta2)
-            torch._foreach_add_(vs, g)
-            del g
-            denom = torch._foreach_sqrt(vs)
-            torch._foreach_add_(denom, epsilon)
-            upd = torch._foreach_div(ms, denom)
-            del denom
-            wf = [w.float() for w in ws]
-            if optimizer == "lamb":
-                torch._foreach_add_(upd, torch._foreach_mul(wf, wd))
-                r1 = torch.stack(torch._foreach_norm(wf))
-                r2 = torch.stack(torch._foreach_norm(upd))
-                trust = torch.where((r1 > 0) & (r2 > 0), r1 / r2,
-                                    torch.ones_like(r1))
-                new = [w - s * u for w, s, u in
-                       zip(wf, (lr * trust).unbind(0), upd)]
-            else:
-                # fp32, as the reference's jitted step takes it
-                lr_t = float(f32(lr) * np.sqrt(f32(1) - f32(beta2) ** f32(t))
-                             / (f32(1) - f32(beta1) ** f32(t)))
-                torch._foreach_mul_(upd, lr_t)
-                new = torch._foreach_sub(wf, upd)
-                del upd
-                torch._foreach_sub_(new, torch._foreach_mul(wf, lr * wd))
-            torch._foreach_copy_(ws, new)
+
+        def body(tokens, labels, t):
+            ps = dict(zip(names, ws))
+            loss, grads = _grads(ps, tokens, labels, cfg, grad_accum,
+                                 aux_weight, dev)
+            with torch.no_grad():
+                update(ws, ms, vs, grads, t)
+            return loss
+
+        return body
+
+    def step(params, opt_m, opt_v, tokens, labels, t):
+        tokens = _tokens_on(tokens, params, dev)
+        labels = torch.as_tensor(labels, device=tokens.device).long()
+        t = _step_scalar(t, tokens.device)
+        if not _config.get("MXNET_COMPILED_STEP"):
+            loss = body_for(params, opt_m, opt_v)(tokens, labels, t)
+            return params, opt_m, opt_v, loss
+        held = [d[n] for d in (params, opt_m, opt_v) for n in params]
+        key = (_pstore.tensor_key((tokens, labels)), _pstore.knob_key(),
+               tuple(params), _pstore.storage_key(held))
+        loss = _pstore.run(programs, key,
+                           lambda: body_for(params, opt_m, opt_v),
+                           (tokens, labels, t), keep=held)
         return params, opt_m, opt_v, loss
 
     return step

@@ -23,12 +23,16 @@ compare the kernel against. A failed build or launch raises; nothing falls
 back from a kernel to its plain version.
 
 Every wrapper adds one to its entry in :func:`launch_counts` where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else: under stream capture that is the
+launch the graph records, so a replayed graph, which runs no Python, moves
+no count. :func:`kernel_of` names the wrapper of a kernel in a profiler
+trace, where a replay's kernels appear one by one.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import re
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -47,7 +51,7 @@ __all__ = ["flash_attention", "flash_attention_fwd_reference",
            "convkxk_fits", "convkxk_bn_stats", "convkxk_bn_stats_reference",
            "convkxk_bn_stats_train", "int_mm_fits", "s8_matmul_s32",
            "int8_fits", "int8_matmul", "int8_matmul_reference",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "kernel_of"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "flash_attention_bwd_dq": 0,
@@ -70,6 +74,48 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+# The csrc kernels' names as a trace shows them, demangled ("void
+# gemm_wgmma<128, 2, 1>(...)") or mangled ("_Z10gemm_wgmmaILi128ELi2ELi1E..."),
+# by the wrapper that launches them. gemm_wgmma's KIND and stats_fp32's
+# operand and STORE flag tell its four users apart.
+_NOT_AFTER = r"(?<![A-Za-z])"
+_TRACE_NAMES = (
+    (re.compile(_NOT_AFTER + r"fwd_(?:wgmma|fp32)(?![a-z])"),
+     "flash_attention_fwd"),
+    (re.compile(_NOT_AFTER + r"dq_(?:wgmma|fp32)(?![a-z])"),
+     "flash_attention_bwd_dq"),
+    (re.compile(_NOT_AFTER + r"dkv_(?:wgmma|fp32)(?![a-z])"),
+     "flash_attention_bwd_dkv"),
+    (re.compile(_NOT_AFTER + r"epilogue_fp32(?![a-z])"), "matmul_epilogue"),
+    (re.compile(_NOT_AFTER + r"int8_wgmma(?![a-z])"), "int8_matmul"),
+)
+_GEMM_NAME = re.compile(r"(?<![A-Za-z])gemm_wgmma(?:<\s*\d+\s*,\s*\d+\s*,"
+                        r"\s*(\d)\s*>|ILi\d+ELi\d+ELi(\d)E)")
+_GEMM_KINDS = {"0": "matmul_epilogue", "1": "matmul_stats",
+               "2": "matmul_bn_stats", "3": "convkxk_bn_stats"}
+_STATS_FP32_NAME = re.compile(
+    r"(?<![A-Za-z])stats_fp32(?:<\s*(Dense32|Conv32)\s*,\s*(true|false)"
+    r"|I\d+(Dense32|Conv32)Lb([01]))")
+
+
+def kernel_of(name: str) -> Optional[str]:
+    """The :func:`launch_counts` entry of the kernel a profiler trace names
+    ``name``, or None for a kernel that is not the port's own."""
+    m = _GEMM_NAME.search(name)
+    if m:
+        return _GEMM_KINDS.get(m[1] or m[2])
+    m = _STATS_FP32_NAME.search(name)
+    if m:
+        if (m[1] or m[3]) == "Conv32":
+            return "convkxk_bn_stats"
+        return ("matmul_bn_stats" if (m[2] or m[4]) in ("true", "1")
+                else "matmul_stats")
+    for pattern, wrapper in _TRACE_NAMES:
+        if pattern.search(name):
+            return wrapper
+    return None
 
 
 def flash_head_dim_ok(head_dim: int) -> bool:

@@ -83,6 +83,8 @@ def test_scan_finds_every_port_module():
             "mxnet_tpu_torch/optimizer/sgd.py",
             "mxnet_tpu_torch/base.py",
             "mxnet_tpu_torch/contrib/quantization.py",
+            "mxnet_tpu_torch/program_store.py",
+            "mxnet_tpu_torch/cached_step.py",
             "chip_smoke.py"} <= names
 
 
@@ -133,8 +135,9 @@ def test_port_cuda_tests_collect_without_jax():
     collected = [ln for ln in out.stdout.splitlines() if "::" in ln]
     files = {ln.split("::")[0].split("/")[-1] for ln in collected}
     assert {"test_torch_quantization.py", "test_torch_flash_attention.py",
-            "test_torch_conv_bn_epilogue.py",
-            "test_torch_conv_bn_stats.py"} <= files, out.stdout[-3000:]
+            "test_torch_conv_bn_epilogue.py", "test_torch_conv_bn_stats.py",
+            "test_torch_cached_step.py", "test_torch_train_step.py"} <= files, \
+        out.stdout[-3000:]
 
 
 @pytest.mark.parametrize("module,bad", [

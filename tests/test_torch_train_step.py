@@ -5,8 +5,15 @@ mesh) on the CPU: the same numpy weights, carried across with
 losses, params and Adam/LAMB moments are compared.
 
 The JAX step donates its inputs, so every JAX run starts from fresh arrays.
+
+The port's step is captured by default (a program of the program store; on
+the CPU its body runs through the program's static buffers): it is also
+held bitwise against its eager body (``MXNET_COMPILED_STEP=0``), and, in
+the ``cuda``-marked tests, replayed as a CUDA graph on the card.
 """
 import dataclasses
+import gc
+import weakref
 
 import numpy as onp
 import pytest
@@ -231,3 +238,223 @@ def test_train_step_refuses(case):
     else:
         with pytest.raises(ValueError, match="optimizer"):
             tm.make_train_step(tcfg, optimizer="sgd", device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the captured step (a program of the program store's train_step namespace)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def compiled(monkeypatch):
+    """``compiled(on)`` sets MXNET_COMPILED_STEP for the rest of one test,
+    refreshing the port's config cache on the way in and out."""
+    from mxnet_tpu_torch import config as tconfig
+
+    def set_(on):
+        monkeypatch.setenv("MXNET_COMPILED_STEP", "1" if on else "0")
+        tconfig.refresh("MXNET_COMPILED_STEP")
+
+    yield set_
+    monkeypatch.delenv("MXNET_COMPILED_STEP", raising=False)
+    tconfig.refresh("MXNET_COMPILED_STEP")
+
+
+def _steps(tcfg, weights, toks, labels, ts, **kw):
+    """Run ``make_train_step(**kw)`` at step numbers ``ts``; returns the
+    losses and the params and moments, as tensors."""
+    p = params_from_numpy(weights, tcfg, device="cpu")
+    m, v = tm.init_opt_state(p)
+    step = tm.make_train_step(tcfg, lr=LR, device="cpu", **kw)
+    losses = []
+    for t in ts:
+        p, m, v, loss = step(p, m, v, toks, labels, t)
+        losses.append(loss)
+    return losses, [x for d in (p, m, v) for x in d.values()]
+
+
+@pytest.mark.parametrize("t_kind", ["int", "tensor"])
+@pytest.mark.parametrize("optimizer", ["adam", "lamb"])
+def test_captured_step_equals_the_eager_body_bitwise(t_kind, optimizer,
+                                                    compiled):
+    from mxnet_tpu_torch import cached_step as tcs
+
+    _, tcfg = _cfgs()
+    weights = {k: v.numpy() for k, v in tm.init_params(
+        tcfg, torch.Generator().manual_seed(0), device="cpu").items()}
+    toks, labels = _batch((4, 16))
+    ts = [1, 2, 3] if t_kind == "int" else \
+        [torch.tensor(t, dtype=torch.int32) for t in (1, 2, 3)]
+    t0, d0 = tcs.trace_count(), tcs.dispatch_count()
+    got = _steps(tcfg, weights, toks, labels, ts, optimizer=optimizer)
+    assert (tcs.trace_count() - t0, tcs.dispatch_count() - d0) == (1, 3)
+    compiled(False)
+    want = _steps(tcfg, weights, toks, labels, ts, optimizer=optimizer)
+    assert tcs.dispatch_count() - d0 == 3          # the eager body: none
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+    # the losses are the step's own tensors, not one overwritten buffer
+    assert len({x.data_ptr() for x in got[0]}) == 3
+
+
+def test_captured_step_recaptures_on_a_new_shape_or_new_params():
+    from mxnet_tpu_torch import cached_step as tcs
+    from mxnet_tpu_torch import program_store as tps
+
+    _, tcfg = _cfgs()
+    p = tm.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    m, v = tm.init_opt_state(p)
+    step = tm.make_train_step(tcfg, lr=LR, device="cpu")
+    t0 = tcs.trace_count()
+    for shape, want in (((2, 16), 1), ((2, 16), 1), ((2, 8), 2),
+                        ((2, 16), 2)):
+        step(p, m, v, *_batch(shape), 1)
+        assert tcs.trace_count() - t0 == want
+    # new params: a new capture, and the programs over the old params
+    # (one per shape) are dropped, freeing them
+    e0 = tps.namespace("train_step").evictions
+    old = weakref.ref(p["embed.weight"])
+    p2 = {k: w.clone() for k, w in p.items()}
+    step(p2, m, v, *_batch((2, 16)), 1)
+    assert tcs.trace_count() - t0 == 3
+    assert tps.namespace("train_step").evictions - e0 == 2
+    del p
+    gc.collect()
+    assert old() is None
+
+
+def test_device_lr_t_matches_jax_over_5_adam_steps():
+    """Adam's lr_t taken on the device from the step scalar t, over 5
+    steps, against the reference's jitted step at the file's bounds."""
+    jcfg, tcfg = _cfgs()
+    weights = _weights(jcfg, seed=2)
+    toks, labels = _batch((4, 16), seed=2)
+    j_losses, j_state = _jax_run(jcfg, weights, toks, labels, steps=5)
+    t_losses, t_state = _port_run(tcfg, weights, toks, labels, steps=5)
+    onp.testing.assert_allclose(t_losses, j_losses, **LOSS_TOL)
+    _assert_state_close(t_state, j_state)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+_PROFILER_WARM = []
+
+
+def traced_launches(fn, trace=True):
+    """``fn()``, under a profiler if ``trace``: its result, the launches of
+    the port's kernels that the wrappers counted, and those the trace saw
+    run on the device (a replayed graph's among them), by wrapper (None
+    untraced)."""
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.ops import cuda_kernels as ck
+
+    if trace and not _PROFILER_WARM:
+        # the first trace of a process can miss its first kernels
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+        _PROFILER_WARM.append(True)
+    c0 = ck.launch_counts()
+    if not trace:
+        out, traced = fn(), None
+    else:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        traced = {}
+        for evt in prof.events():
+            name = ck.kernel_of(evt.name) \
+                if evt.device_type == torch.autograd.DeviceType.CUDA else None
+            if name:
+                traced[name] = traced.get(name, 0) + 1
+    c1 = ck.launch_counts()
+    return out, {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}, traced
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adam", "lamb"])
+def test_captured_step_replays_like_the_eager_body_on_card(cuda_device,
+                                                           optimizer,
+                                                           compiled):
+    """A 2-layer bf16 LM (flash kernels on): 4 steps replayed as a CUDA
+    graph against the eager body, bitwise where two eager runs are
+    bitwise equal, else within 3x their spread; the kernels that run on
+    the device in each replay, counted in a profiler trace, are the eager
+    body's. The wrappers count what they launch: every eager step's, the
+    first captured call's eager run and capture (twice a step's), no
+    replay."""
+    from mxnet_tpu_torch import cached_step as tcs
+
+    _, tcfg = _cfgs("bfloat16", num_heads=2, hidden=64, mlp_hidden=128,
+                    use_flash_attention=None)
+    init = tm.init_params(tcfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    toks, labels = (torch.from_numpy(a).long().to(cuda_device)
+                    for a in _batch((4, 64)))
+    want = {k: tcfg.num_layers for k in ("flash_attention_fwd",
+                                         "flash_attention_bwd_dq",
+                                         "flash_attention_bwd_dkv")}
+    runs, launches = [], []
+    for capture in (False, False, True):
+        compiled(capture)
+        p = {k: w.to(cuda_device) for k, w in init.items()}
+        m, v = tm.init_opt_state(p)
+        step = tm.make_train_step(tcfg, optimizer=optimizer, lr=LR,
+                                  device=cuda_device)
+        t0 = tcs.trace_count()
+        losses = []
+        for t in range(1, 5):
+            # a run's first step is not traced: it captures, or launches
+            # a kernel for the first time in the process, which a trace
+            # can miss
+            (p, m, v, loss), counted, traced = traced_launches(
+                lambda: step(p, m, v, toks, labels, t), trace=t > 1)
+            if t == 1:
+                assert counted == {k: (2 if capture else 1) * n
+                                   for k, n in want.items()}
+            else:
+                launches.append(traced)
+                assert counted == ({} if capture else traced)
+            losses.append(loss)
+        assert tcs.trace_count() - t0 == (1 if capture else 0)
+        torch.cuda.synchronize()
+        runs.append(losses + [x for d in (p, m, v) for x in d.values()])
+    assert launches == [want] * 9
+    a, b, c = runs
+    for u, v, w in zip(a, b, c):
+        if torch.equal(u, v):
+            assert torch.equal(w, u)
+        else:
+            assert (w.float() - u.float()).abs().max() <= \
+                3 * (v.float() - u.float()).abs().max()
+    assert len({x.data_ptr() for x in c[:4]}) == 4   # cloned losses
+
+
+@pytest.mark.cuda
+def test_captured_forward_returns_clones_on_card(cuda_device):
+    """The LM forward through program_store.capture: each call's logits
+    are its own, and equal the eager forward's bitwise."""
+    from mxnet_tpu_torch import program_store as tps
+
+    _, tcfg = _cfgs("bfloat16", num_heads=2, hidden=64, mlp_hidden=128,
+                    use_flash_attention=None)
+    p = tm.init_params(tcfg, torch.Generator(device=cuda_device)
+                       .manual_seed(0), device=cuda_device)
+    fwd = tps.capture(lambda toks: tm.forward(p, toks, tcfg)[0])
+    a, b = (torch.from_numpy(x).long().to(cuda_device)
+            for x in (_batch((2, 64), seed=1)[0], _batch((2, 64), seed=2)[0]))
+    with torch.no_grad():
+        want_a = tm.forward(p, a, tcfg)[0]
+        want_b = tm.forward(p, b, tcfg)[0]
+        first = fwd(a)
+        again = fwd(a)
+        second = fwd(b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, want_a) and torch.equal(again, want_a)
+    assert torch.equal(second, want_b)
+    assert len(fwd.programs) == 1
