@@ -125,6 +125,29 @@ Phases, in order; any failure exits non-zero before the result line:
    busy, event span, the host's ms a call, idle share and peak memory of
    each path, and a JSON line of them. The captured wall must be below the
    eager wall for the LM forward at (4, 128) and the LM train step.
+   Phases 6-7b drive the eager classic loop (MXNET_COMPILED_STEP=0: a
+   hybridized block's recorded forward runs eagerly); 8g graphs it.
+8d. ``bench.py``'s ResNet lane through ``parallel.ShardedTrainer``
+   (``make_mesh({"dp": 1})``, ``compute_dtype=torch.bfloat16`` over fp32
+   masters, int32 labels, SGD momentum at RESNET_LR) on each route, 5 steps
+   in two eager runs (the same body with no program) and one captured:
+   captured against eager by phase 8's rule, masters and momenta fp32, 1
+   capture and 1 dispatch a step, launches and sites per step as
+   ``compile_step``'s, a falling loss; eager against captured numbers and
+   img/s; then ``grad_accum=2`` (2 x 64) for two steps.
+8e. ``compile_step(accum_steps=2)`` on the conv + BN route, bf16, windows
+   of 2 x 64: 3 dispatches a window, each grad replay's launches traced,
+   the windows held against two eager windows of the same recipe
+   (``grad_req='add'``, two recorded micro-batches, one ``trainer.step``).
+8f. ``compile_step(bucket=True)`` with a pad-safe masked loss on ResNet-50
+   with frozen batch norms, batches of ``BUCKET_SIZES`` in one bucket: one
+   program, each size checked once and accepted.
+8g. The classic loop on the conv + BN route, bf16 b128, with the recorded
+   forward as one graphed tape node, against the eager loop: the same
+   gates as 8c, then eager against graphed wall and host ms a step.
+   The counts are zeroed before 8d and read after 8g (path
+   ``compiled_steps``); a JSON line holds 8d's and 8g's numbers beside
+   phase 8c's pure-bf16 ``compile_step`` ones.
 9. int8: the path of ``benchmark/microbench_tpu.py`` ``section_int8_pallas``
    and the int8 op surface. (a) ``int8_matmul`` (``int8_matmul.cu``) at
    (M, K, N) = (25088, 512, 128) (ResNet-50's 1x1 conv at batch 32, 28x28,
@@ -299,6 +322,12 @@ TIMING_ROUNDS = 5     # interleaved replays of a graph of TIMING_ITERS calls
 TIMING_ITERS = 50
 PROFILE_FORWARDS = 5
 PROFILE_STEPS = 3
+# a profiler trace can miss the first kernels of a graph replay that starts
+# as soon as the trace does (the LM train step's flash-forward launches),
+# and misses none after a 50 ms wait inside the trace before the replay:
+# tools/torch_trace_settle.py counts both (PERF.md). traced_launches
+# waits so long
+TRACE_SETTLE_S = 0.05
 # -- the ResNet path --
 # (M, K, N) cases of the epilogue kernels vs their plain versions: M ragged
 # (not a multiple of either m-tile, 128 rows for bf16 and 64 for fp32)
@@ -434,6 +463,10 @@ CAPTURE_LR_STEP, CAPTURE_LR2 = 3, RESNET_LR / 2
 CAPTURE_TIMED = 10       # host-clock samples of each path, eager and captured
 # the routes of the ResNet step under capture (see capture_route)
 CAPTURE_ROUTES = ("unfused", "epilogue", "conv_bn")
+# compile_step(accum_steps=2): windows of 2 x RESNET_BATCH / 2 (the first
+# captures); compile_step(bucket=True): batch sizes of one bucket
+ACCUM_WINDOWS = 2
+BUCKET_SIZES = (96, 112, 128, 96)
 
 
 # -- the int8 path --
@@ -1085,6 +1118,7 @@ def traced_launches(ck, fn, trace=True, total=None):
     else:
         torch.cuda.synchronize()
         with trace_(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_SETTLE_S)
             out = fn()
             torch.cuda.synchronize()
         traced = {}
@@ -2984,6 +3018,399 @@ def capture_resnet_phase(mx, ps, cs, ck, resnet, config, card_line,
     return numbers
 
 
+# -- 8d-8g. the rest of the compiled step ------------------------------------
+
+
+def port_parallel():
+    """The port's parallel package."""
+    from mxnet_tpu_torch import parallel
+    return parallel
+
+
+def run_traced_steps(ck, resnet, what, call, n, compiled, want_sites,
+                     traced_total, counters=None):
+    """n calls of ``call`` (one train step each), each's launches counted
+    and, but for a capturing first call, traced; the sites of each step
+    held to ``want_sites`` (the first compiled call counts them twice, for
+    its eager run and its capture; a replay none); ``counters()`` gives
+    (captures, dispatches), which must be (1, i + 1) after compiled step i.
+    Returns (losses, counted, traced, the memory the capture reserved)."""
+    losses, counted, traced, kept = [], [], [], 0
+    base = counters() if counters else None
+    for i in range(n):
+        s0 = resnet_site_counts(resnet)
+        if compiled and i == 0:
+            (loss, kept), c, t = traced_launches(
+                ck, lambda: reserved_by(call), trace=False)
+        else:
+            loss, c, t = traced_launches(
+                ck, call, total=traced_total if compiled else None)
+        counted.append(c)
+        traced.append(t)
+        s1 = resnet_site_counts(resnet)
+        sites = {k: s1[k] - s0[k] for k in s1}
+        k = 2 if compiled and i == 0 else 0 if compiled else 1
+        if sites != {key: k * v for key, v in want_sites.items()}:
+            fail(f"{what}, compiled={compiled}, step {i + 1}: sites "
+                 f"{sites}; want {k} x {want_sites}")
+        if compiled and counters:
+            got = tuple(a - b for a, b in zip(counters(), base))
+            if got != (1, i + 1):
+                fail(f"{what}, step {i + 1}: (captures, dispatches) {got}")
+        losses.append(loss.detach().float().mean().reshape(1))
+    return losses, counted, traced, kept
+
+
+def check_run(what, runs, min_fall=True):
+    """Hold the captured run (the last of ``runs``, each (losses, state))
+    against the two eager ones; its losses finite and falling."""
+    (la, sa), (lb, sb), (lc, sc) = runs
+    hold_captured(f"{what} losses", la, lb, lc)
+    hold_captured(f"{what} state after {len(lc)} steps", sa, sb, sc)
+    vals = [v.item() for v in lc]
+    if not all(math.isfinite(v) for v in vals) or \
+            (min_fall and not vals[-1] < vals[0]):
+        fail(f"{what}: captured losses {vals} did not fall")
+    print(f"{what}: losses eager " + " ".join(
+        f"{v.item():.6f}" for v in la) + "; captured " + " ".join(
+        f"{v:.6f}" for v in vals))
+
+
+def with_img_s(numbers, batch):
+    for mode in numbers.values():
+        if isinstance(mode, dict) and "wall_ms" in mode:
+            mode["img_s"] = batch / (mode["wall_ms"] / 1e3)
+    return numbers
+
+
+def sharded_lane_phase(mx, ps, ck, resnet, config, card_line,
+                       traced_total) -> dict:
+    """Phase 8d: ``bench.py``'s ResNet lane through ``parallel.
+    ShardedTrainer`` (``make_mesh({"dp": 1})``, SGD momentum 0.9, wd
+    1e-4 at RESNET_LR, ``compute_dtype=torch.bfloat16``, fp32 masters,
+    int32 labels) on each route: RESNET_STEPS steps from the same weights
+    in two eager runs (MXNET_COMPILED_STEP=0: the same body, no program)
+    and one captured run. Losses, masters and momenta captured against
+    eager; masters and momenta still fp32; 1 capture and 1 dispatch a
+    step; launches and sites per step as ``compile_step``'s on the route;
+    the loss falls. Then eager against captured numbers and img/s, and
+    ``grad_accum=2`` (2 x 64) for two steps."""
+    par = port_parallel()
+    ns = ps.namespace("sharded_step")
+    x, y = image_batch(RESNET_BATCH, torch.float32)
+    y = y.to(torch.int32)
+    net = resnet50(mx, x[:2])
+    init = {k: p.data().clone() for k, p in net.collect_params().items()}
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    mesh = par.make_mesh({"dp": 1}, devices=[x.device])
+
+    def trainer(accum=1):
+        net.load_dict(init)
+        return par.ShardedTrainer(
+            net, lambda o, lab: ce(o, lab).mean(), mesh, optimizer="sgd",
+            optimizer_params={"lr": RESNET_LR, "momentum": 0.9, "wd": 1e-4},
+            compute_dtype=torch.bfloat16, grad_accum=accum)
+
+    def counters():
+        return ns.traces, ns.dispatches
+
+    def state_of(tr):
+        ts = list(tr.params.values()) + \
+            [s for st in tr.opt_state.values() for s in st]
+        bad = [t.dtype for t in ts if t.dtype != torch.float32]
+        if bad:
+            fail(f"ShardedTrainer: masters or momenta not fp32: {bad[:3]}")
+        return [t.clone() for t in ts]
+
+    numbers = {}
+    for name in CAPTURE_ROUTES:
+        route = capture_route(config, name)
+        want_launches, want_sites = route_gates(route)
+        what = (f"ResNet-50 ShardedTrainer bf16 compute, fp32 masters, "
+                f"b{RESNET_BATCH}, {name}")
+        runs, trainers, kept = [], {}, 0
+        for compiled in (False, False, True):
+            set_compiled(config, compiled)
+            tr = trainer()
+            losses, counted, traced, k = run_traced_steps(
+                ck, resnet, what, lambda: tr.step(x, y, sync=False),
+                RESNET_STEPS, compiled, want_sites, traced_total,
+                counters if compiled else None)
+            kept = k or kept
+            check_step_launches(f"{what}, compiled={compiled}", counted,
+                                traced, want_launches, compiled)
+            runs.append((losses, state_of(tr)))
+            trainers[compiled] = tr
+        check_run(what, runs)
+        del runs
+        calls = []
+
+        def eager(tr=trainers[False]):
+            set_compiled(config, False)
+            tr.step(x, y, sync=False)
+
+        def captured(tr=trainers[True]):
+            set_compiled(config, True)
+            tr.step(x, y, sync=False)
+            calls.append(1)
+
+        t1 = ns.traces
+        numbers[name] = with_img_s(capture_numbers(
+            what, {"eager": eager, "captured": captured}, kept, card_line),
+            RESNET_BATCH)
+        if ns.traces != t1 or not calls:
+            fail(f"{what}: a capture after warm-up")
+        print(f"{what}: launches per step {want_launches}, sites "
+              f"{ {k: v for k, v in want_sites.items() if v} }, 1 capture, "
+              f"1 dispatch a step, 0 captures over {len(calls)} timed "
+              f"steps; captured {numbers[name]['captured']['img_s']:.1f} "
+              f"img/s [{card_line}]  ok")
+        del trainers, eager, captured
+        torch.cuda.empty_cache()
+    # grad_accum=2: two micro-batches of 64 a step, the statistics chained
+    route = capture_route(config, "conv_bn")
+    want_launches, want_sites = route_gates(route)
+    what = f"ResNet-50 ShardedTrainer grad_accum=2 (2 x {RESNET_BATCH // 2})"
+    set_compiled(config, True)
+    tr = trainer(accum=2)
+    losses, counted, traced, _ = run_traced_steps(
+        ck, resnet, what, lambda: tr.step(x, y, sync=False), 2, True,
+        {k: 2 * v for k, v in want_sites.items()}, traced_total, counters)
+    check_step_launches(what, counted, traced, times(want_launches, 2), True)
+    state_of(tr)
+    if not all(math.isfinite(v.item()) for v in losses):
+        fail(f"{what}: losses {[v.item() for v in losses]}")
+    print(f"{what}: losses " + " ".join(f"{v.item():.6f}" for v in losses)
+          + f"; launches per step {times(want_launches, 2)}, 1 capture, 1 "
+          f"dispatch a step  ok")
+    del tr
+    capture_route(config, "unfused")
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def bf16_resnet(mx, hybridize=True):
+    """(net, its initial values, the batch): ResNet-50 in pure bf16 at
+    RESNET_BATCH, as phase 8c."""
+    x, y = image_batch(RESNET_BATCH, torch.bfloat16)
+    net = resnet50(mx, x[:2].float())
+    net.cast("bfloat16")
+    net.hybridize(hybridize)
+    init = {k: p.data().clone() for k, p in net.collect_params().items()}
+    return net, init, x, y
+
+
+def accum_phase(mx, cs, ck, resnet, config, traced_total) -> None:
+    """Phase 8e: ``compile_step(accum_steps=2)`` on the conv + BN route,
+    bf16, ACCUM_WINDOWS windows of 2 x 64 images. Held against two eager
+    windows of the same recipe (MXNET_COMPILED_STEP=0; every parameter
+    with ``grad_req='add'``: two recorded forwards and backwards, then
+    ``trainer.step(128)``): a batch-norm net's window is two micro-batches
+    with their own batch statistics, which a batch-128 step is not. 3
+    dispatches a window (2 grad programs and 1 update program) and no
+    capture after the first window; each grad replay launches the route's
+    kernels (traced)."""
+    route = capture_route(config, "conv_bn")
+    want_launches, _ = route_gates(route)
+    net, init, x, y = bf16_resnet(mx)
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    half = RESNET_BATCH // 2
+    micro = [(x[:half], y[:half]), (x[half:], y[half:])]
+    what = f"ResNet-50 bf16 compile_step(accum_steps=2), 2 x {half}"
+    runs = []
+    for compiled in (False, False, True):
+        set_compiled(config, compiled)
+        net.load_dict(init)
+        net.zero_grad()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(RESNET_OPT))
+        losses = []
+        if compiled:
+            step = trainer.compile_step(
+                net, lambda n, a, b: ce(n(a), b), accum_steps=2)
+            for w in range(ACCUM_WINDOWS):
+                t0, d0 = cs.trace_count(), cs.dispatch_count()
+                for i, (xm, ym) in enumerate(micro):
+                    if w == 0:
+                        loss = step(xm, ym, batch_size=half)
+                        continue
+                    loss, c, t = traced_launches(
+                        ck, lambda: step(xm, ym, batch_size=half),
+                        total=traced_total)
+                    if c or t != want_launches:
+                        fail(f"{what}, window {w + 1}, micro-batch {i + 1}"
+                             f": counted {c}, traced {t}; want "
+                             f"{want_launches} traced")
+                    losses.append(loss.float().mean().reshape(1))
+                got = (cs.trace_count() - t0, cs.dispatch_count() - d0)
+                if got != ((2 if w == 0 else 0), 3):
+                    fail(f"{what}, window {w + 1}: (captures, dispatches) "
+                         f"{got}; want ({2 if w == 0 else 0}, 3)")
+        else:
+            for p in net.collect_params().values():
+                if p.grad_req != "null":
+                    p.grad_req = "add"
+            for w in range(ACCUM_WINDOWS):
+                net.zero_grad()
+                for xm, ym in micro:
+                    with mx.autograd.record():
+                        loss = ce(net(xm), ym)
+                    mx.autograd.backward(loss)
+                    if w:
+                        losses.append(loss.float().mean().reshape(1))
+                trainer.step(RESNET_BATCH)
+            for p in net.collect_params().values():
+                if p.grad_req != "null":
+                    p.grad_req = "write"
+        state = [p.data().clone() for p in net.collect_params().values()]
+        runs.append((losses, state + [s.clone()
+                                      for s in trainer._init_states()]))
+    set_compiled(config, True)
+    check_run(what, runs, min_fall=False)
+    print(f"{what}: {ACCUM_WINDOWS} windows, 3 dispatches a window, 2 "
+          f"captures in the first and none after, launches per micro-batch "
+          f"{want_launches} (traced)  ok")
+    capture_route(config, "unfused")
+    del net, runs
+    torch.cuda.empty_cache()
+
+
+def bucket_phase(mx, cs, ps, config) -> None:
+    """Phase 8f: ``compile_step(bucket=True)`` with a pad-safe masked loss
+    on ResNet-50 in bf16 with its batch norms frozen (running statistics,
+    as when fine-tuning: every sample's loss is then its own), batches of
+    BUCKET_SIZES images, which all fall into the bucket of RESNET_BATCH.
+    One program for the bucket, each padded size checked once and
+    accepted; each step's loss equal to the unpadded loss of the same
+    weights, bitwise (the check's own rule)."""
+    capture_route(config, "unfused")
+    net, init, x, y = bf16_resnet(mx)
+    frozen = 0
+
+    def freeze(b):
+        nonlocal frozen
+        if type(b).__name__ == "BatchNorm":
+            b._use_global_stats = True
+            frozen += 1
+        for c in b._children.values():
+            freeze(c)
+
+    freeze(net)
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def masked(n, a, b, m):
+        rows = ce(n(a), b).float() * m
+        total = rows[0]
+        for i in range(1, rows.shape[0]):
+            total = total + rows[i]
+        return total
+
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_OPT))
+    step = trainer.compile_step(net, masked, bucket=True)
+    what = (f"ResNet-50 bf16 compile_step(bucket=True), frozen batch norm "
+            f"({frozen}), batches {BUCKET_SIZES}")
+    t0 = cs.trace_count()
+    from mxnet_tpu_torch import serving
+    serving.reset_counters()
+    for n in BUCKET_SIZES:
+        m = torch.ones(n, device=x.device)
+        loss = step(x[:n], y[:n], m, batch_size=n)
+        if not step.last_step_compiled or step.bucket_refused is not None:
+            fail(f"{what}: batch {n}: refused ({step.bucket_refused}) or "
+                 f"eager ({step.last_fallback_reason})")
+        if not math.isfinite(loss.item()):
+            fail(f"{what}: batch {n}: loss {loss.item()}")
+    padded = sum(n != RESNET_BATCH for n in BUCKET_SIZES)
+    got = (cs.trace_count() - t0, step.padded_steps,
+           serving.bucket_stats())
+    want = (1, padded, {"hits": padded - len(set(BUCKET_SIZES) - {
+        RESNET_BATCH}), "misses": len(set(BUCKET_SIZES) - {RESNET_BATCH})})
+    if got != want:
+        fail(f"{what}: (captures, padded steps, bucket stats) {got}; want "
+             f"{want}")
+    print(f"{what}: 1 program for the bucket of {RESNET_BATCH}, {padded} "
+          f"padded steps, each size checked once (bitwise pad-safe loss)  "
+          f"ok")
+    del net, step
+    torch.cuda.empty_cache()
+
+
+def classic_loop_phase(mx, ps, ck, resnet, config, card_line,
+                       traced_total) -> dict:
+    """Phase 8g: the classic Gluon loop (``hybridize()``; ``record()``
+    forward and loss; ``backward``; ``trainer.step``) on the conv + BN
+    route, bf16 b128, RESNET_STEPS steps from the same weights: two eager
+    runs (MXNET_COMPILED_STEP=0, the recorded forward run eagerly, fused)
+    and one with the forward as one graphed tape node. Losses, params,
+    running statistics and momenta held graphed against eager; 1 capture
+    and 1 dispatch a step; launches and sites per step as the route's.
+    Then eager against graphed wall, device busy and host ms a step."""
+    route = capture_route(config, "conv_bn")
+    want_launches, want_sites = route_gates(route)
+    ns = ps.namespace("hybrid_forward")
+    net, init, x, y = bf16_resnet(mx)
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    what = f"ResNet-50 bf16 b{RESNET_BATCH} classic loop, recorded forward"
+
+    def make_step(trainer):
+        def one():
+            with mx.autograd.record():
+                loss = ce(net(x), y)
+            mx.autograd.backward(loss)
+            trainer.step(RESNET_BATCH)
+            return loss
+        return one
+
+    runs, steps, kept = [], {}, 0
+    for graphed in (False, False, True):
+        set_compiled(config, graphed)
+        net.load_dict(init)
+        net.zero_grad()
+        net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(RESNET_OPT))
+        one = make_step(trainer)
+        losses, counted, traced, k = run_traced_steps(
+            ck, resnet, what, one, RESNET_STEPS, graphed, want_sites,
+            traced_total,
+            (lambda: (ns.traces, ns.dispatches)) if graphed else None)
+        kept = k or kept
+        check_step_launches(f"{what}, graphed={graphed}", counted, traced,
+                            want_launches, graphed)
+        if graphed and net.last_eager_reason is not None:
+            fail(f"{what}: ran eagerly ({net.last_eager_reason})")
+        state = [p.data().clone() for p in net.collect_params().values()]
+        runs.append((losses, state + [s.clone()
+                                      for s in trainer._init_states()]))
+        steps[graphed] = one
+    check_run(what, runs)
+    del runs
+
+    def eager():
+        set_compiled(config, False)
+        steps[False]()
+
+    def graphed():
+        set_compiled(config, True)
+        steps[True]()
+
+    t1 = ns.traces
+    numbers = with_img_s(capture_numbers(what, {"eager": eager,
+                                                "captured": graphed},
+                                         kept, card_line), RESNET_BATCH)
+    if ns.traces != t1:
+        fail(f"{what}: a capture after warm-up")
+    print(f"{what}: launches per step {want_launches}, 1 capture, 1 "
+          f"dispatch a step; host {numbers['eager']['host_ms']:.3f} ms a "
+          f"step eager, {numbers['captured']['host_ms']:.3f} graphed "
+          f"[{card_line}]  ok")
+    set_compiled(config, True)
+    capture_route(config, "unfused")
+    del net, steps
+    torch.cuda.empty_cache()
+    return numbers
+
+
 # -- 9. ----------------------------------------------------------------------
 
 
@@ -3324,6 +3751,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- the ResNet train path ----------------------------------------------
+    # phases 6-7b hold the eager classic loop (a hybridized block's
+    # recorded forward run eagerly); phase 8g holds its graphed form
+    set_compiled(config, False)
     resnet_counts, _net, step = resnet_train_path(mx, ck, resnet, config,
                                                   card_line)
     site_backward_phase(ck, nn_ops)
@@ -3341,6 +3771,8 @@ def main() -> int:
     resnet_timings(resnet, config, step, card_line, CONV_BN)
     del step
     torch.cuda.empty_cache()
+
+    set_compiled(config, True)
 
     # -- 8. capture -----------------------------------------------------------
     ps, cs = port_capture()
@@ -3371,6 +3803,32 @@ def main() -> int:
            for k, v in cap_resnet.items()}}}))
     torch.cuda.empty_cache()
 
+    # -- 8d-8g. ShardedTrainer, accumulation, buckets, the recorded forward
+    ck.reset_launch_counts()
+    steps_traced = {}
+    sharded = sharded_lane_phase(mx, ps, ck, resnet, config, card_line,
+                                 steps_traced)
+    accum_phase(mx, cs, ck, resnet, config, steps_traced)
+    bucket_phase(mx, cs, ps, config)
+    classic = classic_loop_phase(mx, ps, ck, resnet, config, card_line,
+                                 steps_traced)
+    torch.cuda.synchronize()
+    steps_counts = ck.launch_counts()
+    if not all(steps_counts[k] for k in (*EPI_KERNELS, *CONV_BN_KERNELS)):
+        fail(f"a kernel of the ResNet paths never launched in phases "
+             f"8d-8g: {steps_counts}")
+    print(f"phases 8d-8g launch counts: counted by the wrappers "
+          f"{steps_counts}; traced on the device in the checked replays "
+          f"{steps_traced}; program store {json.dumps(ps.stats())}")
+    print(json.dumps({"sharded_lane": {
+        "card": card_line,
+        **{f"resnet50_sharded_bf16_compute_b{RESNET_BATCH}_{k}": v
+           for k, v in sharded.items()},
+        **{f"resnet50_compile_step_pure_bf16_b{RESNET_BATCH}_{k}":
+           with_img_s(v, RESNET_BATCH) for k, v in cap_resnet.items()},
+        f"resnet50_classic_loop_bf16_b{RESNET_BATCH}_conv_bn": classic}}))
+    torch.cuda.empty_cache()
+
     # -- 9. int8 --------------------------------------------------------------
     int8_counts, int8_err = int8_path(ck)
     int8_ops_phase(port_int8())
@@ -3379,12 +3837,14 @@ def main() -> int:
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
-             "capture": capture_counts, "int8": int8_counts}
+             "capture": capture_counts, "compiled_steps": steps_counts,
+             "int8": int8_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were
     # checked (the captured runs of the train and capture phases)
-    traced_paths = {"train": train_traced, "capture": capture_traced}
+    traced_paths = {"train": train_traced, "capture": capture_traced,
+                    "compiled_steps": steps_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

@@ -14,7 +14,11 @@ hand-written kernels (``ops/csrc/conv_bn_epilogue.cu``), and whose conv +
 batch-norm pairs take their statistics in two more (``conv_bn_epilogue.cu``,
 ``convkxk_bn_stats.cu``); and the op level of int8 quantization
 (``contrib.quantization``), whose s8 products and convolutions are exact in
-plain PyTorch, beside the int8 matmul kernel (``ops/csrc/int8_matmul.cu``).
+plain PyTorch, beside the int8 matmul kernel (``ops/csrc/int8_matmul.cu``);
+and the compiled steps and forwards as CUDA graphs (``program_store``,
+``cached_step``, ``parallel.ShardedTrainer`` on one device, a hybridized
+block's forward and its recorded tape node, shape buckets in
+``serving``).
 """
 from . import autograd, config, contrib, gluon, initializer, models, optimizer
 from .base import MXNetError

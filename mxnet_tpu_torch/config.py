@@ -56,7 +56,9 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "fixed buffers, cached by input shapes and dtypes, the route "
            "knobs and the parameters' storage, and replayed: 1 dispatch a "
            "step. 1 = on (the setups TrainStep cannot capture run the eager "
-           "tape and name their reason), 0 = the eager tape everywhere."),
+           "tape and name their reason), 0 = the eager tape everywhere: "
+           "also parallel.ShardedTrainer's step and the recorded forward "
+           "of a hybridized block run eagerly."),
     EnvVar("MXNET_COMPILED_STEP_CACHE", int, 16,
            "Per-owner cap of the program store's 'train_step' namespace "
            "(LRU over program keys); a new key past the cap evicts the "
@@ -64,6 +66,25 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
     EnvVar("MXNET_FORWARD_CACHE", int, 32,
            "Per-owner cap of the program store's 'hybrid_forward' namespace "
            "(the captured forwards of a hybridized block, LRU)."),
+    EnvVar("MXNET_BACKWARD_DO_MIRROR", bool, False,
+           "Recompute the forward during the backward (torch.utils."
+           "checkpoint) instead of keeping activations alive: about one "
+           "extra forward of work for less peak memory (the reference's "
+           "mirror path); ShardedTrainer(remat=None) follows it."),
+    EnvVar("MXNET_SHAPE_BUCKETS", str, "pow2",
+           "Shape-bucket grid for padded programs (serving.BucketPolicy): "
+           "'pow2' (round a dynamic axis up to the next power of two), "
+           "'none' (exact shapes, bucketing off), or an ascending comma "
+           "list '8,16,32,64' (a length above the largest bucket keeps its "
+           "exact shape). Used by Trainer.compile_step(bucket=True) and "
+           "hybridize(bucket=True), which verify the padded result against "
+           "the unpadded one once per bucket."),
+    EnvVar("MXNET_SERVE_VERIFY", int, 1,
+           "hybridize(bucket=True) and compile_step(bucket=True): verify "
+           "the first padded call per signature against the unpadded one. "
+           "1 = bit-exact passes, and for a forward a last-ulp difference "
+           "(rtol 1e-5, atol 1e-6) too; anything larger refuses bucketing. "
+           "2 = strict: bit-exact or refuse. 0 = trust padding unchecked."),
 )}
 
 _CACHE: Dict[str, Any] = {}

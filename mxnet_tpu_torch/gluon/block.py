@@ -8,36 +8,59 @@ by the layer's ``infer_shape`` on the first call, and ``cast``,
 ``load_dict`` and ``zero_grad`` act on every parameter. Blocks take and
 return ``torch.Tensor``s.
 
-A hybridized block called outside ``autograd.record()`` runs its forward
-as a captured program (``program_store``, namespace ``hybrid_forward``):
-the counterpart of the reference's cached forward (``block.py:621-700``).
-Its key: the inputs' shapes, dtypes and device, ``autograd.is_training()``,
-the route knobs and math flags, and which tensors hold the parameters
-(``cast`` replaces them and so re-captures). It returns clones of the
-program's outputs, as the reference returns fresh arrays; batch-norm
-running statistics that a training-mode forward updates are updated in
-place by every replay. Under ``record()`` a hybridized block runs eagerly:
-its training counterpart is ``Trainer.compile_step``. (The reference
-records a hybridized forward as one tape node; that is not ported yet.)
+A hybridized block runs its forward as captured programs
+(``program_store``, namespace ``hybrid_forward``), the counterpart of the
+reference's cached forward (``block.py:621-700``):
 
-While the outermost hybridized block runs (its parameters initialized),
-:func:`in_hybridized_call` is true. The fused ResNet epilogue reads it
-where the reference asks whether it is being traced, so eager calls never
-take the fused sites, as in the reference.
+- Outside ``autograd.record()`` (or where nothing takes a gradient), one
+  program of the forward, run with grad mode off. Its key: the inputs'
+  shapes, dtypes and device, ``autograd.is_training()``, the route knobs
+  and math flags, and which tensors hold the parameters (``cast``
+  replaces them and so re-captures). It returns clones of the program's
+  outputs, as the reference returns fresh arrays; batch-norm running
+  statistics that a training-mode forward updates are updated in place by
+  every replay.
+- Under ``record()``, one graphed tape node (``_GraphedNode``, the
+  reference's recorded ``jax.vjp`` node, ``block.py:659-689``): its
+  forward replays a captured forward and its backward a captured backward
+  (``program_store.VjpProgram``); the gradients reach the parameters and
+  the inputs through torch's autograd, so ``grad_req`` write and add keep
+  their meaning, and the forward replay updates the running statistics.
+  The key adds which inputs require grad and which parameters take
+  gradients. The program holds the activations of its last call only, so
+  a second call before the first call's backward runs eagerly; so does a
+  second-order backward (``create_graph=True``), which recomputes the
+  forward, and every recorded call under ``MXNET_COMPILED_STEP=0`` (the
+  eager tape everywhere; still the port's trace, so the fused sites run
+  as in the graphed node). Each names its reason in
+  ``last_eager_reason``.
+- ``hybridize(bucket=True)``: predict-mode calls pad the batch axis to
+  their bucket (``serving.BucketPolicy``), checked once per bucket against
+  the unpadded eager forward (``block.py:538-565, :706-760``).
+
+Inside :func:`traced_call` (a hybridized block's call, a compiled step's
+body, ``ShardedTrainer``'s step), :func:`in_hybridized_call` is true. The
+fused ResNet sites read it where the reference asks whether it is being
+traced, so eager calls of a block that is not hybridized never take the
+fused sites, as in the reference, and every compiled step does.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import OrderedDict
+from typing import Optional
 
 import torch
 
 from .. import autograd, initializer
+from .. import config as _config
 from .. import program_store as _pstore
+from .. import serving as _serving
 from ..context import resolve_device
 from .parameter import DeferredInitializationError, Parameter
 
-__all__ = ["Block", "HybridBlock", "in_hybridized_call", "hybridized_flags"]
+__all__ = ["Block", "HybridBlock", "in_hybridized_call", "traced_call"]
 
 
 class _Hybrid(threading.local):
@@ -49,25 +72,24 @@ class _Hybrid(threading.local):
 _HYBRID = _Hybrid()
 
 
+@contextlib.contextmanager
+def traced_call():
+    """The scope of a traced call: :func:`in_hybridized_call` is true
+    inside it. A hybridized block's call, a compiled step's body
+    (``cached_step.TrainStep``) and ``parallel.ShardedTrainer``'s step
+    run in it, as the reference's hybridized forward and its compiled
+    steps are traces."""
+    _HYBRID.depth += 1
+    try:
+        yield
+    finally:
+        _HYBRID.depth -= 1
+
+
 def in_hybridized_call() -> bool:
     """True while a hybridized block (with its parameters initialized)
     runs its forward: the port's stand-in for the reference's trace."""
     return _HYBRID.depth > 0
-
-
-def hybridized_flags(block: "Block") -> tuple:
-    """Which blocks of ``block``'s tree are hybridized, in tree order: what
-    :func:`in_hybridized_call` reads while the tree runs (part of a
-    captured step's key)."""
-    out = []
-
-    def walk(b):
-        out.append(getattr(b, "_active", False))
-        for child in b._children.values():
-            walk(child)
-
-    walk(block)
-    return tuple(out)
 
 
 class Block:
@@ -170,6 +192,49 @@ class Block:
         raise NotImplementedError
 
 
+class _Pending:
+    """A graphed call's claim on its program's activations, released by
+    its backward or when its autograd node is freed."""
+
+    def __init__(self, prog, gen):
+        self._prog, self._gen = prog, gen
+        prog.pending = gen
+
+    def release(self):
+        if self._prog.pending == self._gen:
+            self._prog.pending = None
+
+    __del__ = release
+
+
+class _GraphedNode(torch.autograd.Function):
+    """A hybridized block's recorded call as one tape node: the forward
+    replays the block's captured forward, the backward its captured
+    backward (``program_store.VjpProgram``). Inputs: the call's tensors,
+    then the parameters that take gradients, so that autograd delivers
+    their gradients to the parameters (``grad_req`` write and add)."""
+
+    @staticmethod
+    def forward(ctx, block, prog, n_in, *tensors):
+        gen, outs = prog.forward(tensors[:n_in])
+        ctx.block, ctx.prog, ctx.gen, ctx.n_in = block, prog, gen, n_in
+        ctx.pending = _Pending(prog, gen)
+        ctx.training = autograd.is_training()
+        ctx.needs = [t.requires_grad for t in tensors]
+        ctx.save_for_backward(*tensors)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        if torch.is_grad_enabled():
+            grads = ctx.block._second_order(ctx, gouts)
+        else:
+            wrt = iter(ctx.prog.backward(ctx.gen, list(gouts)))
+            grads = [next(wrt) if need else None for need in ctx.needs]
+        ctx.pending.release()
+        return (None, None, None) + tuple(grads)
+
+
 class HybridBlock(Block):
     """A block that can be hybridized (see the module docstring). As in the
     reference, only the outermost block's flag counts, since ``hybridize``
@@ -180,9 +245,23 @@ class HybridBlock(Block):
         super().__init__()
         self._active = False
         self._programs = None
+        self._bucket = False
+        self._bucket_refused: Optional[str] = None
+        self._bucket_verified: set = set()
+        # why the last call under record() ran eagerly (None: graphed)
+        self.last_eager_reason: Optional[str] = None
 
-    def hybridize(self, active: bool = True, **kwargs) -> None:
+    def hybridize(self, active: bool = True, bucket=None, **kwargs) -> None:
+        """Run the block's forward as captured programs (see the module
+        docstring). ``bucket=True`` pads the batch axis of predict-mode
+        calls outside ``record()`` up to its bucket
+        (``serving.BucketPolicy``, ``MXNET_SHAPE_BUCKETS``) and slices the
+        outputs back; the first call of each bucket is checked against the
+        unpadded eager forward (``MXNET_SERVE_VERIFY``), and a mismatch
+        refuses bucketing for good (reason in ``_bucket_refused``)."""
         self._active = bool(active)
+        if bucket is not None:
+            self._bucket = bool(bucket)
         self._programs = None
         super().hybridize(False, **kwargs)
 
@@ -194,21 +273,33 @@ class HybridBlock(Block):
             # a first call that completes deferred initialization runs
             # eagerly, as in the reference
             return super().__call__(*args, **kwargs)
-        _HYBRID.depth += 1
-        try:
-            if kwargs or autograd.is_recording() or _pstore.in_program() \
-                    or not args or not all(isinstance(a, torch.Tensor)
-                                           for a in args):
+        with traced_call():
+            if kwargs or _pstore.in_program() or not args or not all(
+                    isinstance(a, torch.Tensor) for a in args):
                 return super().__call__(*args, **kwargs)
+            if autograd.is_recording() and (
+                    any(p.grad_req != "null" for p in params.values())
+                    or any(a.requires_grad for a in args)):
+                if not _config.get("MXNET_COMPILED_STEP"):
+                    self.last_eager_reason = "MXNET_COMPILED_STEP=0"
+                    return super().__call__(*args)
+                return self._call_recorded(args, params)
+            if self._bucket and self._bucket_refused is None and \
+                    not autograd.is_training() and \
+                    not autograd.is_recording():
+                out = self._call_bucketed(args, params)
+                if out is not None:
+                    return out
             return self._call_cached(args, params)
-        finally:
-            _HYBRID.depth -= 1
+
+    def _scope(self):
+        if self._programs is None:
+            self._programs = _pstore.scope("hybrid_forward")
+        return self._programs
 
     def _call_cached(self, args, params):
         """The forward as a program of this block's ``hybrid_forward``
         scope, run with torch's grad mode off."""
-        if self._programs is None:
-            self._programs = _pstore.scope("hybrid_forward")
         held = [p._data for p in params.values()]
         key = (_pstore.tensor_key(args), autograd.is_training(),
                _pstore.knob_key(), _pstore.storage_key(held))
@@ -217,5 +308,135 @@ class HybridBlock(Block):
             with torch.no_grad():
                 return Block.__call__(self, *inputs)
 
-        return _pstore.run(self._programs, key, lambda: body, args,
+        return _pstore.run(self._scope(), key, lambda: body, args,
                            keep=held)
+
+    # -- the recorded forward ---------------------------------------------
+    def _call_recorded(self, args, params):
+        """The call as one graphed tape node (:class:`_GraphedNode`), or
+        eagerly, with the reason in ``last_eager_reason``, while the
+        program's last call still awaits its backward."""
+        diff = [p for p in params.values() if p.grad_req != "null"]
+        held = [p._data for p in params.values()]
+        needs = tuple(a.requires_grad for a in args)
+        key = ("recorded", _pstore.tensor_key(args), needs,
+               tuple(p.grad_req != "null" for p in params.values()),
+               autograd.is_training(), _pstore.knob_key(),
+               _pstore.storage_key(held))
+        cache = self._scope()
+        prog = cache.lookup(key)
+        if prog is not None and prog.pending is not None:
+            self.last_eager_reason = (
+                "an earlier recorded call of this block still awaits its "
+                "backward (one graphed call at a time: the program's "
+                "activations are those of its last call)")
+            return super(HybridBlock, self).__call__(*args)
+        self.last_eager_reason = None
+        weights = [p._data for p in diff]
+        tensors = list(args) + weights
+        if prog is not None:
+            return self._unpack(_GraphedNode.apply(self, prog, len(args),
+                                                   *tensors))
+        cache.drop_stale(held)
+
+        def body(*inputs):
+            ins = [x.detach().requires_grad_(need)
+                   for x, need in zip(inputs, needs)]
+            leaves = [w.detach().requires_grad_() for w in weights]
+            try:
+                for p, leaf in zip(diff, leaves):
+                    p._data = leaf
+                out = Block.__call__(self, *ins)
+            finally:
+                for p, w in zip(diff, weights):
+                    p._data = w
+            outs = list(out) if isinstance(out, (tuple, list)) else [out]
+            wrt = [x for x, need in zip(ins, needs) if need] + leaves
+            return outs, wrt
+
+        prog = _pstore.VjpProgram(cache.namespace, body, args,
+                                  args[0].device, keep=held)
+        out = _GraphedNode.apply(self, prog, len(args), *tensors)
+        cache.insert(key, prog)
+        return self._unpack(out)
+
+    @staticmethod
+    def _unpack(out):
+        return out[0] if len(out) == 1 else out
+
+    def _second_order(self, ctx, gouts):
+        """A backward that builds a graph itself (``create_graph=True``)
+        runs eagerly: the forward is recomputed from the node's saved
+        inputs with the running statistics restored after it, and
+        differentiated with ``create_graph``."""
+        self.last_eager_reason = (
+            "a second-order backward (create_graph=True) recomputes the "
+            "forward eagerly")
+        saved = ctx.saved_tensors
+        ins = saved[:ctx.n_in]
+        frozen = [p._data for p in self.collect_params().values()
+                  if p.grad_req == "null" and p._data is not None]
+        snap = [t.clone() for t in frozen]
+        try:
+            with traced_call(), autograd.record(train_mode=ctx.training):
+                out = Block.__call__(self, *ins)
+        finally:
+            with torch.no_grad():
+                for t, v in zip(frozen, snap):
+                    t.copy_(v)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        wrt = [t for t, need in zip(saved, ctx.needs) if need]
+        grads = iter(torch.autograd.grad(outs, wrt, list(gouts),
+                                         create_graph=True,
+                                         allow_unused=True))
+        return [next(grads) if need else None for need in ctx.needs]
+
+    # -- shape buckets ----------------------------------------------------
+    def _call_bucketed(self, args, params):
+        """A predict-mode call padded to its bucket and sliced back, or
+        None where padding does not apply (bucketing off, an exact fit, no
+        common batch axis); see :meth:`hybridize`."""
+        policy = _serving.BucketPolicy()
+        if not policy.enabled or any(a.dim() < 1 for a in args):
+            return None
+        n = int(args[0].shape[0])
+        if any(int(a.shape[0]) != n for a in args):
+            return None
+        b = policy.bucket(n)
+        if b is None or b == n:
+            return None
+        out = self._call_cached([_serving.pad_axis0(a, b) for a in args],
+                                params)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        if any(o.dim() < 1 or int(o.shape[0]) != b for o in outs):
+            self._bucket_refused = (
+                "output does not carry the batch axis; cannot slice padded "
+                "rows back")
+            with torch.no_grad():
+                return Block.__call__(self, *args)
+        sliced = [o[:n] for o in outs]
+        result = type(out)(sliced) if isinstance(out, (tuple, list)) \
+            else sliced[0]
+        key = (b, _pstore.tensor_key(args))
+        ns = _pstore.namespace("serving")
+        if key in self._bucket_verified:
+            ns.bump("hits")
+            return result
+        ns.bump("misses")
+        verify = int(_config.get("MXNET_SERVE_VERIFY"))
+        if verify:
+            with torch.no_grad():
+                ref = Block.__call__(self, *args)
+            refs = list(ref) if isinstance(ref, (tuple, list)) else [ref]
+            for got, want in zip(sliced, refs):
+                if got.shape == want.shape and (torch.equal(got, want) or (
+                        verify < 2 and torch.allclose(got, want, rtol=1e-5,
+                                                      atol=1e-6))):
+                    continue
+                self._bucket_refused = (
+                    "padded and sliced forward differs from the unpadded "
+                    "eager forward (outputs couple across the batch axis); "
+                    "bucketing refused for this block")
+                return ref
+        self._bucket_verified.add(key)
+        return result

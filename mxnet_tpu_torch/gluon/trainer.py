@@ -68,8 +68,9 @@ class Trainer:
         triple. Setups it cannot capture (``MXNET_COMPILED_STEP=0``,
         ``grad_req='add'``, a pending deferred initialization) run the
         eager tape and name their reason in ``last_fallback_reason``.
-        ``bucket=True`` and ``accum_steps > 1`` are not ported yet and
-        raise ``NotImplementedError``."""
+        ``bucket=True`` pads each batch to its shape bucket, once checked
+        for a pad-safe loss; ``accum_steps=N`` makes a window of N calls
+        one update (N grad programs and one update program)."""
         from ..cached_step import TrainStep
 
         return TrainStep(net, loss_fn, self, bucket=bucket,

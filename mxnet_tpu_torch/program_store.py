@@ -50,7 +50,8 @@ import torch
 
 from . import config as _config
 
-__all__ = ["Namespace", "ScopeCache", "Program", "CapturedFunction",
+__all__ = ["Namespace", "ScopeCache", "Program", "VjpProgram",
+           "CapturedFunction",
            "NAMESPACES", "namespace", "scope", "stats", "reset_counters",
            "run", "capture", "in_program", "knob_key", "tensor_key",
            "storage_key"]
@@ -147,6 +148,9 @@ class ScopeCache(OrderedDict):
 NAMESPACES: Dict[str, Namespace] = {
     "train_step": Namespace("train_step", 16, "MXNET_COMPILED_STEP_CACHE"),
     "hybrid_forward": Namespace("hybrid_forward", 32, "MXNET_FORWARD_CACHE"),
+    "serving": Namespace("serving", 32, "MXNET_FORWARD_CACHE"),
+    "sharded_step": Namespace("sharded_step", 16,
+                              "MXNET_COMPILED_STEP_CACHE"),
 }
 
 
@@ -280,6 +284,137 @@ class Program:
             return self._run()          # the CPU: fresh outputs each call
         self._graph.replay()
         return _clone(self._out)
+
+
+class VjpProgram:
+    """A forward and its backward as two captured programs over static
+    buffers: the counterpart of the reference's recorded ``jax.vjp`` node
+    over a cached program. ``fn(*static_inputs)``, run with grad mode on,
+    returns ``(outputs, wrt)``: a list of output tensors and the tensors
+    the backward differentiates them by.
+
+    :meth:`forward` copies the inputs into the static buffers and returns
+    ``(generation, clones of the outputs)``; :meth:`backward` takes the
+    generation and the outputs' gradients and returns the gradients of
+    ``wrt`` (None where unused). On a CUDA device the first forward runs
+    ``fn`` eagerly on the side stream, keeping its autograd graph for its
+    own backward, and captures the forward; the backward is captured at
+    the first backward, after an eager run of it (over that call's own
+    graph) has done the first-time work. Later calls replay. The two
+    graphs share one memory pool, which holds the activations between a
+    forward and its backward, so the activations are those of the last
+    forward only: a backward for an older generation raises, and the
+    caller (``HybridBlock``) runs a second call eagerly while the first's
+    backward is pending (:attr:`pending`). On the CPU every forward runs
+    ``fn`` through the static buffers and its backward differentiates that
+    run's graph. Counts 1 trace at the first forward and 1 dispatch a
+    forward."""
+
+    def __init__(self, ns: Namespace, fn: Callable, args: Sequence, device,
+                 keep=None):
+        self._ns = ns
+        self._fn = fn
+        self.keep = keep
+        self.device = torch.device(device)
+        with torch.inference_mode(False):
+            self._static = [torch.empty(a.shape, dtype=a.dtype,
+                                        device=self.device) for a in args]
+        self._called = False
+        self._fwd = self._bwd = None
+        self._outs = self._wrt = self._gouts = self._grads = None
+        # (generation, outputs, wrt) of the last forward if it ran eagerly,
+        # kept (a backward may be repeated) until the next forward
+        self._eager: Optional[tuple] = None
+        self.generation = 0
+        self.pending: Optional[int] = None
+
+    def _run(self):
+        _BUILDING.depth += 1
+        try:
+            with torch.enable_grad():
+                outs, wrt = self._fn(*self._static)
+            return list(outs), list(wrt)
+        finally:
+            _BUILDING.depth -= 1
+
+    def _on_side(self, fn):
+        """fn() on the side stream, ordered after and before the current
+        stream's work."""
+        stream = _side_stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):
+            out = fn()
+        cur.wait_stream(stream)
+        for t in out:
+            for u in (t if isinstance(t, list) else [t]):
+                if isinstance(u, torch.Tensor):
+                    u.record_stream(cur)
+        return out
+
+    def forward(self, args):
+        with torch.inference_mode(False):
+            for s, a in zip(self._static, args):
+                s.copy_(a)
+        self._ns.bump("dispatches")
+        self.generation += 1
+        gen = self.generation
+        self._eager = None
+        if not self._called:
+            self._called = True
+            self._ns.bump("traces")
+            if self.device.type == "cuda":
+                outs, wrt = self._on_side(lambda: self._run())
+                self._eager = (gen, outs, wrt)
+                self._fwd = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self._fwd,
+                                      stream=_side_stream(self.device)):
+                    self._outs, self._wrt = self._run()
+                return gen, [o.detach().clone() for o in outs]
+        if self._fwd is None:
+            outs, wrt = self._run()
+            self._eager = (gen, outs, wrt)
+            return gen, [o.detach().clone() for o in outs]
+        self._fwd.replay()
+        return gen, [o.detach().clone() for o in self._outs]
+
+    def backward(self, gen: int, gouts):
+        if gen != self.generation:
+            raise RuntimeError(
+                f"backward through call {gen} of a graphed forward after "
+                f"call {self.generation} replaced its activations; the "
+                "block runs a call eagerly while an earlier call's backward "
+                "is pending, so this is a backward through a call whose "
+                "graph was freed and recorded again")
+        if self._eager is not None:
+            _, outs, wrt = self._eager
+            grad = (lambda: torch.autograd.grad(
+                outs, wrt, gouts, allow_unused=True, retain_graph=True))
+            if self.device.type != "cuda":
+                return list(grad())
+            grads = self._on_side(grad)
+            if self._bwd is None:
+                self._capture_backward()
+            return list(grads)
+        if self._bwd is None:
+            grads = self._on_side(lambda: torch.autograd.grad(
+                self._outs, self._wrt, gouts, allow_unused=True,
+                retain_graph=True))
+            self._capture_backward()
+            return list(grads)
+        for s, g in zip(self._gouts, gouts):
+            s.copy_(g)
+        self._bwd.replay()
+        return [None if g is None else g.clone() for g in self._grads]
+
+    def _capture_backward(self):
+        with torch.inference_mode(False):
+            self._gouts = [torch.zeros_like(o) for o in self._outs]
+        self._bwd = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self._bwd, pool=self._fwd.pool(),
+                              stream=_side_stream(self.device)):
+            self._grads = torch.autograd.grad(
+                self._outs, self._wrt, self._gouts, allow_unused=True)
 
 
 def run(cache: ScopeCache, key, build: Callable[[], Callable],

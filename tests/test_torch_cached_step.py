@@ -11,7 +11,7 @@ buffers with no graph:
   ``cache_stats``), eviction past the cap, a new learning rate without a
   new capture, and what re-captures (``cast``) or does not (``set_data``);
 - the setups that run the eager tape and name their reason, and the
-  options that are not ported and raise;
+  window that refuses it;
 - the hybridized predict-mode forward against the reference's and against
   the port's eager forward, bitwise, with cloned outputs.
 
@@ -291,10 +291,12 @@ def test_cast_recaptures_and_set_data_is_read_in_place():
 
 @pytest.mark.parametrize("route", ["epilogue", "conv_bn"])
 def test_hybridize_false_recaptures_the_step_unfused(route, knobs):
-    """The fused sites run only inside a hybridized call, so whether the
-    net is hybridized is part of the step's key: hybridize(False) captures
-    anew, unfused, as the eager tape of an unhybridized net runs; back on,
-    the first program is hit again."""
+    """A compiled step's body is the port's trace, so its fused sites do
+    not depend on whether the net is hybridized, as the reference's
+    compiled step fuses wherever it traces: ``hybridize(False)`` neither
+    captures the step anew nor unfuses it. The eager tape of the net that
+    is not hybridized runs unfused; that of a hybridized twin fuses, and
+    the step stays bitwise equal to it."""
     knobs(**ROUTES[route])
     x, y = _batch()
     net = _net()
@@ -302,7 +304,6 @@ def test_hybridize_false_recaptures_the_step_unfused(route, knobs):
     step = tr.compile_step(net, _loss)
     step(x, y)
     twin = _twin(net)
-    twin.hybridize(False)
     ttr = tgluon.Trainer(twin.collect_params(), "sgd", dict(OPT))
     for s, t in zip(ttr._init_states(), tr._init_states()):
         s.copy_(t)
@@ -312,20 +313,23 @@ def test_hybridize_false_recaptures_the_step_unfused(route, knobs):
                 **{f"cbn.{k}": v
                    for k, v in tresnet.fused_conv_bn_counts().items()}}
 
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in a}
+
     net.hybridize(False)
     t0, s0 = tcs.trace_count(), sites()
     got = step(x, y)
     s1 = sites()
-    want = _eager_step(twin, ttr, x, y)
+    want = _eager_step(twin, ttr, x, y)            # hybridized: fused
     s2 = sites()
-    assert tcs.trace_count() == t0 + 1
-    assert s1 == s0 == s2                 # no fused site, as eagerly
+    assert tcs.trace_count() == t0                 # the same program
+    assert any(delta(s0, s1).values())             # fused
+    assert delta(s0, s1) == delta(s1, s2)
     assert torch.equal(got, want.detach())
     _assert_bitwise(_state(net, tr), _state(twin, ttr))
-    net.hybridize()
-    step(x, y)
-    assert tcs.trace_count() == t0 + 1
-    assert sites() != s2                  # fused again
+    with tag.record():                             # not hybridized: eager,
+        _loss(net, x, y)                           # never fused
+    assert sites() == s2
 
 
 @pytest.mark.parametrize("what", ["compile_step", "hybridized forward"])
@@ -432,11 +436,26 @@ def test_deferred_init_runs_the_first_call_eagerly():
 
 
 @pytest.mark.parametrize("kw", [dict(bucket=True), dict(accum_steps=2)])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, knobs):
+    """``bucket=True`` and ``accum_steps`` are ported: the compiled step
+    runs with either. What still raises is an accumulation window on the
+    eager tape (``MXNetError``, the reference's refusal) and
+    ``accum_steps=0``; bucketing takes the eager tape like any step."""
+    x, y = _batch(3)
     net = _net()
     tr = tgluon.Trainer(net.collect_params(), "sgd", dict(OPT))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.compile_step(net, _loss, **kw)
+    step = tr.compile_step(net, _loss, **kw)
+    step(x, y)
+    assert step.last_step_compiled
+    knobs(MXNET_COMPILED_STEP="0")
+    if "accum_steps" in kw:
+        with pytest.raises(tmx.MXNetError, match="accum_steps"):
+            step(x, y)
+        with pytest.raises(ValueError, match="accum_steps"):
+            tr.compile_step(net, _loss, accum_steps=0)
+    else:
+        step(x, y)
+        assert step.last_fallback_reason == "MXNET_COMPILED_STEP=0"
 
 
 # ---------------------------------------------------------------------------
@@ -490,14 +509,16 @@ def test_hybridized_forward_keys_and_clones():
     assert ns.traces - t0 == 3
     _assert_bitwise([p.data() for p in net.collect_params().values()],
                     [p.data() for p in twin.collect_params().values()])
-    # under record the block runs eagerly (its tape is torch's)
+    # under record the block runs as one graphed tape node: a program of
+    # its own, whose output carries the node's autograd history
     with tag.record():
         out = net(x)
-    assert out.requires_grad and ns.traces - t0 == 3
+    assert out.requires_grad and ns.traces - t0 == 4
+    assert type(out.grad_fn).__name__ == "_GraphedNodeBackward"
     # hybridize() again drops the programs
     net.hybridize()
     net(x)
-    assert ns.traces - t0 == 4
+    assert ns.traces - t0 == 5
 
 
 # ---------------------------------------------------------------------------
