@@ -148,6 +148,26 @@ Phases, in order; any failure exits non-zero before the result line:
    The counts are zeroed before 8d and read after 8g (path
    ``compiled_steps``); a JSON line holds 8d's and 8g's numbers beside
    phase 8c's pure-bf16 ``compile_step`` ones.
+8h. The imperative substrate (``ops.registry``, ``NDArray``, ``invoke``,
+   ``mx.nd``, autograd on NDArrays). (a) The op sweep: every registered op
+   on the card against the port on the CPU, fp32 with TF32 off, on the
+   inputs of ``tests/op_smoke_specs.py`` (the fused ops at 8 input
+   channels, the kernels' rule) or a seeded (4, 6) input: forwards within
+   SWEEP_TOL, gradients of the summed float outputs within
+   SWEEP_GRAD_TOL, the samplers by shape, dtype, moments and seeded
+   repeats; the count of ops checked is printed. (b) The README's quick
+   start on gpu(0) at its widths, fed NDArrays, README_STEPS Adam steps:
+   falling loss, the recorded forward one graphed tape node. (c) SKILL.md's
+   SGD loop: final loss below SKILL_LOSS_MAX, each loss within SKILL_RTOL
+   of the CPU's. (d) With the counts zeroed just before and read just
+   after (path ``nd``), 8g's classic loop fed ``nd.array(...,
+   ctx=mx.gpu(0))`` on the conv + BN and epilogue routes, eager
+   (MXNET_COMPILED_STEP=0) and graphed, each held bitwise against the same
+   loop fed tensors from the same weights, with the route's launch and
+   site gates and 1 capture and 1 dispatch a graphed step; ``invoke``
+   dispatches a step printed; then eager fed NDArrays against eager fed
+   tensors and graphed fed NDArrays: wall, device busy, host ms a step, in
+   a JSON line.
 9. int8: the path of ``benchmark/microbench_tpu.py`` ``section_int8_pallas``
    and the int8 op surface. (a) ``int8_matmul`` (``int8_matmul.cu``) at
    (M, K, N) = (25088, 512, 128) (ResNet-50's 1x1 conv at batch 32, 28x28,
@@ -2654,40 +2674,43 @@ def call_host_ms(fn, n=CAPTURE_TIMED) -> float:
     return statistics.median(times)
 
 
-def capture_numbers(what, fns, kept, card_line) -> dict:
-    """Eager against captured: wall ms (median of CAPTURE_TIMED host-clock
+def mode_numbers(what, mode, fn, kept, card_line) -> dict:
+    """One path's numbers: wall ms (median of CAPTURE_TIMED host-clock
     calls after 3 warm-up, unprofiled), device ms (profile's busy time, or
     where the trace holds none the CUDA-event span of a call), the host's
     ms a call (``call_host_ms``), idle share, and peak memory: the most
-    allocated during the timed calls above what was live before them,
-    plus for the captured path ``kept``, the memory its program holds
-    (reserved at its capture)."""
-    out = {}
-    for mode, fn in fns.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        times = host_ms(fn, n=CAPTURE_TIMED)
-        peak = torch.cuda.max_memory_allocated() - base + \
-            (kept if mode == "captured" else 0)
-        span = event_ms(fn)
-        host = call_host_ms(fn)
-        busy = profile(fn, PROFILE_STEPS, f"{what}, {mode}", card_line)
-        wall = statistics.median(times)
-        device = busy if busy else span
-        out[mode] = dict(wall_ms=wall, wall_min_ms=min(times),
-                         wall_max_ms=max(times), busy_ms=busy,
-                         span_ms=span, host_ms=host,
-                         idle_share=1 - device / wall,
-                         peak_gib=peak / 2**30)
-        print(f"{what}, {mode}: wall median {wall:.3f} ms over "
-              f"{CAPTURE_TIMED} (min {min(times):.3f}, max "
-              f"{max(times):.3f}); device busy "
-              + (f"{busy:.3f} ms" if busy else
-                 "not in the trace (the event span stands in)")
-              + f"; event span {span:.3f} ms; host {host:.3f} ms a call from an "
-              f"idle device; idle share {1 - device / wall:.1%}; peak memory "
-              f"{peak / 2**30:.3f} GiB [{card_line}]")
+    allocated during the timed calls above what was live before them, plus
+    ``kept``, the memory a captured path's program holds (reserved at its
+    capture)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = host_ms(fn, n=CAPTURE_TIMED)
+    peak = torch.cuda.max_memory_allocated() - base + kept
+    span = event_ms(fn)
+    host = call_host_ms(fn)
+    busy = profile(fn, PROFILE_STEPS, f"{what}, {mode}", card_line)
+    wall = statistics.median(times)
+    device = busy if busy else span
+    print(f"{what}, {mode}: wall median {wall:.3f} ms over "
+          f"{CAPTURE_TIMED} (min {min(times):.3f}, max "
+          f"{max(times):.3f}); device busy "
+          + (f"{busy:.3f} ms" if busy else
+             "not in the trace (the event span stands in)")
+          + f"; event span {span:.3f} ms; host {host:.3f} ms a call from an "
+          f"idle device; idle share {1 - device / wall:.1%}; peak memory "
+          f"{peak / 2**30:.3f} GiB [{card_line}]")
+    return dict(wall_ms=wall, wall_min_ms=min(times), wall_max_ms=max(times),
+                busy_ms=busy, span_ms=span, host_ms=host,
+                idle_share=1 - device / wall, peak_gib=peak / 2**30)
+
+
+def capture_numbers(what, fns, kept, card_line) -> dict:
+    """Eager against captured (``mode_numbers`` of each; ``kept`` counts
+    for the captured path)."""
+    out = {mode: mode_numbers(what, mode, fn,
+                              kept if mode == "captured" else 0, card_line)
+           for mode, fn in fns.items()}
     e, c = out["eager"]["wall_ms"], out["captured"]["wall_ms"]
     print(f"{what}: captured wall {c:.3f} ms against eager {e:.3f} ms, "
           f"{e / c:.2f}x [{card_line}]")
@@ -3411,6 +3434,419 @@ def classic_loop_phase(mx, ps, ck, resnet, config, card_line,
     return numbers
 
 
+# -- 8h. ---------------------------------------------------------------------
+
+# the op sweep's bounds, the card against the CPU in fp32 with TF32 off:
+# the card's transcendental functions and reduction orders differ from the
+# CPU's by a few ulps, the fused ops run their kernels against the plain
+# versions, and the gradients of a normalization's summed output are fp32
+# noise around zero on both sides
+SWEEP_TOL = (1e-4, 1e-5)            # rtol, atol
+SWEEP_GRAD_TOL = (1e-4, 1e-4)
+SWEEP_SAMPLERS = ("uniform", "normal", "random_gamma", "exponential",
+                  "poisson", "negative_binomial", "randint", "randn",
+                  "multinomial", "shuffle", "bernoulli")
+SWEEP_FUSED = ("_fused_conv1x1_bn", "_fused_convkxk_bn",
+               "_fused_conv1x1_bn_act")
+SWEEP_DRAWS = 200_000
+# (attrs, mean, variance) of each sampler: mean within 5 standard errors of
+# SWEEP_DRAWS draws, variance within 5%
+SWEEP_MOMENTS = {
+    "uniform": (dict(low=-1.0, high=3.0), 1.0, 16 / 12),
+    "normal": (dict(loc=0.5, scale=2.0), 0.5, 4.0),
+    "random_gamma": (dict(alpha=2.5, beta=0.5), 1.25, 0.625),
+    "exponential": (dict(lam=2.0), 0.5, 0.25),
+    "poisson": (dict(lam=3.0), 3.0, 3.0),
+    "negative_binomial": (dict(k=3, p=0.4), 4.5, 11.25),
+    "randint": (dict(low=2, high=10), 5.5, (8 ** 2 - 1) / 12),
+    "randn": (dict(loc=-1.0, scale=0.5), -1.0, 0.25),
+    "bernoulli": (dict(prob=0.3), 0.3, 0.21),
+}
+README_STEPS = 20        # the README's quick start, on gpu(0)
+SKILL_STEPS = 50         # SKILL.md's quick drive
+SKILL_LOSS_MAX = 0.95    # its final loss on the numpy data below (the CPU's
+#                          run gives 0.9347 from a first loss of 1.1137)
+SKILL_RTOL = 1e-4        # its losses on the card against the CPU's
+ND_ROUTES = ("conv_bn", "epilogue")
+
+
+def falling(vals) -> bool:
+    """Finite losses whose last is below the first."""
+    return all(map(math.isfinite, vals)) and vals[-1] < vals[0]
+
+
+def port_nd():
+    """(the op specs of ``tests/op_smoke_specs.py``, the port's registry)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import op_smoke_specs
+    from mxnet_tpu_torch.ops import registry
+    return op_smoke_specs.SPECS, registry
+
+
+def sweep_inputs(specs, registry, name):
+    """An op's numpy inputs and attrs: ``SPECS``' (the fused ops with 8
+    input channels of centred normal draws, the kernels' rule), else a
+    seeded (4, 6) input per array."""
+    gen = np.random.RandomState(sum(map(ord, name)))
+    if name in SWEEP_FUSED:
+        arrays, attrs = specs[name]
+        x, w = arrays[0], arrays[1]
+        x8 = gen.standard_normal((*x.shape[:3], 8)).astype(np.float32)
+        w8 = (gen.standard_normal((*w.shape[:3], 8)) * 0.3).astype(
+            np.float32)
+        return [x8, w8] + [np.asarray(a) for a in arrays[2:]], dict(attrs)
+    if name in specs:
+        arrays, attrs = specs[name]
+        return [np.asarray(a) for a in arrays], dict(attrs)
+    n = registry.get_op(name).num_inputs
+    n = 2 if n == -1 else n
+    return [gen.rand(4, 6).astype(np.float32) + 0.1 for _ in range(n)], {}
+
+
+def _nd_outs(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def _is_float(dtype) -> bool:
+    return str(dtype) in ("float16", "float32", "float64", "torch.bfloat16")
+
+
+def op_forward(mx, ctx, name, arrays, attrs):
+    with ctx:
+        return _nd_outs(mx.nd.invoke(name, [mx.nd.array(a) for a in arrays],
+                                     dict(attrs)))
+
+
+def op_grads(mx, ctx, name, arrays, attrs, float_idx):
+    """Gradients of the sum of the op's float outputs with respect to its
+    float inputs, through ``autograd.record`` / ``autograd.grad``."""
+    with ctx:
+        nds = [mx.nd.array(a) for a in arrays]
+        with mx.autograd.record():
+            outs = _nd_outs(mx.nd.invoke(name, nds, dict(attrs)))
+            heads = [o.astype("float32").sum() for o in outs
+                     if _is_float(o.dtype)]
+        return [g.asnumpy() for g in mx.autograd.grad(
+            heads, [nds[i] for i in float_idx])]
+
+
+def _sweep_close(what, got, want, tol):
+    if got.shape != want.shape:
+        fail(f"op sweep, {what}: shape {got.shape} on the card, "
+             f"{want.shape} on the CPU")
+    if want.dtype.kind in "biu":
+        if not np.array_equal(got, want):
+            fail(f"op sweep, {what}: integer outputs differ")
+        return 0.0
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    if not np.allclose(g, w, rtol=tol[0], atol=tol[1], equal_nan=True):
+        err = np.nanmax(np.abs(g - w))
+        fail(f"op sweep, {what}: max |card - cpu| {err:.3e} beyond rtol "
+             f"{tol[0]}, atol {tol[1]}")
+    both = np.isfinite(g) & np.isfinite(w)
+    return float(np.abs(g - w)[both].max()) if both.any() else 0.0
+
+
+def op_sweep(mx, specs, registry) -> dict:
+    """Phase 8h (a): every registered op on the card against the port on
+    the CPU with the same numpy inputs: forwards (dtype, shape, values
+    within SWEEP_TOL), gradients of differentiable float ops (within
+    SWEEP_GRAD_TOL), the samplers by shape, dtype and moments, and the same
+    seed giving the same draws. Returns the counts checked."""
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    names = registry.list_ops()
+    n_fwd = n_grad = n_rand = 0
+    worst = (0.0, "")
+    for name in names:
+        if name in SWEEP_SAMPLERS:
+            continue
+        arrays, attrs = sweep_inputs(specs, registry, name)
+        got = op_forward(mx, gpu, name, arrays, attrs)
+        want = op_forward(mx, cpu, name, arrays, attrs)
+        if len(got) != len(want):
+            fail(f"op sweep, {name}: {len(got)} outputs on the card, "
+                 f"{len(want)} on the CPU")
+        for i, (g, w) in enumerate(zip(got, want)):
+            if str(g.dtype) != str(w.dtype) or g.ctx != gpu:
+                fail(f"op sweep, {name} output {i}: {g.dtype} on {g.ctx}, "
+                     f"want {w.dtype} on {gpu}")
+            err = _sweep_close(f"{name} output {i}", g.asnumpy(),
+                               w.asnumpy(), SWEEP_TOL)
+            worst = max(worst, (err, name))
+        n_fwd += 1
+        float_idx = [i for i, a in enumerate(arrays)
+                     if np.issubdtype(a.dtype, np.floating)]
+        if registry.get_op(name).differentiable and float_idx:
+            got = op_grads(mx, gpu, name, arrays, attrs, float_idx)
+            want = op_grads(mx, cpu, name, arrays, attrs, float_idx)
+            for i, g, w in zip(float_idx, got, want):
+                _sweep_close(f"{name} d/d input {i}", g, w, SWEEP_GRAD_TOL)
+            n_grad += 1
+    for name in SWEEP_SAMPLERS:
+        arrays, attrs = sweep_inputs(specs, registry, name)
+        got = op_forward(mx, gpu, name, arrays, attrs)
+        want = op_forward(mx, cpu, name, arrays, attrs)
+        for g, w in zip(got, want):
+            if g.shape != w.shape or str(g.dtype) != str(w.dtype):
+                fail(f"op sweep, {name}: {g.shape} {g.dtype} on the card, "
+                     f"{w.shape} {w.dtype} on the CPU")
+        if name in SWEEP_MOMENTS:
+            a, mean, var = SWEEP_MOMENTS[name]
+            a = dict(a, shape=(SWEEP_DRAWS,))
+        else:
+            a = attrs
+        draws = []
+        for seed in (3, 3):
+            mx.random.seed(seed, ctx=gpu)
+            draws.append(op_forward(mx, gpu, name, arrays, a)[0].asnumpy())
+        if not np.array_equal(draws[0], draws[1]):
+            fail(f"op sweep, {name}: the same seed drew differently")
+        if name in SWEEP_MOMENTS:
+            x = draws[0].astype(np.float64)
+            if abs(x.mean() - mean) > 5 * (var / SWEEP_DRAWS) ** 0.5 or \
+                    abs(x.var() - var) > 0.05 * var:
+                fail(f"op sweep, {name}: mean {x.mean():.4f}, variance "
+                     f"{x.var():.4f}; want {mean:.4f}, {var:.4f}")
+        n_rand += 1
+    probs = np.array([[0.1, 0.6, 0.3], [0.5, 0.25, 0.25]], np.float32)
+    with gpu:
+        draws = mx.nd.invoke("multinomial", [mx.nd.array(probs)],
+                             {"shape": SWEEP_DRAWS}).asnumpy()
+    for r in range(2):
+        freq = np.bincount(draws[r], minlength=3) / SWEEP_DRAWS
+        if not np.allclose(freq, probs[r], atol=0.01):
+            fail(f"op sweep, multinomial: frequencies {freq}, want "
+                 f"{probs[r]}")
+    counts = {"ops": len(names), "forwards": n_fwd, "gradients": n_grad,
+              "samplers": n_rand}
+    if n_fwd + n_rand != len(names):
+        fail(f"op sweep checked {n_fwd + n_rand} of {len(names)} ops")
+    print(f"op sweep: {len(names)} ops checked on the card against the CPU "
+          f"(fp32, TF32 off): {n_fwd} forwards within rtol {SWEEP_TOL[0]}, "
+          f"atol {SWEEP_TOL[1]} (largest |card - cpu| {worst[0]:.3e}, "
+          f"{worst[1]}), {n_grad} gradients within rtol "
+          f"{SWEEP_GRAD_TOL[0]}, atol {SWEEP_GRAD_TOL[1]}, {n_rand} "
+          f"samplers by shape, dtype, moments of {SWEEP_DRAWS} draws and "
+          f"seeded repeats  ok")
+    return counts
+
+
+def readme_phase(mx, ps) -> list:
+    """Phase 8h (b): the README's quick start on gpu(0), at its widths
+    (784-128-10, batch 32, ``hybridize()``, Adam at 1e-3), fed NDArrays,
+    README_STEPS steps: falling finite loss, and from the second step the
+    recorded forward as one graphed tape node (1 capture, then 1 dispatch a
+    step)."""
+    ns = ps.namespace("hybrid_forward")
+    ag, gluon = mx.autograd, mx.gluon
+    mx.random.seed(0)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(128, activation="relu"), gluon.nn.Dense(10))
+    net.initialize(mx.init.Xavier())
+    net.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 1e-3})
+    x, y = mx.nd.random.normal(shape=(32, 784)), mx.nd.zeros((32,))
+    t0, d0 = ns.traces, ns.dispatches
+    losses = []
+    for step in range(README_STEPS):
+        with ag.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(32)
+        if step and net.last_eager_reason is not None:
+            fail(f"README quick start, step {step + 1}: the recorded "
+                 f"forward ran eagerly ({net.last_eager_reason})")
+        losses.append(float(loss.mean().asscalar()))
+    got = (ns.traces - t0, ns.dispatches - d0)
+    if got != (1, README_STEPS - 1):
+        fail(f"README quick start: (captures, dispatches) {got}, want "
+             f"(1, {README_STEPS - 1})")
+    if loss.ctx != mx.gpu(0) or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0]:
+        fail(f"README quick start: losses {losses} on {loss.ctx}")
+    print(f"README quick start on {x.ctx}: losses {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} over {README_STEPS} Adam steps; 1 capture, "
+          f"{README_STEPS - 1} graphed dispatches  ok")
+    return losses
+
+
+def skill_loop(mx, ctx, steps=SKILL_STEPS) -> list:
+    """SKILL.md's quick drive (``nd.FullyConnected``, ``attach_grad``,
+    ``nd.sgd_update``, ``_set_data``, ``asscalar``) on ``ctx``, its arrays
+    from numpy seed 1."""
+    nd, ag = mx.nd, mx.autograd
+    rng = np.random.RandomState(1)
+    with ctx:
+        X = nd.array(rng.randn(64, 10).astype(np.float32))
+        y = nd.array(rng.randn(64, 1).astype(np.float32))
+        W = nd.array((rng.randn(1, 10) * 0.1).astype(np.float32))
+        b = nd.zeros((1,))
+        W.attach_grad()
+        b.attach_grad()
+        losses = []
+        for _ in range(steps):
+            with ag.record():
+                loss = ((nd.FullyConnected(X, W, b, num_hidden=1) - y) ** 2
+                        ).mean()
+            loss.backward()
+            for p in (W, b):
+                p._set_data(nd.sgd_update(p, p.grad, lr=0.1)._data)
+            losses.append(float(loss.asscalar()))
+    if W._data.device.type != ctx.device.type:
+        fail(f"SKILL loop ran on {W._data.device}, not {ctx}")
+    return losses
+
+
+def skill_phase(mx) -> list:
+    """Phase 8h (c): SKILL.md's loop on gpu(0): its final loss below
+    SKILL_LOSS_MAX, and each step's loss within SKILL_RTOL of the CPU's."""
+    card_ = skill_loop(mx, mx.gpu(0))
+    host = skill_loop(mx, mx.cpu())
+    if not card_[-1] < min(SKILL_LOSS_MAX, card_[0]) or not np.allclose(
+            card_, host, rtol=SKILL_RTOL, atol=0):
+        fail(f"SKILL loop: losses {card_[0]:.6f} -> {card_[-1]:.6f} on the "
+             f"card, {host[0]:.6f} -> {host[-1]:.6f} on the CPU")
+    print(f"SKILL.md loop on gpu(0): loss {card_[0]:.6f} -> {card_[-1]:.6f} "
+          f"over {SKILL_STEPS} SGD steps (< {SKILL_LOSS_MAX}), within rtol "
+          f"{SKILL_RTOL} of the CPU's each step  ok")
+    return card_
+
+
+def nd_resnet_phase(mx, ps, ck, resnet, config, card_line, classic,
+                    nd_counts, nd_traced) -> dict:
+    """Phase 8h (d): the classic loop of 8g (ResNet-50 bf16 b128, SGD
+    momentum, ``hybridize()``) fed ``nd.array(..., ctx=mx.gpu(0))`` batches
+    and labels, on the conv + BN and epilogue routes, against the same loop
+    fed tensors from the same weights: eager (MXNET_COMPILED_STEP=0, each
+    layer through ``invoke``) and graphed, losses, parameters, running
+    statistics and momenta bitwise equal, launches and sites per step as
+    the route's gates (graphed: 1 capture and 1 dispatch a step); the
+    dispatches through ``invoke`` a step. Then, on the conv + BN route, the
+    NDArray eager loop against the tensor eager loop and the NDArray
+    graphed loop: wall, device busy, host ms a step. The launches of the
+    NDArray-fed runs alone, counted by the wrappers and traced on the
+    device, are added into ``nd_counts`` and ``nd_traced``: the tensor-fed
+    controls and the timing loops are in neither."""
+    ns = ps.namespace("hybrid_forward")
+    net, init, x, y = bf16_resnet(mx)
+    xn, yn = mx.nd.array(x, ctx=mx.gpu(0)), mx.nd.array(y, ctx=mx.gpu(0))
+    if xn.ctx != mx.gpu(0) or xn._data.dtype != torch.bfloat16:
+        fail(f"nd batch {xn.ctx} {xn._data.dtype}")
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    base = f"ResNet-50 bf16 b{RESNET_BATCH} classic loop"
+    batches = {"tensor": (x, y), "nd": (xn, yn)}
+    steps, invokes = {}, {}
+
+    def make_step(flavor, trainer):
+        bx, by = batches[flavor]
+
+        def one():
+            with mx.autograd.record():
+                loss = ce(net(bx), by)
+            mx.autograd.backward(loss)
+            trainer.step(RESNET_BATCH)
+            return loss._data if flavor == "nd" else loss
+        return one
+
+    for route_name in ND_ROUTES:
+        route = capture_route(config, route_name)
+        want_launches, want_sites = route_gates(route)
+        for graphed in (False, True):
+            what = f"{base}, {route_name}, " \
+                   f"{'graphed' if graphed else 'eager'}"
+            runs = {}
+            for flavor in ("tensor", "nd"):
+                set_compiled(config, graphed)
+                net.load_dict(init)
+                net.zero_grad()
+                net.hybridize()
+                trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                           dict(RESNET_OPT))
+                one = make_step(flavor, trainer)
+                per_step = []
+                into = nd_traced if flavor == "nd" else {}
+
+                def counted(one=one, per_step=per_step):
+                    n0 = mx.nd.invoke_count()
+                    out = one()
+                    per_step.append(mx.nd.invoke_count() - n0)
+                    return out
+
+                losses, counted_l, traced, _ = run_traced_steps(
+                    ck, resnet, f"{what}, {flavor}", counted, RESNET_STEPS,
+                    graphed, want_sites, into,
+                    (lambda: (ns.traces, ns.dispatches)) if graphed
+                    else None)
+                check_step_launches(f"{what}, {flavor}", counted_l, traced,
+                                    want_launches, graphed)
+                if flavor == "nd":
+                    for c in counted_l:
+                        for k, v in c.items():
+                            nd_counts[k] = nd_counts.get(k, 0) + v
+                if graphed and net.last_eager_reason is not None:
+                    fail(f"{what}, {flavor}: ran eagerly "
+                         f"({net.last_eager_reason})")
+                state = [p.data().clone()
+                         for p in net.collect_params().values()]
+                state += [s.clone() for s in trainer._init_states()]
+                runs[flavor] = (losses, state)
+                invokes[(route_name, graphed, flavor)] = per_step
+                steps[(route_name, graphed, flavor)] = one
+            a, b = (torch.cat([t.detach().double().ravel()
+                               for t in runs[f][0] + runs[f][1]])
+                    for f in ("tensor", "nd"))
+            if not torch.equal(a, b):
+                fail(f"{what}: fed NDArrays differs from fed tensors in "
+                     f"{(a != b).sum().item()} of {a.numel()} values")
+            vals = [v.item() for v in runs["nd"][0]]
+            if not falling(vals):
+                fail(f"{what}: losses {vals} did not fall")
+            print(f"{what}: fed NDArrays equals fed tensors bitwise over "
+                  f"{a.numel()} values (losses, parameters, running "
+                  f"statistics, momenta); launches a step {want_launches}; "
+                  f"invoke dispatches a step, tensors "
+                  f"{invokes[(route_name, graphed, 'tensor')]}, NDArrays "
+                  f"{invokes[(route_name, graphed, 'nd')]}  ok")
+    capture_route(config, "conv_bn")
+
+    def timed(key):
+        def call():
+            set_compiled(config, key[1])
+            steps[key]()
+        return call
+
+    what = f"{base}, conv_bn, fed NDArrays against fed tensors"
+    numbers = {
+        "eager_tensor": mode_numbers(what, "eager, tensors",
+                                     timed(("conv_bn", False, "tensor")), 0,
+                                     card_line),
+        "eager_nd": mode_numbers(what, "eager, NDArrays",
+                                 timed(("conv_bn", False, "nd")), 0,
+                                 card_line),
+        "graphed_nd": mode_numbers(what, "graphed, NDArrays",
+                                   timed(("conv_bn", True, "nd")), 0,
+                                   card_line)}
+    numbers["invokes_a_step"] = {
+        f"{r}_{'graphed' if g else 'eager'}_{f}": v[-1]
+        for (r, g, f), v in invokes.items()}
+    e_t, e_n = numbers["eager_tensor"], numbers["eager_nd"]
+    print(f"{what}: eager host {e_n['host_ms']:.3f} ms a step fed NDArrays "
+          f"against {e_t['host_ms']:.3f} fed tensors "
+          f"({e_n['host_ms'] / e_t['host_ms'] - 1:+.1%}); eager wall "
+          f"{e_n['wall_ms']:.3f} against {e_t['wall_ms']:.3f} ms; graphed "
+          f"wall fed NDArrays {numbers['graphed_nd']['wall_ms']:.3f} ms "
+          f"against phase 8g's {classic['captured']['wall_ms']:.3f} fed "
+          f"tensors [{card_line}]")
+    set_compiled(config, True)
+    capture_route(config, "unfused")
+    del net, steps
+    torch.cuda.empty_cache()
+    return numbers
+
+
 # -- 9. ----------------------------------------------------------------------
 
 
@@ -3829,6 +4265,29 @@ def main() -> int:
         f"resnet50_classic_loop_bf16_b{RESNET_BATCH}_conv_bn": classic}}))
     torch.cuda.empty_cache()
 
+    # -- 8h. the imperative substrate -----------------------------------------
+    specs, registry = port_nd()
+    sweep = op_sweep(mx, specs, registry)
+    readme_losses = readme_phase(mx, ps)
+    skill_losses = skill_phase(mx)
+    nd_counts, nd_traced = {}, {}
+    nd_numbers = nd_resnet_phase(mx, ps, ck, resnet, config, card_line,
+                                 classic, nd_counts, nd_traced)
+    torch.cuda.synchronize()
+    if not all(nd_counts.get(k) for k in (*EPI_KERNELS, *CONV_BN_KERNELS)):
+        fail(f"a kernel of the ResNet paths never launched in phase 8h's "
+             f"NDArray-fed runs: {nd_counts}")
+    print(f"phase 8h launch counts of the NDArray-fed runs: counted by the "
+          f"wrappers {nd_counts}; traced on the device in the checked steps "
+          f"{nd_traced}")
+    print(json.dumps({"nd": {
+        "card": card_line, "op_sweep": sweep,
+        "readme_losses": [readme_losses[0], readme_losses[-1]],
+        "skill_losses": [skill_losses[0], skill_losses[-1]],
+        f"resnet50_classic_loop_bf16_b{RESNET_BATCH}_conv_bn":
+            with_img_s(nd_numbers, RESNET_BATCH)}}))
+    torch.cuda.empty_cache()
+
     # -- 9. int8 --------------------------------------------------------------
     int8_counts, int8_err = int8_path(ck)
     int8_ops_phase(port_int8())
@@ -3838,13 +4297,13 @@ def main() -> int:
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
              "capture": capture_counts, "compiled_steps": steps_counts,
-             "int8": int8_counts}
+             "nd": nd_counts, "int8": int8_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were
     # checked (the captured runs of the train and capture phases)
     traced_paths = {"train": train_traced, "capture": capture_traced,
-                    "compiled_steps": steps_traced}
+                    "compiled_steps": steps_traced, "nd": nd_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

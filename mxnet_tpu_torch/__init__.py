@@ -18,11 +18,21 @@ plain PyTorch, beside the int8 matmul kernel (``ops/csrc/int8_matmul.cu``);
 and the compiled steps and forwards as CUDA graphs (``program_store``,
 ``cached_step``, ``parallel.ShardedTrainer`` on one device, a hybridized
 block's forward and its recorded tape node, shape buckets in
-``serving``).
+``serving``); and the imperative substrate: the op registry
+(``ops.registry``) and its op modules, ``NDArray`` and ``invoke``
+(``ndarray``, ``mx.nd``), ``random``, and autograd on NDArrays, through
+which the Gluon layers dispatch.
 """
-from . import autograd, config, contrib, gluon, initializer, models, optimizer
+from . import (autograd, base, config, contrib, gluon, initializer, models,
+               ndarray, optimizer, random)
 from .base import MXNetError
-from .context import Context, cpu, gpu
+from .context import Context, cpu, current_context, gpu, num_gpus
+from .ndarray import NDArray
 
-__all__ = ["Context", "MXNetError", "autograd", "config", "contrib", "cpu",
-           "gluon", "gpu", "initializer", "models", "optimizer"]
+nd = ndarray
+init = initializer
+
+__all__ = ["Context", "MXNetError", "NDArray", "autograd", "base", "config",
+           "contrib", "cpu", "current_context", "gluon", "gpu", "init",
+           "initializer", "models", "nd", "ndarray", "num_gpus", "optimizer",
+           "random"]

@@ -5,8 +5,13 @@ reference's contract: assigning a Block or Parameter attribute registers
 it, ``collect_params`` walks the tree with the reference's structural names
 (``features.4.0.body.0.weight``), a parameter of unknown shape is completed
 by the layer's ``infer_shape`` on the first call, and ``cast``,
-``load_dict`` and ``zero_grad`` act on every parameter. Blocks take and
-return ``torch.Tensor``s.
+``load_dict`` and ``zero_grad`` act on every parameter. Blocks take
+``NDArray``s or ``torch.Tensor``s and return the flavor they were given,
+as the reference's ``_flavor_of`` (``ndarray.py:642``) keeps its flavors
+apart: a call given an NDArray unwraps its NDArrays before anything else
+(so an NDArray batch takes the captured paths below as a tensor does) and
+wraps the outputs on the first NDArray's context. Inside, layers dispatch
+their ops on tensors through ``ndarray.tensor_op``.
 
 A hybridized block runs its forward as captured programs
 (``program_store``, namespace ``hybrid_forward``), the counterpart of the
@@ -58,6 +63,7 @@ from .. import config as _config
 from .. import program_store as _pstore
 from .. import serving as _serving
 from ..context import resolve_device
+from ..ndarray.ndarray import NDArray, _wrap
 from .parameter import DeferredInitializationError, Parameter
 
 __all__ = ["Block", "HybridBlock", "in_hybridized_call", "traced_call"]
@@ -90,6 +96,27 @@ def in_hybridized_call() -> bool:
     """True while a hybridized block (with its parameters initialized)
     runs its forward: the port's stand-in for the reference's trace."""
     return _HYBRID.depth > 0
+
+
+def _nd_call(block, args, kwargs):
+    """``block``'s call given NDArrays: the call on their tensors, its
+    tensor outputs wrapped on the first NDArray's context."""
+    ctx = next(a.ctx for a in (*args, *kwargs.values())
+               if isinstance(a, NDArray))
+
+    def un(a):
+        return a._data if isinstance(a, NDArray) else a
+
+    out = block(*map(un, args), **{k: un(v) for k, v in kwargs.items()})
+    return _rewrap(out, ctx)
+
+
+def _rewrap(out, ctx):
+    if isinstance(out, torch.Tensor):
+        return _wrap(out, ctx)
+    if isinstance(out, (list, tuple)):
+        return type(out)(_rewrap(o, ctx) for o in out)
+    return out
 
 
 class Block:
@@ -182,6 +209,18 @@ class Block:
 
     # -- execution -------------------------------------------------------
     def __call__(self, *args, **kwargs):
+        # given NDArrays, the call runs on their tensors (so the forward,
+        # and every block call nested in it, holds only tensors); the test
+        # is inline, as every block call makes it
+        for a in args:
+            if isinstance(a, NDArray):
+                return _nd_call(self, args, kwargs)
+        if kwargs and any(isinstance(v, NDArray) for v in kwargs.values()):
+            return _nd_call(self, args, kwargs)
+        return self._eager(*args, **kwargs)
+
+    def _eager(self, *args, **kwargs):
+        """The forward on tensors, completing a deferred initialization."""
         try:
             return self.forward(*args, **kwargs)
         except DeferredInitializationError:
@@ -266,23 +305,28 @@ class HybridBlock(Block):
         super().hybridize(False, **kwargs)
 
     def __call__(self, *args, **kwargs):
+        for a in args:                  # as Block.__call__
+            if isinstance(a, NDArray):
+                return _nd_call(self, args, kwargs)
+        if kwargs and any(isinstance(v, NDArray) for v in kwargs.values()):
+            return _nd_call(self, args, kwargs)
         if not self._active:
-            return super().__call__(*args, **kwargs)
+            return self._eager(*args, **kwargs)
         params = self.collect_params()
         if any(p._data is None for p in params.values()):
             # a first call that completes deferred initialization runs
             # eagerly, as in the reference
-            return super().__call__(*args, **kwargs)
+            return self._eager(*args, **kwargs)
         with traced_call():
             if kwargs or _pstore.in_program() or not args or not all(
                     isinstance(a, torch.Tensor) for a in args):
-                return super().__call__(*args, **kwargs)
+                return self._eager(*args, **kwargs)
             if autograd.is_recording() and (
                     any(p.grad_req != "null" for p in params.values())
                     or any(a.requires_grad for a in args)):
                 if not _config.get("MXNET_COMPILED_STEP"):
                     self.last_eager_reason = "MXNET_COMPILED_STEP=0"
-                    return super().__call__(*args)
+                    return self._eager(*args)
                 return self._call_recorded(args, params)
             if self._bucket and self._bucket_refused is None and \
                     not autograd.is_training() and \
@@ -306,7 +350,7 @@ class HybridBlock(Block):
 
         def body(*inputs):
             with torch.no_grad():
-                return Block.__call__(self, *inputs)
+                return self._eager(*inputs)
 
         return _pstore.run(self._scope(), key, lambda: body, args,
                            keep=held)
@@ -330,7 +374,7 @@ class HybridBlock(Block):
                 "an earlier recorded call of this block still awaits its "
                 "backward (one graphed call at a time: the program's "
                 "activations are those of its last call)")
-            return super(HybridBlock, self).__call__(*args)
+            return self._eager(*args)
         self.last_eager_reason = None
         weights = [p._data for p in diff]
         tensors = list(args) + weights
@@ -346,7 +390,7 @@ class HybridBlock(Block):
             try:
                 for p, leaf in zip(diff, leaves):
                     p._data = leaf
-                out = Block.__call__(self, *ins)
+                out = self._eager(*ins)
             finally:
                 for p, w in zip(diff, weights):
                     p._data = w
@@ -379,7 +423,7 @@ class HybridBlock(Block):
         snap = [t.clone() for t in frozen]
         try:
             with traced_call(), autograd.record(train_mode=ctx.training):
-                out = Block.__call__(self, *ins)
+                out = self._eager(*ins)
         finally:
             with torch.no_grad():
                 for t, v in zip(frozen, snap):
@@ -413,7 +457,7 @@ class HybridBlock(Block):
                 "output does not carry the batch axis; cannot slice padded "
                 "rows back")
             with torch.no_grad():
-                return Block.__call__(self, *args)
+                return self._eager(*args)
         sliced = [o[:n] for o in outs]
         result = type(out)(sliced) if isinstance(out, (tuple, list)) \
             else sliced[0]
@@ -426,7 +470,7 @@ class HybridBlock(Block):
         verify = int(_config.get("MXNET_SERVE_VERIFY"))
         if verify:
             with torch.no_grad():
-                ref = Block.__call__(self, *args)
+                ref = self._eager(*args)
             refs = list(ref) if isinstance(ref, (tuple, list)) else [ref]
             for got, want in zip(sliced, refs):
                 if got.shape == want.shape and (torch.equal(got, want) or (

@@ -2,22 +2,34 @@
 ``Loss`` and ``SoftmaxCrossEntropyLoss`` so far). A loss returns one value
 per sample, the mean over every axis but the batch axis, as the reference
 does; ``autograd.backward`` (ones as the head gradient) then
-back-propagates their sum."""
+back-propagates their sum. The ops are dispatched as the reference's
+``invoke`` calls (``log_softmax``, ``pick``, ``negative``, the weighting's
+``mul_scalar`` / ``broadcast_mul``, ``mean``), through
+``ndarray.tensor_op``: a loss's call holds only tensors."""
 from __future__ import annotations
 
-from ..ops import nn as F
+from ..ndarray.ndarray import tensor_op
+from ..ops import elemwise as _elemwise  # noqa: F401  (registers the ops)
+from ..ops import nn as _nn_ops  # noqa: F401
+from ..ops import reduce as _reduce  # noqa: F401
+from ..ops import tensor as _tensor  # noqa: F401
 from .block import HybridBlock
+
+_BROADCAST_MUL, _MUL_SCALAR, _MEAN, _LOG_SOFTMAX, _NEGATIVE, _PICK = map(
+    tensor_op, ("broadcast_mul", "mul_scalar", "mean", "log_softmax",
+                "negative", "pick"))
 
 __all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
+    """Reference ``loss.py:49``."""
     if sample_weight is not None:
-        loss = loss * sample_weight
+        loss = _BROADCAST_MUL(loss, sample_weight)
     if weight is not None:
         if not isinstance(weight, (int, float)):
             raise TypeError("weight must be numeric")
-        loss = loss * weight
+        loss = _MUL_SCALAR(loss, scalar=float(weight))
     return loss
 
 
@@ -31,7 +43,9 @@ class Loss(HybridBlock):
 
     def _batch_mean(self, loss):
         axes = tuple(i for i in range(loss.dim()) if i != self._batch_axis)
-        return loss.mean(dim=axes) if axes else loss
+        if not axes:
+            return loss
+        return _MEAN(loss, axis=axes)
 
 
 class SoftmaxCrossEntropyLoss(Loss):
@@ -46,8 +60,8 @@ class SoftmaxCrossEntropyLoss(Loss):
 
     def forward(self, pred, label, sample_weight=None):
         if not self._from_logits:
-            pred = F.log_softmax(pred, self._axis)
-        loss = -F.pick(pred, label, axis=self._axis, keepdims=False)
+            pred = _LOG_SOFTMAX(pred, axis=self._axis)
+        loss = _NEGATIVE(_PICK(pred, label, axis=self._axis, keepdims=False))
         loss = _apply_weighting(loss, self._weight, sample_weight)
         return self._batch_mean(loss)
 

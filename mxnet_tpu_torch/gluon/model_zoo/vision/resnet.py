@@ -3,7 +3,11 @@
 He et al., "Deep Residual Learning", 18/34/50/101/152 layers, with the
 reference's ``layout`` ("NCHW" default, or "NHWC") and ``input_layout``
 (one transpose at the entry when they differ). The V2 nets and the
-space-to-depth stem (``stem_s2d``) are not ported yet.
+space-to-depth stem (``stem_s2d``) are not ported yet. Every op is
+dispatched under the reference's names (``resnet.py:108``), through
+``ndarray.tensor_op``: the blocks' residual add and ReLU are
+``broadcast_add`` and ``relu``, the entry transpose ``transpose``, the
+head's ``flatten``.
 
 The fused conv/BN/ReLU epilogue (``MXNET_FUSED_EPILOGUE``,
 ``resnet.py:55-123``): under hybridized training, ``BottleneckV1`` routes
@@ -31,8 +35,11 @@ import torch
 
 from .... import autograd, config as _config
 from ....context import resolve_device
+from ....ndarray.ndarray import tensor_op
 from ....ops import cuda_kernels
-from ....ops import nn as _nn_ops
+from ....ops import elemwise as _elemwise  # noqa: F401  (registers the ops)
+from ....ops import nn as _nn_ops  # noqa: F401
+from ....ops import tensor as _tensor_ops  # noqa: F401
 from ... import nn
 from ...block import HybridBlock, in_hybridized_call
 from ...nn.basic_layers import (fused_conv_bn, fused_conv_bn_counts,
@@ -45,6 +52,9 @@ __all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "resnet18_v1",
            "reset_fused_conv_bn_counts"]
 
 _SITES: Dict[str, int] = {"fused": 0, "refused": 0}
+_FUSED_ACT, _RELU, _BROADCAST_ADD, _TRANSPOSE, _FLATTEN = map(
+    tensor_op, ("_fused_conv1x1_bn_act", "relu", "broadcast_add",
+                "transpose", "flatten"))
 
 
 def fused_epilogue_counts() -> Dict[str, int]:
@@ -96,11 +106,16 @@ def _try_fused_epilogue(conv, bn, x, relu=False, residual=None):
         return None
     if residual is not None and tuple(residual.shape) != (n, ho, wo, cout):
         return None
-    out, mean, var = _nn_ops.fused_conv1x1_bn_act(
-        x, conv.weight.data(),
-        conv.bias.data() if conv.bias is not None else None, residual,
-        bn.gamma.data(), bn.beta.data(), stride=stride, eps=bn._epsilon,
-        fix_gamma=not bn._scale, relu=relu)
+    ins = [x, conv.weight.data()]
+    if conv.bias is not None:
+        ins.append(conv.bias.data())
+    if residual is not None:
+        ins.append(residual)
+    ins += [bn.gamma.data(), bn.beta.data()]
+    out, mean, var = _FUSED_ACT(
+        ins, stride=stride, eps=bn._epsilon, fix_gamma=not bn._scale,
+        has_bias=conv.bias is not None, has_residual=residual is not None,
+        relu=relu)
     bn.update_running_stats(mean, var)
     _SITES["fused"] += 1
     return out
@@ -110,6 +125,11 @@ def _conv_bn(conv, bn, x):
     """bn(conv(x)), fused where ``MXNET_FUSED_CONV_BN`` admits the pair."""
     out = fused_conv_bn(conv, bn, x)
     return bn(conv(x)) if out is None else out
+
+
+def _add_relu(x, residual):
+    """``(x + residual).relu()``, the reference blocks' two ops."""
+    return _RELU(_BROADCAST_ADD(x, residual))
 
 
 def _bn(layout="NCHW", **kwargs):
@@ -141,7 +161,7 @@ class BasicBlockV1(HybridBlock):
         x = self.body(x)
         if self.downsample:
             residual = self.downsample(residual)
-        return torch.relu(x + residual)
+        return _add_relu(x, residual)
 
 
 class BottleneckV1(HybridBlock):
@@ -190,12 +210,12 @@ class BottleneckV1(HybridBlock):
                                           residual=residual)
                 if out is not None:
                     return out
-                return torch.relu(_conv_bn(b[6], b[7], h) + residual)
+                return _add_relu(_conv_bn(b[6], b[7], h), residual)
         residual = x
         x = self.body(x)
         if self.downsample:
             residual = self.downsample(residual)
-        return torch.relu(x + residual)
+        return _add_relu(x, residual)
 
 
 class ResNetV1(HybridBlock):
@@ -241,13 +261,13 @@ class ResNetV1(HybridBlock):
     def _to_compute_layout(self, x):
         if self._input_layout == self._layout:
             return x
-        if self._layout == "NHWC":
-            return x.permute(0, 2, 3, 1).contiguous()
-        return x.permute(0, 3, 1, 2).contiguous()
+        axes = (0, 2, 3, 1) if self._layout == "NHWC" else (0, 3, 1, 2)
+        # contiguous in the compute layout, as the NHWC kernels read it
+        return _TRANSPOSE(x, axes=axes).contiguous()
 
     def forward(self, x):
         x = self.features(self._to_compute_layout(x))
-        return self.output(x.reshape(x.shape[0], -1))
+        return self.output(_FLATTEN(x))
 
 
 resnet_spec = {

@@ -1,7 +1,12 @@
 """Basic layers: containers, Dense, BatchNorm, Flatten.
 
 Counterpart of the parts of ``mxnet_tpu/gluon/nn/basic_layers.py`` that the
-ResNet path uses, with the ``MXNET_FUSED_CONV_BN`` route
+ResNet path uses. Each layer dispatches its op under the reference's name
+and attrs (``"FullyConnected"``, ``"BatchNorm"``, ``"flatten"``, the fused
+ops), as the reference's layers do through ``invoke`` (``basic_layers.py:
+143, :176, :313, :327, :529``), through ``ndarray.tensor_op``: a layer
+holds only tensors, and each dispatch counts in ``invoke_count`` as the
+reference's does. With the ``MXNET_FUSED_CONV_BN`` route
 (``BatchNorm._fused_conv_src`` / ``BatchNorm.forward``, reference
 ``basic_layers.py:232-325``): under hybridized training a ``Conv2D`` that
 feeds a ``BatchNorm`` runs with the BN as one op, whose conv kernel also
@@ -30,10 +35,13 @@ from typing import Dict
 import torch
 
 from ... import autograd, config as _config, initializer
+from ...ndarray.ndarray import tensor_op
 from ...ops import cuda_kernels
-from ...ops import nn as F
+from ...ops import nn as _nn_ops  # noqa: F401  (registers the ops)
+from ...ops import tensor as _tensor_ops  # noqa: F401
 from ..block import HybridBlock, in_hybridized_call
 from ..parameter import Parameter
+from .activations import Activation
 from .conv_layers import Conv2D
 
 __all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten",
@@ -41,6 +49,9 @@ __all__ = ["HybridSequential", "Dense", "BatchNorm", "Flatten",
            "reset_fused_conv_bn_counts"]
 
 _SITES: Dict[str, int] = {"1x1": 0, "kxk": 0, "refused": 0}
+_FUSED = {kind: tensor_op(f"_fused_conv{kind}_bn") for kind in ("1x1", "kxk")}
+_FULLY_CONNECTED, _BATCH_NORM, _FLATTEN = map(
+    tensor_op, ("FullyConnected", "BatchNorm", "flatten"))
 
 
 def fused_conv_bn_counts() -> Dict[str, int]:
@@ -76,14 +87,14 @@ def fused_conv_bn(conv, bn, x):
         _SITES["refused"] += 1
         return None
     kind, geom = fused
-    args = (x, conv.weight.data(),
-            conv.bias.data() if conv.bias is not None else None,
-            bn.gamma.data(), bn.beta.data())
-    kw = dict(eps=bn._epsilon, fix_gamma=not bn._scale)
-    if kind == "1x1":
-        out, mean, var = F.fused_conv1x1_bn(*args, stride=geom, **kw)
-    else:
-        out, mean, var = F.fused_convkxk_bn(*args, pad=geom, **kw)
+    ins = [x, conv.weight.data()]
+    if conv.bias is not None:
+        ins.append(conv.bias.data())
+    ins += [bn.gamma.data(), bn.beta.data()]
+    attrs = {"eps": bn._epsilon, "fix_gamma": not bn._scale,
+             "has_bias": conv.bias is not None,
+             ("stride" if kind == "1x1" else "pad"): geom}
+    out, mean, var = _FUSED[kind](ins, **attrs)
     bn.update_running_stats(mean, var)
     _SITES[kind] += 1
     return out
@@ -127,10 +138,11 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(HybridBlock):
-    """Fully-connected layer: ``x @ weightᵀ + bias``, weight (units,
-    in_units) (reference ``basic_layers.py:136``)."""
+    """Fully-connected layer: ``act(x @ weightᵀ + bias)``, weight (units,
+    in_units) (reference ``basic_layers.py:136``); ``activation`` is any
+    ``act_type`` of the ``Activation`` op, run as the child ``act``."""
 
-    def __init__(self, units, use_bias=True, flatten=True,
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  weight_initializer=None, bias_initializer="zeros",
                  in_units=0):
         super().__init__()
@@ -144,6 +156,7 @@ class Dense(HybridBlock):
             "bias", shape=(units,),
             init=initializer.create(bias_initializer),
             allow_deferred_init=True) if use_bias else None
+        self.act = Activation(activation) if activation else None
 
     def infer_shape(self, x):
         in_units = (math.prod(x.shape[1:]) if self._flatten
@@ -151,9 +164,13 @@ class Dense(HybridBlock):
         self.weight.shape = (self._units, in_units)
 
     def forward(self, x):
-        return F.fully_connected(
-            x, self.weight.data(),
-            self.bias.data() if self._use_bias else None, self._flatten)
+        args = [x, self.weight.data()]
+        if self._use_bias:
+            args.append(self.bias.data())
+        out = _FULLY_CONNECTED(args, num_hidden=self._units,
+                               no_bias=not self._use_bias,
+                               flatten=self._flatten)
+        return out if self.act is None else self.act(out)
 
 
 class BatchNorm(HybridBlock):
@@ -233,10 +250,11 @@ class BatchNorm(HybridBlock):
 
     def forward(self, x):
         training = autograd.is_training() and not self._use_global_stats
-        outs = F.batch_norm(
-            x, self.gamma.data(), self.beta.data(), self.running_mean.data(),
-            self.running_var.data(), eps=self._epsilon,
-            momentum=self._momentum, fix_gamma=not self._scale,
+        outs = _BATCH_NORM(
+            [x, self.gamma.data(), self.beta.data(),
+             self.running_mean.data(), self.running_var.data()],
+            eps=self._epsilon, momentum=self._momentum,
+            fix_gamma=not self._scale,
             use_global_stats=self._use_global_stats, axis=self._axis,
             training=training)
         if training:
@@ -250,4 +268,4 @@ class Flatten(HybridBlock):
     """(N, ...) -> (N, prod(...))."""
 
     def forward(self, x):
-        return x.reshape(x.shape[0], -1)
+        return _FLATTEN(x)

@@ -1,6 +1,8 @@
 """Convolution and pooling layers (counterpart of
 ``mxnet_tpu/gluon/nn/conv_layers.py``; the 2-D layers ResNet uses). NHWC
-layers keep OHWI weights, as the reference does.
+layers keep OHWI weights, as the reference does. They dispatch the
+``Convolution`` and ``Pooling`` ops with the reference's attrs
+(``conv_layers.py:99, :217``) through ``ndarray.tensor_op``.
 
 ``Conv2D`` sets no producer tag on its output (reference
 ``conv_layers.py:100-112``): the port pairs a conv with the ``BatchNorm``
@@ -9,11 +11,14 @@ PyTorch cannot drop a conv that has already run."""
 from __future__ import annotations
 
 from ... import initializer
-from ...ops import nn as F
+from ...ndarray.ndarray import tensor_op
+from ...ops import nn as _nn_ops  # noqa: F401  (registers the ops)
 from ..block import HybridBlock
 from ..parameter import Parameter
 
 __all__ = ["Conv2D", "MaxPool2D", "GlobalAvgPool2D"]
+
+_CONVOLUTION, _POOLING = tensor_op("Convolution"), tensor_op("Pooling")
 
 
 def _tuple(v, n):
@@ -44,7 +49,8 @@ class Conv2D(HybridBlock):
         self._kwargs = {
             "kernel": _tuple(kernel_size, 2), "stride": _tuple(strides, 2),
             "dilate": _tuple(dilation, 2), "pad": _tuple(padding, 2),
-            "num_group": groups, "layout": layout}
+            "num_filter": channels, "num_group": groups,
+            "no_bias": not use_bias, "layout": layout}
         self.weight = Parameter("weight",
                                 shape=self._weight_shape(in_channels),
                                 init=weight_initializer,
@@ -66,9 +72,10 @@ class Conv2D(HybridBlock):
         self.weight.shape = self._weight_shape(self._in_channels)
 
     def forward(self, x):
-        return F.convolution(
-            x, self.weight.data(),
-            self.bias.data() if self._use_bias else None, **self._kwargs)
+        args = [x, self.weight.data()]
+        if self._use_bias:
+            args.append(self.bias.data())
+        return _CONVOLUTION(args, **self._kwargs)
 
 
 class MaxPool2D(HybridBlock):
@@ -84,11 +91,12 @@ class MaxPool2D(HybridBlock):
             "kernel": pool_size,
             "stride": _tuple(strides, 2) if strides is not None
             else pool_size,
-            "pad": _tuple(padding, 2), "pool_type": "max",
+            "pad": _tuple(padding, 2), "global_pool": False,
+            "pool_type": "max", "pooling_convention": "valid",
             "layout": layout}
 
     def forward(self, x):
-        return F.pooling(x, **self._kwargs)
+        return _POOLING(x, **self._kwargs)
 
 
 class GlobalAvgPool2D(HybridBlock):
@@ -96,8 +104,9 @@ class GlobalAvgPool2D(HybridBlock):
 
     def __init__(self, layout="NCHW"):
         super().__init__()
-        self._layout = layout
+        self._kwargs = {"kernel": (1, 1), "stride": (1, 1), "pad": (0, 0),
+                        "global_pool": True, "pool_type": "avg",
+                        "pooling_convention": "valid", "layout": layout}
 
     def forward(self, x):
-        return F.pooling(x, pool_type="avg", global_pool=True,
-                         layout=self._layout)
+        return _POOLING(x, **self._kwargs)

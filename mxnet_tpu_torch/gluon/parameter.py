@@ -7,7 +7,9 @@ parameter with ``grad_req`` ``"write"`` holds a leaf tensor that requires
 grad, and each ``backward`` replaces its ``.grad`` (a hook clears the old
 one before torch accumulates); ``"add"`` keeps adding each backward's
 gradient to ``.grad`` until ``zero_grad``; ``"null"`` (the batch-norm
-running statistics) carries no gradient.
+running statistics) carries no gradient. A backward of NDArray heads
+(``autograd.backward``) writes the same ``.grad`` by the same rule, as the
+reference's parameters are marked variables.
 
 Shapes may hold 0 (unknown): the layer completes them on its first forward
 and the deferred initialization then runs, as in the reference.
@@ -91,6 +93,8 @@ class Parameter:
             self._data.grad = None
             self._data.requires_grad_(req != "null")
             self._hook()
+            if req != "null":
+                autograd._track(self)
 
     @property
     def shape(self):
@@ -166,6 +170,22 @@ class Parameter:
         if self._grad_req != "null":
             data.requires_grad_(True)
             self._hook()
+            autograd._track(self)
+
+    # the marked-leaf protocol of autograd.backward on NDArray heads
+    def _ag_leaf(self) -> Optional[torch.Tensor]:
+        d = self._data
+        if self._grad_req == "null" or d is None or not d.requires_grad:
+            return None
+        return d
+
+    def _ag_receive(self, g: torch.Tensor) -> None:
+        d = self._data
+        with torch.no_grad():
+            if self._grad_req == "add" and d.grad is not None:
+                d.grad.add_(g)
+            else:
+                d.grad = g.contiguous()
 
     def _hook(self) -> None:
         if not self._hooked and self._data.requires_grad:
@@ -210,9 +230,12 @@ class Parameter:
         return torch.zeros_like(d) if d.grad is None else d.grad
 
     def set_data(self, data) -> None:
-        """Set the value, cast to the parameter's dtype (completes a pending
-        deferred initialization)."""
-        data = torch.as_tensor(data)
+        """Set the value (a tensor, an NDArray or array-like), cast to the
+        parameter's dtype (completes a pending deferred initialization)."""
+        from ..ndarray.ndarray import NDArray
+
+        data = data._data if isinstance(data, NDArray) \
+            else torch.as_tensor(data)
         self.shape = tuple(data.shape)
         if self._data is None:
             if not self._deferred_init:

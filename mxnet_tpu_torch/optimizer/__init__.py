@@ -1,5 +1,7 @@
-"""Optimizers (counterpart of ``mxnet_tpu/optimizer``; SGD so far)."""
+"""Optimizers (counterpart of ``mxnet_tpu/optimizer``; SGD and Adam so
+far)."""
+from .adam import Adam
 from .optimizer import Optimizer, create, register
 from .sgd import SGD
 
-__all__ = ["Optimizer", "SGD", "create", "register"]
+__all__ = ["Adam", "Optimizer", "SGD", "create", "register"]

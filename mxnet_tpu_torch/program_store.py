@@ -21,7 +21,11 @@ hybridized forward (``gluon.HybridBlock``) need:
   the same static buffers with no graph, so that its keys, copies and
   counters run in the CPU tests. A failed capture raises: nothing falls
   back to eager. Each capture counts as 1 trace and each call as 1
-  dispatch, as the reference counts traces and dispatches.
+  dispatch, as the reference counts traces and dispatches. Python's
+  cyclic garbage collector is held off while a capture runs
+  (:func:`_graph`): a collection there could free a dead cycle that holds
+  another program's graph, and destroying a graph while a stream captures
+  invalidates the capture.
 
 A replay runs no Python of the body: counts that the body bumps in Python
 (the kernel wrappers' launch counts, the fused-site counts) move at the
@@ -42,6 +46,8 @@ cache (a CUDA graph lives in one process), the serving namespaces and
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -207,6 +213,21 @@ def _side_stream(device: torch.device):
     return _SIDE_STREAMS[device]
 
 
+@contextlib.contextmanager
+def _graph(graph, **kwargs):
+    """``torch.cuda.graph(graph, **kwargs)`` with the cyclic garbage
+    collector off until the capture ends (see the module docstring); the
+    cycles it would have freed are collected by a later collection."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, **kwargs):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _tensors(out) -> list:
     if isinstance(out, torch.Tensor):
         return [out]
@@ -264,7 +285,7 @@ class Program:
         for t in _tensors(warm):
             t.record_stream(cur)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
+        with _graph(graph, stream=stream):
             out = self._run()
         self._graph, self._out = graph, out
         return warm
@@ -367,8 +388,7 @@ class VjpProgram:
                 outs, wrt = self._on_side(lambda: self._run())
                 self._eager = (gen, outs, wrt)
                 self._fwd = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(self._fwd,
-                                      stream=_side_stream(self.device)):
+                with _graph(self._fwd, stream=_side_stream(self.device)):
                     self._outs, self._wrt = self._run()
                 return gen, [o.detach().clone() for o in outs]
         if self._fwd is None:
@@ -411,8 +431,8 @@ class VjpProgram:
         with torch.inference_mode(False):
             self._gouts = [torch.zeros_like(o) for o in self._outs]
         self._bwd = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self._bwd, pool=self._fwd.pool(),
-                              stream=_side_stream(self.device)):
+        with _graph(self._bwd, pool=self._fwd.pool(),
+                    stream=_side_stream(self.device)):
             self._grads = torch.autograd.grad(
                 self._outs, self._wrt, self._gouts, allow_unused=True)
 

@@ -89,6 +89,18 @@ def test_scan_finds_every_port_module():
             "mxnet_tpu_torch/ops/optimizer.py",
             "mxnet_tpu_torch/parallel/mesh.py",
             "mxnet_tpu_torch/parallel/train.py",
+            "mxnet_tpu_torch/random.py",
+            "mxnet_tpu_torch/ndarray/__init__.py",
+            "mxnet_tpu_torch/ndarray/ndarray.py",
+            "mxnet_tpu_torch/ndarray/register.py",
+            "mxnet_tpu_torch/ndarray/_unported.py",
+            "mxnet_tpu_torch/ops/registry.py",
+            "mxnet_tpu_torch/ops/elemwise.py",
+            "mxnet_tpu_torch/ops/tensor.py",
+            "mxnet_tpu_torch/ops/reduce.py",
+            "mxnet_tpu_torch/ops/init.py",
+            "mxnet_tpu_torch/ops/random.py",
+            "mxnet_tpu_torch/optimizer/adam.py",
             "chip_smoke.py"} <= names
 
 
@@ -139,6 +151,7 @@ def test_port_cuda_tests_collect_without_jax():
     collected = [ln for ln in out.stdout.splitlines() if "::" in ln]
     files = {ln.split("::")[0].split("/")[-1] for ln in collected}
     assert {"test_torch_quantization.py", "test_torch_flash_attention.py",
+            "test_torch_ndarray.py",
             "test_torch_conv_bn_epilogue.py", "test_torch_conv_bn_stats.py",
             "test_torch_cached_step.py", "test_torch_train_step.py"} <= files, \
         out.stdout[-3000:]

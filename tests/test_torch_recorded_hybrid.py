@@ -414,3 +414,55 @@ def test_two_calls_and_grad_req_add_on_card(cuda_device, port_knobs):
         torch.cuda.synchronize()
         runs.append(out)
     _hold(*runs)
+
+
+class _GcProbe(torch.autograd.Function):
+    """Identity that notes whether the cyclic garbage collector is on
+    each time its forward or backward runs."""
+
+    seen = []
+
+    @staticmethod
+    def forward(ctx, x):
+        import gc
+        _GcProbe.seen.append(("forward", gc.isenabled()))
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        import gc
+        _GcProbe.seen.append(("backward", gc.isenabled()))
+        return g.clone()
+
+
+class _GcProbeNet(tgluon.HybridBlock):
+    def __init__(self):
+        super().__init__()
+        self.dense = tgluon.nn.Dense(3, in_units=4)
+
+    def forward(self, x):
+        return self.dense(_GcProbe.apply(x))
+
+
+@pytest.mark.cuda
+def test_captures_hold_off_the_garbage_collector_on_card(cuda_device,
+                                                         port_knobs):
+    """A collection inside a capture could free a dead cycle holding
+    another program's graph, and destroying a graph while a stream
+    captures invalidates the capture: the graphed node's first call runs
+    its forward and backward eagerly with the collector on, then captures
+    each with it off, and turns it back on."""
+    import gc
+    port_knobs(MXNET_COMPILED_STEP="1")
+    net = _GcProbeNet()
+    net.initialize(ctx=cuda_device)
+    net.hybridize()
+    x = torch.randn(2, 4, device=cuda_device, requires_grad=True)
+    _GcProbe.seen.clear()
+    with tag.record():
+        y = net(x).sum()
+    tag.backward(y)
+    torch.cuda.synchronize()
+    assert _GcProbe.seen == [("forward", True), ("forward", False),
+                             ("backward", True), ("backward", False)]
+    assert gc.isenabled() and net.last_eager_reason is None

@@ -13,6 +13,7 @@ the ``cuda``-marked tests, replayed as a CUDA graph on the card.
 """
 import dataclasses
 import gc
+import time
 import weakref
 
 import numpy as onp
@@ -363,7 +364,11 @@ def traced_launches(fn, trace=True):
     if not trace:
         out, traced = fn(), None
     else:
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # a trace can miss the first kernels of work that starts as
+            # soon as it does (chip_smoke.TRACE_SETTLE_S)
+            time.sleep(0.05)
             out = fn()
             torch.cuda.synchronize()
         traced = {}
