@@ -190,6 +190,42 @@ Phases, in order; any failure exits non-zero before the result line:
    rows against ``torch._int_mm`` plus the same epilogue, the bf16 matmul of
    the dequantized operands, and the plain version; the kernel at two 1x1
    site shapes.
+11. Serving (``serving``, ``serving_decode``, and the workers of
+   ``tools/torch_serving_latency.py``), none of whose paths launches a TPU
+   kernel's port (the counts are zeroed before and printed after). (a) The
+   decode engine serves ``TinyCausalLM`` at DECODE_WIDTH (the flagship
+   config's widths, fp32, weights from numpy seed 0) on the default page
+   pool (512 x 16): ``warmup()`` captures exactly the prefill buckets + 1
+   programs; a join/retire storm of STORM_REQUESTS greedy requests
+   (prompts of STORM_PROMPT tokens from numpy seed 0, STORM_NEW new,
+   concurrency STORM_CONCURRENCY) beside the lane_decode storm's slow
+   model on the same pool: 0 captures after warm-up, one dispatch per
+   decode iteration and per prefill, 0 leaked pages after ``drain()``, a
+   clean pool audit, two geometries on the pool; the first
+   ORACLE_REQUESTS requests each bitwise the engine's own arithmetic run
+   eagerly for it alone (``paged_oracle``), the slow model's token-exact
+   against ``eager_generate``; the fp32
+   requests' agreement with ``eager_generate`` is printed with the model's
+   logit and attention-score sizes (not gated: rounding picks among
+   near-equal attention keys at these widths). Then the same weights in
+   fp64: a storm of EXACT_REQUESTS requests token-exact against
+   ``eager_generate``, a shared-prompt burst with prefix hits, token-exact,
+   and a seeded sampling request preempted on a PREEMPT_POOL_PAGES-page
+   pool replaying the eager loop's tokens. (c) On the fp32 engine: the
+   decode step at 8 rows captured against eager (wall, device busy, host
+   ms a call, idle share, peak memory), and the lane_decode A/B at full
+   width: tokens/s one at a time and continuous, the batching speedup (bar
+   >= 2, printed), p50/p99, the iteration's wall, host ms and idle share
+   from a trace, graph launches equal to dispatches. (b) The one-shot
+   engine serves the lane_infer MLP and ResNet-50 v1 (NHWC, 224², predict
+   mode, hybridized) in fp32 and bf16: SERVE_REQUESTS requests of
+   SERVE_ROWS rows from SERVE_THREADS threads, each output its exact-shape
+   eager forward's by the verify rule; programs <= buckets and 0 captures
+   after warm-up where bucketing was accepted; whether verify accepted or
+   refused bucketing, and why, is printed. (d) The lanes' own workers
+   (``lanes_phase``): the lane_infer stream, the two-model storm and the
+   shared-prefix lane at their own widths, with their bars printed. A
+   JSON line holds phase 11's numbers.
 10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
@@ -206,6 +242,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -510,6 +547,26 @@ INT8_TIMED_SITES = [(INT8_BATCH * 56 * 56, 64, 256),
 # of the batch, so that the CPU's float64 convolutions stay within seconds
 INT8_OPS_BATCH = 8
 INT8_TOPS = 1979e12                # H100 SXM data sheet, int8 dense
+
+
+# phase 11 (serving): the decode engine at the flagship config's widths
+# (__graft_entry__.py:25-28) in fp32, its pool at the knobs' defaults
+DECODE_WIDTH = dict(vocab=30528, d_model=768, n_layers=12, n_heads=12,
+                    d_mlp=3072, max_seq=512)
+STORM_REQUESTS, STORM_CONCURRENCY, STORM_NEW = 32, 8, 64
+STORM_PROMPT = (8, 200)          # prompt tokens, drawn from numpy seed 0
+ORACLE_REQUESTS = 16             # storm requests held to the oracles: the
+                                 # first 16 of the 32 (time)
+EXACT_REQUESTS = 8               # fp64 storm: the first 8 of the prompts
+BURST_USERS, BURST_PROMPT, BURST_NEW = 8, 96, 16
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95, seed=1234)
+PREEMPT_POOL_PAGES = 12          # too few for two sampled requests
+PREEMPT_PROMPT, PREEMPT_NEW = 80, 64
+SLOW_REQUESTS, SLOW_NEW = 8, 8
+AB_REQUESTS, AB_NEW = 16, 32     # the lane_decode A/B at full width
+SERVE_REQUESTS, SERVE_THREADS, SERVE_ROWS = 64, 4, (1, 8)
+SERVE_VERIFY = (1e-5, 1e-6)      # the verify rule's last-ulp bound
+SERVE_IMAGE = 224
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4127,6 +4184,610 @@ def int8_timings(ck, card_line) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 11. serving
+# ---------------------------------------------------------------------------
+def port_serving():
+    """(serving, serving_decode, tools.torch_serving_latency) beside this
+    file."""
+    from mxnet_tpu_torch import serving, serving_decode
+    from tools import torch_serving_latency
+    return serving, serving_decode, torch_serving_latency
+
+
+def pow2_grid(cap):
+    out, b = [], 1
+    while b <= cap:
+        out.append(b)
+        b <<= 1
+    return out
+
+
+def storm_prompts(vocab):
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, vocab, size=rng.randint(STORM_PROMPT[0],
+                                                   STORM_PROMPT[1] + 1)
+                        ).tolist() for _ in range(STORM_REQUESTS)]
+
+
+def paged_oracle(sd, eng, prompt, n):
+    """The engine's own arithmetic for one greedy request alone, run
+    eagerly: its prefill body at the prompt's bucket, then its decode body
+    at the engine's row count with the request in row 0 and the other rows
+    dead (trash tables, length 0), over pages of its pool. A decode row's
+    values do not depend on the other rows, so the captured, continuously
+    batched engine must give these tokens bitwise."""
+    pool, page, trash = eng._pool, eng._pool.page, eng._pool.trash
+    rows, width = eng._rows, eng._max_pages
+    bucket = min(eng._policy.bucket(len(prompt)), eng._model.max_seq)
+    pages = pool.alloc(-(-(len(prompt) + n) // page))
+    try:
+        with torch.no_grad(), pool.exclusive(eng._geom):
+            tokens = torch.zeros(bucket, dtype=torch.long)
+            tokens[:len(prompt)] = torch.tensor(prompt)
+            table = torch.full((width,), trash, dtype=torch.long)
+            table[:len(pages)] = torch.tensor(pages)
+            greedy = [torch.tensor(0.0), torch.tensor(0), torch.tensor(1.0),
+                      torch.tensor(0)]
+            out = [int(eng._prefill_fn(bucket)(
+                *[t.cuda() for t in (tokens, torch.tensor(len(prompt)),
+                                     table, *greedy)]))]
+            body = eng._decode_fn()
+            tables = torch.full((rows, width), trash, dtype=torch.long)
+            tables[0] = table
+            for cached in range(len(prompt), len(prompt) + n - 1):
+                toks = torch.zeros(rows, dtype=torch.long)
+                toks[0] = out[-1]
+                lengths = torch.zeros(rows, dtype=torch.long)
+                lengths[0] = cached
+                nxt = body(*[t.cuda() for t in (
+                    toks, tables, lengths, torch.zeros(rows),
+                    torch.zeros(rows, dtype=torch.long), torch.ones(rows),
+                    torch.zeros(rows, dtype=torch.long))])
+                out.append(int(nxt[0]))
+    finally:
+        pool.free(pages)
+    return out
+
+
+def attention_scale(model, params, prompt):
+    """(largest |logit|, largest |attention score| of each layer) of the
+    model's prefill over ``prompt``: the forward of
+    ``TinyCausalLM.prefill``, keeping the scores."""
+    with torch.no_grad():
+        toks = torch.tensor(prompt, device="cuda")
+        b = toks.shape[0]
+        h = params["emb"][toks] + params["pos"][:b]
+        causal = torch.ones(b, b, dtype=torch.bool, device="cuda").tril()
+        scales = []
+        for lp in params["layers"]:
+            q, k, v = (model._heads(h @ lp[w]) for w in ("wq", "wk", "wv"))
+            scores = torch.einsum("ihd,jhd->ihj", q, k) / math.sqrt(
+                model.head_dim)
+            scores = scores.masked_fill(~causal[:, None, :], -1e30)
+            scales.append(float(scores.masked_fill(
+                ~causal[:, None, :], 0).abs().max()))
+            att = torch.einsum("ihj,jhd->ihd", torch.softmax(scores, -1), v)
+            h = h + att.reshape(b, -1) @ lp["wo"]
+            h = model._mlp(h, lp)
+        return float((h[-1] @ params["out"]).abs().max()), scales
+
+
+def first_difference(a, b):
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def decode_storm_phase(sd, lat, card_line) -> dict:
+    """11a: the decode engine at DECODE_WIDTH in fp32 on the default pool:
+    warm-up captures prefill buckets + 1 programs; the join/retire storm
+    (greedy, STORM_CONCURRENCY threads) beside the lane_decode storm's slow
+    model on the same pool: 0 captures after warm-up, one dispatch (a
+    graph replay) per decode iteration and per prefill, 0 leaked pages
+    after ``drain()``, a clean audit, two geometries; every request bitwise
+    the engine's own arithmetic run eagerly for that request alone
+    (``paged_oracle``), and compared with ``eager_generate`` (reported).
+    Then 11c's timings on the same engine. Then the same model in fp64
+    (``exact_phase``), where rounding cannot flip a token."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    model = sd.TinyCausalLM(**DECODE_WIDTH)
+    t0 = time.perf_counter()
+    params = model.init_params(0, device="cuda")
+    n_params = sum(t.numel() for t in [params["emb"], params["pos"],
+                                       params["out"]]
+                   + [w for lp in params["layers"] for w in lp.values()])
+    print(f"11a: TinyCausalLM {DECODE_WIDTH}: {n_params / 1e6:.1f} M "
+          f"params fp32 from numpy seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pool = sd.PagePool()
+    eng = sd.GenerativeEngine(model, params=params, pool=pool, name="full",
+                              device="cuda")
+    slow_m = lat.slow_model()
+    slow_p = slow_m.init_params(1, device="cuda")
+    slow = sd.GenerativeEngine(slow_m, params=slow_p, pool=pool, max_rows=2,
+                               name="slow", device="cuda")
+    out = {"n_params": n_params}
+    try:
+        grid = pow2_grid(DECODE_WIDTH["max_seq"])
+        c0 = sd.trace_count()
+        t0 = time.perf_counter()
+        n = eng.warmup()
+        out["warmup_s"] = time.perf_counter() - t0
+        if n != len(grid) + 1 or sd.trace_count() - c0 != n:
+            fail(f"decode warm-up captured {n} programs "
+                 f"({sd.trace_count() - c0} traces), want prefill buckets "
+                 f"{grid} + 1 = {len(grid) + 1}")
+        slow.warmup(max_len=16)
+        print(f"11a: warm-up captured {n} programs (prefill buckets {grid} "
+              f"+ decode) in {out['warmup_s']:.1f} s; pool "
+              f"{pool.pages} x {pool.page}, storage "
+              f"{2 * pool.storage(eng._geom)[0].numel() * 4 / 2**20:.0f} "
+              f"MiB of K + V")
+        prompts = storm_prompts(model.vocab)
+        slow_prompts = lat.mk_prompts(np.random.RandomState(1),
+                                      SLOW_REQUESTS, slow_m.vocab, 4, 13)
+        t0, d0 = sd.trace_count(), sd.dispatch_count()
+        s0, q0 = eng.stats(), slow.stats()
+        res = {}
+
+        def run(name, e, ps, conc, new):
+            def go():
+                res[name] = lat.drive(e, ps, conc, new)
+            return go
+
+        threads = [threading.Thread(target=run("full", eng, prompts,
+                                               STORM_CONCURRENCY,
+                                               STORM_NEW)),
+                   threading.Thread(target=run("slow", slow, slow_prompts,
+                                               2, SLOW_NEW))]
+        t_storm = time.perf_counter()
+        lat._join(threads)
+        storm_s = time.perf_counter() - t_storm
+        eng.drain()
+        slow.drain()
+        st, sst = eng.stats(), slow.stats()
+        steps = (st["decode_steps"] - s0["decode_steps"]
+                 + sst["decode_steps"] - q0["decode_steps"])
+        prefills = (st["prefills"] - s0["prefills"]
+                    + sst["prefills"] - q0["prefills"])
+        traces = sd.trace_count() - t0
+        dispatches = sd.dispatch_count() - d0
+        wall, tokens, sheds, outs = res["full"]
+        _sw, _st, slow_sheds, slow_outs = res["slow"]
+        if sheds or slow_sheds:
+            fail(f"the storm shed {sheds} + {slow_sheds} requests")
+        if traces:
+            fail(f"{traces} captures after warm-up in the storm")
+        if dispatches != steps + prefills:
+            fail(f"{dispatches} dispatches for {steps} decode iterations + "
+                 f"{prefills} prefills: not one replay per iteration")
+        if pool.in_use() or pool.audit():
+            fail(f"after drain: {pool.in_use()} pages in use, audit "
+                 f"{pool.audit()}")
+        if len(pool._storage) != 2 or pool.stats()["high_water"] < 2:
+            fail(f"multi-model accounting: {len(pool._storage)} geometries, "
+                 f"high water {pool.stats()['high_water']}")
+        t0 = time.perf_counter()
+        for i, p in enumerate(prompts[:ORACLE_REQUESTS]):
+            want = paged_oracle(sd, eng, p, STORM_NEW)
+            if outs[i] != want:
+                fail(f"storm request {i} (prompt {len(p)} tokens) differs "
+                     f"from the engine's arithmetic run eagerly for it alone "
+                     f"at token {first_difference(outs[i], want)}")
+        for i, p in enumerate(slow_prompts):
+            if slow_outs[i] != sd.eager_generate(slow_m, slow_p, p,
+                                                 SLOW_NEW):
+                fail(f"slow-model request {i} differs from eager_generate")
+        oracle_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        diverged = {}
+        for i, p in enumerate(prompts[:ORACLE_REQUESTS]):
+            j = first_difference(outs[i], sd.eager_generate(model, params, p,
+                                                            STORM_NEW))
+            if j is not None:
+                diverged[i] = j
+        eager_s = time.perf_counter() - t0
+        logit_max, score_max = attention_scale(model, params, prompts[0])
+        out["storm"] = dict(
+            requests=STORM_REQUESTS, concurrency=STORM_CONCURRENCY,
+            new_tokens=STORM_NEW, wall_s=wall, tokens=tokens,
+            tokens_s=tokens / wall, decode_steps=steps, prefills=prefills,
+            dispatches=dispatches, captures_after_warmup=traces,
+            rows_per_decode=st.get("rows_per_decode"),
+            p50_ms=st["p50_us"] / 1e3, p99_ms=st["p99_us"] / 1e3,
+            iteration_ms=wall * 1e3 / max(st["decode_steps"]
+                                           - s0["decode_steps"], 1),
+            slow_p99_ms=sst["p99_us"] / 1e3,
+            pool_high_water=pool.stats()["high_water"],
+            held_to_oracles=ORACLE_REQUESTS,
+            equal_to_eager_generate=ORACLE_REQUESTS - len(diverged),
+            first_difference_from_eager_generate=diverged,
+            prompt0_max_abs_logit=logit_max,
+            prompt0_max_abs_attention_score=score_max)
+        print(f"11a: storm of {STORM_REQUESTS} greedy requests (prompts "
+              f"{STORM_PROMPT[0]}-{STORM_PROMPT[1]} tokens, {STORM_NEW} new, "
+              f"concurrency {STORM_CONCURRENCY}) beside {SLOW_REQUESTS} "
+              f"slow-model requests on one pool: {storm_s:.2f} s, "
+              f"{tokens / wall:.1f} tokens/s, {steps} decode iterations + "
+              f"{prefills} prefills = {dispatches} dispatches, 0 captures, "
+              f"p50 {st['p50_us'] / 1e3:.1f} ms p99 "
+              f"{st['p99_us'] / 1e3:.1f} ms, pool high water "
+              f"{pool.stats()['high_water']} pages, 0 leaked, audit clean; "
+              f"requests 0-{ORACLE_REQUESTS - 1} each bitwise the engine's "
+              f"arithmetic run eagerly for it alone ({oracle_s:.1f} s), the "
+              f"slow model's token-exact against eager_generate "
+              f"[{card_line}]")
+        print(f"11a: fp32 storm against eager_generate (a full prefill per "
+              f"token, not gated): {ORACLE_REQUESTS - len(diverged)} of "
+              f"requests 0-{ORACLE_REQUESTS - 1} token-exact, the rest from "
+              f"token "
+              f"{diverged} (request: first differing token) ({eager_s:.1f} "
+              f"s). Without layer norms the residual stream grows layer by "
+              f"layer: request 0's largest |logit| is {logit_max:.4g} and "
+              f"its largest |attention score| per layer "
+              f"{[float(f'{x:.3g}') for x in score_max]}, so the softmax is "
+              f"near one-hot and fp32 rounding of two equal formulas (a KV "
+              f"cache against a full prefill) can pick another key; the "
+              f"fp64 phase below holds token-exactness.")
+        out["timings"] = decode_timings(sd, lat, eng, card_line)
+    finally:
+        eng.close()
+        slow.close()
+    if pool.in_use() or pool.audit():
+        fail(f"after close: {pool.in_use()} pages in use, {pool.audit()}")
+    out["exact"] = exact_phase(sd, lat, model, params, pool, card_line)
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, model, params
+
+
+def exact_phase(sd, lat, model, params32, pool, card_line) -> dict:
+    """11a in fp64 (the same weights cast, a second geometry on the same
+    pool): a storm of the first EXACT_REQUESTS prompts token-exact against
+    ``eager_generate`` (fp64), 0 captures after warm-up; a shared-prompt
+    burst with prefix hits, token-exact; a seeded sampling request
+    preempted on a PREEMPT_POOL_PAGES-page pool replaying the eager loop's
+    sampled tokens."""
+    from mxnet_tpu_torch import telemetry
+
+    params = {k: (v.double() if k != "layers" else
+                  [{n: w.double() for n, w in lp.items()} for lp in v])
+              for k, v in params32.items()}
+    out = {}
+    eng = sd.GenerativeEngine(model, params=params, pool=pool,
+                              name="full_fp64", device="cuda")
+    try:
+        n = eng.warmup()
+        prompts = storm_prompts(model.vocab)[:EXACT_REQUESTS]
+        t0, d0 = sd.trace_count(), sd.dispatch_count()
+        s0 = eng.stats()
+        wall, tokens, sheds, outs = lat.drive(eng, prompts,
+                                              STORM_CONCURRENCY, STORM_NEW)
+        eng.drain()
+        st = eng.stats()
+        if sheds or sd.trace_count() != t0 or sd.dispatch_count() - d0 != (
+                st["decode_steps"] - s0["decode_steps"]
+                + st["prefills"] - s0["prefills"]):
+            fail(f"fp64 storm: {sheds} sheds, "
+                 f"{sd.trace_count() - t0} captures after warm-up, "
+                 f"{sd.dispatch_count() - d0} dispatches")
+        for i, p in enumerate(prompts):
+            want = sd.eager_generate(model, params, p, STORM_NEW)
+            if outs[i] != want:
+                fail(f"fp64 storm request {i} (prompt {len(p)} tokens) "
+                     f"differs from eager_generate at token "
+                     f"{first_difference(outs[i], want)}")
+        out["storm"] = dict(programs=n, requests=EXACT_REQUESTS,
+                            tokens_s=tokens / wall,
+                            p50_ms=st["p50_us"] / 1e3,
+                            p99_ms=st["p99_us"] / 1e3)
+        print(f"11a: fp64: warm-up captured {n} programs; storm of the first "
+              f"{EXACT_REQUESTS} prompts ({STORM_NEW} new, concurrency "
+              f"{STORM_CONCURRENCY}): {tokens / wall:.1f} tokens/s, 0 "
+              f"captures, one dispatch per iteration and prefill, every "
+              f"request token-exact against eager_generate  ok")
+
+        burst = np.random.RandomState(5).randint(
+            0, model.vocab, size=BURST_PROMPT).tolist()
+        base = telemetry.snapshot()
+        p0 = eng.stats()["prefills"]
+        first = eng.generate(list(burst), max_new_tokens=BURST_NEW)
+        _w, _t, _s, bouts = lat.drive(eng, [list(burst)] * (BURST_USERS - 1),
+                                      BURST_USERS - 1, BURST_NEW)
+        delta = telemetry.delta(base)
+        hits = delta.get("prefix.hit_blocks", 0)
+        want = sd.eager_generate(model, params, burst, BURST_NEW)
+        if not hits or any(o != want for o in [first] + bouts):
+            fail(f"shared-prompt burst: {hits} hit blocks, token-exact "
+                 f"{[o == want for o in [first] + bouts]}")
+        out["burst"] = dict(users=BURST_USERS, prompt=BURST_PROMPT,
+                            hit_blocks=hits,
+                            miss_blocks=delta.get("prefix.miss_blocks", 0),
+                            cow_forks=delta.get("prefix.cow_forks", 0),
+                            prefills=eng.stats()["prefills"] - p0)
+        print(f"11a: fp64 shared-prompt burst ({BURST_USERS} x "
+              f"{BURST_PROMPT} tokens): {hits} hit blocks, "
+              f"{out['burst']['miss_blocks']} missed, "
+              f"{out['burst']['cow_forks']} copy-on-write forks, "
+              f"{out['burst']['prefills']} prefill(s); token-exact  ok")
+    finally:
+        eng.close()
+    if pool.in_use() or pool.audit():
+        fail(f"fp64: {pool.in_use()} pages in use, audit {pool.audit()}")
+
+    spec = sd.SamplingSpec(**SAMPLED)
+    small = sd.PagePool(pages=PREEMPT_POOL_PAGES)
+    peng = sd.GenerativeEngine(model, params=params, pool=small, max_rows=2,
+                               name="preempt", device="cuda")
+    try:
+        rng = np.random.RandomState(9)
+        pps = [rng.randint(0, model.vocab, size=PREEMPT_PROMPT).tolist()
+               for _ in range(2)]
+        c0 = sd.trace_count()
+        _w, _t, sheds, pouts = lat.drive(peng, pps, 2, PREEMPT_NEW,
+                                         sampling=spec)
+        preempts = peng.stats()["preempts"]
+        if sheds or not preempts:
+            fail(f"forced preemption: {preempts} preemptions, {sheds} sheds")
+        for i, p in enumerate(pps):
+            want = sd.eager_generate(model, params, p, PREEMPT_NEW,
+                                     sampling=spec)
+            if pouts[i] != want:
+                fail(f"sampled request {i} after {preempts} preemption(s) "
+                     f"differs from eager_generate with {spec} at token "
+                     f"{first_difference(pouts[i], want)}")
+        if small.in_use() or small.audit():
+            fail(f"small pool after the preemptions: {small.audit()}")
+        out["preempt"] = dict(preempts=preempts, pages=PREEMPT_POOL_PAGES,
+                              captures_in_scheduler=sd.trace_count() - c0)
+        print(f"11a: fp64 seeded sampling ({spec}) on a "
+              f"{PREEMPT_POOL_PAGES}-page pool: {preempts} preemption(s), "
+              f"both requests replay the eager loop's tokens; "
+              f"{sd.trace_count() - c0} programs captured lazily on the "
+              f"scheduler thread  ok [{card_line}]")
+    finally:
+        peng.close()
+    return out
+
+
+def decode_timings(sd, lat, eng, card_line) -> dict:
+    """11c: the decode step at 8 rows, captured (the program's copies,
+    replay and output clone) against eager (the same body run op by op
+    after the same copies): wall, device busy, host ms a call, idle share,
+    peak memory; then the lane_decode A/B at full width (AB_REQUESTS
+    prompts of STORM_PROMPT tokens, AB_NEW new, one at a time against
+    STORM_CONCURRENCY threads, each pass from a cold prefix cache) with a
+    trace of the continuous pass: tokens/s, batching speedup, p50/p99,
+    the iteration's wall, device busy and idle share, graph launches
+    against dispatches."""
+    prog = eng._programs[("decode",)]
+    body = eng._decode_fn()
+    rng = np.random.RandomState(3)
+    bufs = [b.clone() for b in eng._decode_host]
+    tokens, tables, lengths, temps, top_ks, top_ps, seeds = \
+        [b.numpy() for b in bufs]
+    tokens[:] = rng.randint(0, eng._model.vocab, size=tokens.shape)
+    # every row reads and writes the trash page only: the step's work is
+    # that of real rows (the gather always fetches every table entry)
+    tables[:] = eng._pool.trash
+    lengths[:] = rng.randint(8, eng._model.max_seq - 1, size=lengths.shape)
+    temps[:], top_ks[:], top_ps[:], seeds[:] = 0.0, 0, 1.0, 0
+
+    def captured():
+        return prog(*bufs)
+
+    def eager():
+        with torch.no_grad():
+            return body(*[b.to("cuda", non_blocking=True) for b in bufs])
+
+    with eng._pool.exclusive(eng._geom):
+        step = capture_numbers("decode step, 8 rows, full width",
+                               {"eager": eager, "captured": captured}, 0,
+                               card_line)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, eng._model.vocab,
+                           size=rng.randint(STORM_PROMPT[0],
+                                            STORM_PROMPT[1] + 1)).tolist()
+               for _ in range(AB_REQUESTS)]
+    ab = lat.run_decode(concurrency=STORM_CONCURRENCY, new_tokens=AB_NEW,
+                        prompts=prompts, engine=eng,
+                        warmup_len=DECODE_WIDTH["max_seq"], profile=True)
+    if ab["retraces_after_warm"]:
+        fail(f"lane_decode A/B: {ab['retraces_after_warm']} captures after "
+             "warm-up")
+    if not ab["same_tokens_both_passes"]:
+        fail("lane_decode A/B: one-at-a-time and continuous passes gave "
+             "different tokens")
+    bar = ab["batching_speedup"] >= lat.BARS["batching_speedup"]
+    busy = ab.get("continuous_busy_ms")
+    graphs = ab.get("continuous_graph_launches") or 0
+    if graphs and graphs != ab["continuous_dispatches"]:
+        fail(f"lane_decode A/B: {graphs} graph launches traced for "
+             f"{ab['continuous_dispatches']} dispatches")
+    steps = ab["continuous_decode_steps"]
+    host_iter = (ab["continuous_iteration_ms"] - busy / steps
+                 if busy else None)
+    print(f"11c: lane_decode A/B at full width: one at a time "
+          f"{ab['sequential_tokens_s']:.1f} tokens/s, continuous "
+          f"(concurrency {STORM_CONCURRENCY}) {ab['continuous_tokens_s']:.1f}"
+          f" tokens/s, batching speedup {ab['batching_speedup']:.2f} (bar "
+          f">= {lat.BARS['batching_speedup']}: "
+          f"{'met' if bar else 'NOT met'}), {ab['rows_per_decode']:.2f} rows"
+          f" a decode step, p50 {ab['p50_us'] / 1e3:.1f} ms p99 "
+          f"{ab['p99_us'] / 1e3:.1f} ms; the continuous pass: "
+          f"{ab['continuous_iteration_ms']:.3f} ms wall an iteration, "
+          + (f"device busy {busy:.1f} of {ab['continuous_wall_ms']:.1f} ms "
+             f"(idle share {ab['continuous_idle_share']:.1%}), host "
+             f"{host_iter:.3f} ms an iteration, "
+             f"{ab['continuous_graph_launches']} graph launches for "
+             f"{ab['continuous_dispatches']} dispatches"
+             if busy else "the trace holds no device time")
+          + f" [{card_line}]")
+    return dict(step=step, ab=ab,
+                host_ms_per_iteration=host_iter, batching_bar_met=bar)
+
+
+def verify_rule(got, want) -> bool:
+    return torch.equal(got, want) or torch.allclose(
+        got, want, rtol=SERVE_VERIFY[0], atol=SERVE_VERIFY[1])
+
+
+def oneshot_phase(serving, mx, net, make, what, card_line) -> dict:
+    """11b: SERVE_REQUESTS requests of SERVE_ROWS rows from SERVE_THREADS
+    threads through a ``ServingEngine`` (max batch SERVE_ROWS[1], its
+    pow2 grid warmed), each output against its exact-shape eager forward
+    on the card by the verify rule; programs <= buckets and 0 captures
+    after warm-up where bucketing was accepted. Prints whether verify
+    accepted or refused bucketing, and why."""
+    rng = np.random.RandomState(0)
+    reqs = [make(rng, int(n)) for n in
+            rng.randint(SERVE_ROWS[0], SERVE_ROWS[1] + 1,
+                        size=SERVE_REQUESTS)]
+    outs = [None] * len(reqs)
+    grid = pow2_grid(SERVE_ROWS[1])
+    eng = serving.ServingEngine(net, max_batch=SERVE_ROWS[1],
+                                max_delay_us=2000)
+    try:
+        n = eng.warmup(reqs[0], max_rows=SERVE_ROWS[1])
+        if n != len(grid):
+            fail(f"{what}: warm-up captured {n} programs, want {len(grid)}")
+        t0, d0 = serving.trace_count(), serving.dispatch_count()
+        errs = []
+
+        def worker(k):
+            def go():
+                try:
+                    for i in range(k, len(reqs), SERVE_THREADS):
+                        outs[i] = eng.infer(reqs[i])
+                except BaseException as e:
+                    errs.append(e)
+            return go
+
+        ts = time.perf_counter()
+        threads = [threading.Thread(target=worker(k))
+                   for k in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - ts
+        if errs or any(t.is_alive() for t in threads):
+            fail(f"{what}: a request failed or hung: {errs[:1]}")
+        st = eng.stats()
+        captures = serving.trace_count() - t0
+        for i, x in enumerate(reqs):
+            got = outs[i]
+            with torch.no_grad(), mx.autograd.pause():
+                want = net.forward(x.cuda())
+            if got.device.type != "cuda" or not verify_rule(got, want):
+                fail(f"{what}: request {i} ({x.shape[0]} rows) differs from "
+                     f"its eager forward beyond the verify rule (max |Δ| "
+                     f"{(got.float() - want.float()).abs().max().item():.3e})")
+        refused = eng.bucket_refused
+        if refused is None and (captures or st["programs"] > len(grid)):
+            fail(f"{what}: {captures} captures after warm-up, "
+                 f"{st['programs']} programs for {len(grid)} buckets")
+        verdict = ("accepted" + (f" ({st['verify_ulp_accepts']} last-ulp "
+                                 "accepts)" if st["verify_ulp_accepts"]
+                                 else " (bit-exact)")
+                   if refused is None else f"REFUSED: {refused}")
+        print(f"11b: {what}: {SERVE_REQUESTS} requests of {SERVE_ROWS[0]}-"
+              f"{SERVE_ROWS[1]} rows from {SERVE_THREADS} threads in "
+              f"{wall:.2f} s: {st['batches']} dispatches, "
+              f"{st['coalesced']} coalesced, {st['programs']} programs for "
+              f"{len(grid)} buckets, {captures} captures after warm-up, "
+              f"p50 {st['p50_us'] / 1e3:.2f} ms p99 "
+              f"{st['p99_us'] / 1e3:.2f} ms; each output its eager "
+              f"forward's by the verify rule; bucketing {verdict} "
+              f"[{card_line}]")
+        return dict(requests=SERVE_REQUESTS, wall_s=wall,
+                    batches=st["batches"], coalesced=st["coalesced"],
+                    programs=st["programs"], buckets=len(grid),
+                    captures_after_warmup=captures,
+                    p50_ms=st["p50_us"] / 1e3, p99_ms=st["p99_us"] / 1e3,
+                    verify_runs=st["verify_runs"],
+                    verify_ulp_accepts=st["verify_ulp_accepts"],
+                    bucket_refused=refused)
+    finally:
+        eng.close()
+
+
+def lanes_phase(lat, card_line) -> dict:
+    """11d: the serving lanes' own workers at their own widths
+    (``tools/torch_serving_latency.py``): the lane_infer stream (64
+    requests of 1-32 rows of the 64-wide MLP, sequential then from 4
+    threads), the two-model storm (solo and co-hosted p99, sheds) and the
+    shared-prefix lane (16 users of one 32-token prompt, warm and cold).
+    Gated: 0 captures after warm-up and programs <= buckets where
+    bucketing was accepted, the prefix lane token-exact with its counters
+    still at 0 when the cache is off, no page leaked by the storm; the
+    lanes' timing bars are printed."""
+    serve = lat.run_serving(device="cuda")
+    storm = lat.run_storm("cuda")
+    prefix = lat.run_shared_prefix(device="cuda")
+    if serve["bucket_refused"] is None and (
+            serve["retraces_after_warm"]
+            or serve["programs"] > serve["warmup_programs"]):
+        fail(f"lane_infer: {serve['retraces_after_warm']} captures after "
+             f"warm-up, {serve['programs']} programs for "
+             f"{serve['warmup_programs']} buckets")
+    if not prefix["token_exact"] or prefix["prefix_counters_off"]:
+        fail(f"shared-prefix lane: token-exact {prefix['token_exact']}, "
+             f"counters with the cache off {prefix['prefix_counters_off']}")
+    if storm["pool_in_use_after"] or storm["pool_audit"]:
+        fail(f"storm lane: {storm['pool_in_use_after']} pages in use, "
+             f"audit {storm['pool_audit']}")
+    missed = lat.check_bars(serve=serve, storm=storm, prefix=prefix)
+    print(f"11d: lane_infer: p50 {serve['p50_us'] / 1e3:.3f} ms p99 "
+          f"{serve['p99_us'] / 1e3:.3f} ms, {serve['throughput_rps']:.1f} "
+          f"requests/s, {serve['programs']} programs, "
+          f"{serve['retraces_after_warm']} captures after warm-up, from 4 "
+          f"threads {serve['concurrent']['requests_per_dispatch']:.2f} "
+          f"requests a dispatch and p99 "
+          f"{serve['concurrent']['p99_us'] / 1e3:.3f} ms; storm: fast p99 "
+          f"{storm['fast']['p99_us'] / 1e3:.2f} ms solo "
+          f"{storm['fast_solo_p99_us'] / 1e3:.2f} ms (ratio "
+          f"{storm['interference_p99_ratio']:.2f}), {storm['shed_total']} "
+          f"shed; shared prefix: hit rate {prefix['prefix_hit_rate']:.4f}, "
+          f"{prefix['prefills_warm']} against {prefix['prefills_cold']} "
+          f"prefills, {prefix['warm_tokens_s']:.1f} against "
+          f"{prefix['cold_tokens_s']:.1f} tokens/s, token-exact; lane bars "
+          f"missed: {missed or 'none'} [{card_line}]")
+    return dict(lane_infer=serve, storm=storm, shared_prefix=prefix,
+                bars_missed=missed)
+
+
+def oneshot_nets_phase(serving, mx, card_line) -> dict:
+    """11b: the lane_infer MLP, then ResNet-50 v1 (NHWC, 224², predict
+    mode, hybridized) in fp32 and in bf16."""
+    from tools import torch_serving_latency as lat
+
+    out = {}
+    mlp = lat.lane_mlp(64, "cuda")
+    out["mlp"] = oneshot_phase(
+        serving, mx, mlp,
+        lambda rng, n: torch.from_numpy(rng.randn(n, 64).astype(np.float32)),
+        "lane_infer MLP", card_line)
+    for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        probe = torch.zeros(2, SERVE_IMAGE, SERVE_IMAGE, 3, device="cuda")
+        net = resnet50(mx, probe)
+        if dtype is torch.bfloat16:
+            net.cast("bfloat16")
+        net.hybridize()
+
+        def make(rng, n, dtype=dtype):
+            return torch.from_numpy(rng.randn(
+                n, SERVE_IMAGE, SERVE_IMAGE, 3).astype(np.float32)).to(dtype)
+
+        out[f"resnet50_{name}"] = oneshot_phase(
+            serving, mx, net, make, f"ResNet-50 {name}", card_line)
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
 def port_int8():
     """The port's contrib.quantization."""
     from mxnet_tpu_torch.contrib import quantization
@@ -4293,11 +4954,33 @@ def main() -> int:
     int8_ops_phase(port_int8())
     int8_times = int8_timings(ck, card_line)
 
+    torch.cuda.empty_cache()
+
+    # -- 11. serving ----------------------------------------------------------
+    serving, sd, lat = port_serving()
+    ck.reset_launch_counts()
+    t11 = time.perf_counter()
+    decode, _model, _params = decode_storm_phase(sd, lat, card_line)
+    del _model, _params
+    torch.cuda.empty_cache()
+    oneshot = oneshot_nets_phase(serving, mx, card_line)
+    lanes = lanes_phase(lat, card_line)
+    torch.cuda.synchronize()
+    serving_counts = ck.launch_counts()
+    print(f"phase 11 launch counts (no TPU kernel lies on the serving "
+          f"paths): {serving_counts}; {time.perf_counter() - t11:.1f} s; "
+          f"program store {json.dumps(ps.stats())}")
+    print(json.dumps({"serving": {"card": card_line, "decode": decode,
+                                  "oneshot": oneshot, "lanes": lanes}},
+                     default=str))
+    torch.cuda.empty_cache()
+
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
              "capture": capture_counts, "compiled_steps": steps_counts,
-             "nd": nd_counts, "int8": int8_counts}
+             "nd": nd_counts, "int8": int8_counts,
+             "serving": serving_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were

@@ -21,10 +21,15 @@ block's forward and its recorded tape node, shape buckets in
 ``serving``); and the imperative substrate: the op registry
 (``ops.registry``) and its op modules, ``NDArray`` and ``invoke``
 (``ndarray``, ``mx.nd``), ``random``, and autograd on NDArrays, through
-which the Gluon layers dispatch.
+which the Gluon layers dispatch; and serving: ``serving.ServingEngine``
+(micro-batched, shape-bucketed captured inference) and
+``serving_decode.GenerativeEngine`` (continuous batching over a paged KV
+cache with a prefix cache and seeded sampling), on the runtime pieces
+``faults``, ``telemetry``, ``preemption`` and ``engine``.
 """
-from . import (autograd, base, config, contrib, gluon, initializer, models,
-               ndarray, optimizer, random)
+from . import (autograd, base, config, contrib, engine, faults, gluon,
+               initializer, models, ndarray, optimizer, preemption, random,
+               serving, serving_decode, telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .ndarray import NDArray
@@ -33,6 +38,7 @@ nd = ndarray
 init = initializer
 
 __all__ = ["Context", "MXNetError", "NDArray", "autograd", "base", "config",
-           "contrib", "cpu", "current_context", "gluon", "gpu", "init",
-           "initializer", "models", "nd", "ndarray", "num_gpus", "optimizer",
-           "random"]
+           "contrib", "cpu", "current_context", "engine", "faults", "gluon",
+           "gpu", "init", "initializer", "models", "nd", "ndarray",
+           "num_gpus", "optimizer", "preemption", "random", "serving",
+           "serving_decode", "telemetry"]

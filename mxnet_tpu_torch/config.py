@@ -3,7 +3,9 @@
 Counterpart of ``mxnet_tpu/config.py`` (``declare``/``get``/``refresh``),
 holding only the knobs that the port's code reads so far. Each keeps the
 reference's name, type and default. A knob is read from the environment on
-first use and cached until :func:`refresh`.
+first use and cached until :func:`refresh`, except the knobs the reference
+declares uncached (``cached=False``: the serving, fault, preemption, engine
+and trace knobs), which are read from the environment at every call.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ class EnvVar(NamedTuple):
     type: Callable
     default: Any
     doc: str
+    cached: bool = True
 
 
 VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
@@ -65,7 +68,9 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "oldest program and frees its graph."),
     EnvVar("MXNET_FORWARD_CACHE", int, 32,
            "Per-owner cap of the program store's 'hybrid_forward' namespace "
-           "(the captured forwards of a hybridized block, LRU)."),
+           "and of the 'serving' and 'serving_decode' namespaces (the "
+           "captured forwards of a hybridized block or of an engine, LRU).",
+           cached=False),
     EnvVar("MXNET_BACKWARD_DO_MIRROR", bool, False,
            "Recompute the forward during the backward (torch.utils."
            "checkpoint) instead of keeping activations alive: about one "
@@ -78,13 +83,133 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "list '8,16,32,64' (a length above the largest bucket keeps its "
            "exact shape). Used by Trainer.compile_step(bucket=True) and "
            "hybridize(bucket=True), which verify the padded result against "
-           "the unpadded one once per bucket."),
+           "the unpadded one once per bucket, and by ServingEngine and "
+           "GenerativeEngine's prefill grid.", cached=False),
     EnvVar("MXNET_SERVE_VERIFY", int, 1,
-           "hybridize(bucket=True) and compile_step(bucket=True): verify "
-           "the first padded call per signature against the unpadded one. "
-           "1 = bit-exact passes, and for a forward a last-ulp difference "
-           "(rtol 1e-5, atol 1e-6) too; anything larger refuses bucketing. "
-           "2 = strict: bit-exact or refuse. 0 = trust padding unchecked."),
+           "ServingEngine, hybridize(bucket=True) and compile_step("
+           "bucket=True): verify the first padded (or coalesced) call per "
+           "signature against the unpadded eager forward. 1 = bit-exact "
+           "passes, and for a forward a last-ulp difference (rtol 1e-5, "
+           "atol 1e-6) too, counted as verify_ulp_accepts; anything larger "
+           "refuses bucketing for good (ServingEngine.bucket_refused keeps "
+           "the reason, and the engine serves exact shapes). 2 = strict: "
+           "bit-exact or refuse. 0 = trust padding unchecked.",
+           cached=False),
+    EnvVar("MXNET_SERVE_MAX_BATCH", int, 32,
+           "ServingEngine: max total rows one coalesced dispatch may carry; "
+           "concurrent infer() requests batch together up to this bound",
+           cached=False),
+    EnvVar("MXNET_SERVE_MAX_DELAY_US", int, 2000,
+           "ServingEngine: how long (microseconds) a dispatch may wait for "
+           "more requests to coalesce before flushing the batch; 0 = "
+           "dispatch immediately (no coalescing window)", cached=False),
+    EnvVar("MXNET_KV_PAGE", int, 16,
+           "Paged KV-cache (serving_decode.PagePool): tokens per cache "
+           "page. Sequences hold ceil(len/page) pages from the fixed "
+           "shared device pool and release them at retirement; smaller "
+           "pages waste less tail memory per sequence but deepen the "
+           "page-table gather inside the decode program.", cached=False),
+    EnvVar("MXNET_KV_PAGES", int, 512,
+           "Paged KV-cache: total pages in the process-shared pool "
+           "(serving_decode.shared_pool), the device budget every "
+           "co-hosted GenerativeEngine draws from. Exhaustion at admission "
+           "sheds loudly (faults.ShedError, site serving.admit); "
+           "exhaustion mid-decode preempts the youngest sequence (pages "
+           "freed, request re-queued, greedy continuation token-exact).",
+           cached=False),
+    EnvVar("MXNET_SERVE_MAX_QUEUE", int, 64,
+           "GenerativeEngine admission bound: pending generate() requests "
+           "past this depth are refused immediately with faults.ShedError "
+           "(site serving.admit): overload degrades loudly, never a "
+           "timeout.", cached=False),
+    EnvVar("MXNET_SERVE_SLO_US", int, 0,
+           "GenerativeEngine per-request latency SLO in microseconds. 0 = "
+           "off. When set, admission consults the per-bucket cost table "
+           "(EMA of measured prefill/decode-step times, no trial "
+           "dispatch): a request whose estimated queue wait already busts "
+           "the SLO sheds at admission (ShedError, counted shed_slo); "
+           "delivered requests that exceeded it count slo_violations in "
+           "engine.stats().", cached=False),
+    EnvVar("MXNET_SERVE_DECODE_ROWS", int, 8,
+           "GenerativeEngine decode-step row capacity: the ONE captured "
+           "token-decode program always runs this many sequence rows (live "
+           "sequences occupy rows, dead rows are masked), so join/retire "
+           "never re-captures. Also the continuous-batching concurrency "
+           "ceiling per engine.", cached=False),
+    EnvVar("MXNET_PREFIX_CACHE", bool, True,
+           "Content-addressed KV prefix cache (serving_decode.PagePool): "
+           "pages are keyed by a rolling hash of their token block "
+           "(chain-hashed, so a block's key commits to its full prefix); "
+           "requests sharing a prompt reference ONE physical prefill "
+           "(refcounted, copy-on-write at divergence) and prefill only the "
+           "uncached suffix. Unreferenced cached pages are kept and "
+           "evicted LRU under pool pressure: PagePoolExhausted only when "
+           "even eviction cannot help. Off (0) = the pre-cache pool: no "
+           "hashing, no index, prefix.* counters stay 0.", cached=False),
+    EnvVar("MXNET_FAULT_PLAN", str, None,
+           "Deterministic fault-injection plan for subprocess tests: "
+           "'site[@after]:times[:kind]' comma-list (kind: transient|fatal|"
+           "oserror|timeout) installed at import (faults.FaultPlan."
+           "from_env). Unset = injection disabled (faults.inject is a "
+           "no-op None check).", cached=False),
+    EnvVar("MXNET_RETRY_MAX", int, 3,
+           "faults.retry_call default: max re-attempts after the first try "
+           "(total attempts = value + 1) for retryable failures",
+           cached=False),
+    EnvVar("MXNET_RETRY_BACKOFF", float, 0.05,
+           "faults.retry_call default: base delay (s) of the deterministic "
+           "exponential backoff min(backoff * 2**(attempt-1), max)",
+           cached=False),
+    EnvVar("MXNET_RETRY_BACKOFF_MAX", float, 2.0,
+           "faults.retry_call default: backoff delay cap in seconds",
+           cached=False),
+    EnvVar("MXNET_FAULT_EVENTS", int, 1024,
+           "Capacity of the faults structured event log (faults.events()): "
+           "the bounded deque keeps the newest N entries (retry, raise, "
+           "deadline, inject, degradation records). Read once at import; "
+           "fault events also mirror onto the telemetry bus with step "
+           "indices."),
+    EnvVar("MXNET_PREEMPTION_GRACE_S", float, 30.0,
+           "Preemption-notice grace budget (seconds): after SIGTERM/SIGINT "
+           "the preemption handler (preemption.install) stops admission, "
+           "drains every async queue (engine.waitall: serving/decode "
+           "queues), runs the drain hooks, and exits with "
+           "MXNET_PREEMPTION_EXIT_CODE; a watchdog force-exits if the "
+           "drain has not finished inside this budget. 0 = no watchdog.",
+           cached=False),
+    EnvVar("MXNET_PREEMPTION_EXIT_CODE", int, 83,
+           "Exit code of a SUCCESSFUL graceful preemption drain (flag -> "
+           "waitall -> drain hooks): a supervisor seeing this code knows "
+           "the drain completed. A drain that FAILED exits 1 instead; the "
+           "watchdog force-exit uses this code + 1.", cached=False),
+    EnvVar("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
+           "Engine facade selection (engine.engine_type): "
+           "ThreadedEnginePerDevice = the asynchronous pipeline; "
+           "NaiveEngine forces prefetch depth 0 (engine.prefetch_depth).",
+           cached=False),
+    EnvVar("MXNET_ENGINE_PREFETCH", int, 2,
+           "Async pipeline depth (engine.prefetch_depth): also the depth of "
+           "ServingEngine's staging queue, floored at 2 so the double "
+           "buffer survives depth 0. MXNET_ENGINE_TYPE=NaiveEngine forces "
+           "0.", cached=False),
+    EnvVar("MXNET_TELEMETRY_EVENTS", int, 4096,
+           "Telemetry event-bus capacity: the bounded buffer keeps the "
+           "newest N structured events (shed, preempt, fault, admit, "
+           "retire, ...); older events drop (the emitted counter "
+           "telemetry.events keeps the true total). Read once at import."),
+    EnvVar("MXNET_TELEMETRY_TRACE", int, 1,
+           "End-to-end request tracing: every request admitted by "
+           "ServingEngine.infer or GenerativeEngine.generate mints a "
+           "trace_id carried in a thread-local trace context that the "
+           "engines' worker threads re-enter; shed/fault events and "
+           "serving/decode spans stamp it, and telemetry.trace(id) returns "
+           "the stitched lifecycle. 0 = no ids minted, no trace fields.",
+           cached=False),
+    EnvVar("MXNET_TELEMETRY_XLA", int, 1,
+           "Wrap telemetry.span brackets in torch.profiler."
+           "record_function ranges, so host-side spans (serving dispatch, "
+           "decode iteration) land inside torch.profiler traces of the "
+           "device. 0 = spans record host-side only.", cached=False),
 )}
 
 _CACHE: Dict[str, Any] = {}
@@ -107,7 +232,9 @@ def get(name: str) -> Any:
     raw = os.environ.get(name)
     if raw is None:
         return var.default
-    val = _CACHE[name] = _parse(var, raw)
+    val = _parse(var, raw)
+    if var.cached:
+        _CACHE[name] = val
     return val
 
 

@@ -16,7 +16,10 @@ from .context import resolve_device
 from .models.transformer_lm import TransformerLMConfig, param_shapes
 
 __all__ = ["params_from_numpy", "tensor_from_numpy",
-           "gluon_params_from_numpy"]
+           "gluon_params_from_numpy", "decode_params_from_numpy"]
+
+_DECODE_TOP = ("emb", "pos", "out")
+_DECODE_LAYER = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -71,3 +74,26 @@ def gluon_params_from_numpy(net, np_params: Mapping[str, np.ndarray]) -> None:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, the net "
                              f"wants {p.shape}")
         p.set_data(t)
+
+
+def decode_params_from_numpy(np_params: Mapping, device=None) -> Dict:
+    """The JAX package's decode-parameter pytree (``serving_decode``'s
+    ``TinyCausalLM.init_params``, leaves given as numpy: ``emb``, ``pos``,
+    ``out`` and ``layers[i]`` with ``wq``, ``wk``, ``wv``, ``wo``, ``w1``,
+    ``w2``) -> the port's dict of the same structure on ``device``
+    (``cuda`` if None), each leaf keeping its dtype. Raises on a missing or
+    extra name."""
+    dev = resolve_device(device)
+
+    def take(tree, names, where):
+        missing = sorted(set(names) - set(tree))
+        extra = sorted(set(tree) - set(names))
+        if missing or extra:
+            raise KeyError(f"{where}: missing {missing}, unexpected {extra}")
+        return {k: tensor_from_numpy(tree[k]).to(dev) for k in names}
+
+    top = {k: v for k, v in np_params.items() if k != "layers"}
+    out = take(top, _DECODE_TOP, "decode params")
+    out["layers"] = [take(lp, _DECODE_LAYER, f"layer {i}")
+                     for i, lp in enumerate(np_params["layers"])]
+    return out

@@ -1,12 +1,16 @@
 """The program store: every captured program of the process.
 
 Counterpart of ``mxnet_tpu/program_store.py``, holding what the compiled
-train step (``cached_step.TrainStep``, ``models.make_train_step``) and the
-hybridized forward (``gluon.HybridBlock``) need:
+train step (``cached_step.TrainStep``, ``models.make_train_step``), the
+hybridized forward (``gluon.HybridBlock``) and the serving engines
+(``serving.ServingEngine``, ``serving_decode.GenerativeEngine``) need:
 
-- **Namespaces** ``train_step`` (cap ``MXNET_COMPILED_STEP_CACHE``, 16) and
-  ``hybrid_forward`` (cap ``MXNET_FORWARD_CACHE``, 32), each one metrics
+- **Namespaces** ``train_step`` (cap ``MXNET_COMPILED_STEP_CACHE``, 16),
+  ``hybrid_forward``, ``serving`` and ``serving_decode`` (cap
+  ``MXNET_FORWARD_CACHE``, 32) and ``sharded_step``, each one metrics
   surface: hits, misses, evictions, traces and dispatches (:func:`stats`).
+  Caps are per owner (below), so two engines never evict each other's
+  programs.
 - **ScopeCache**: one owner's keyspace, an LRU under its namespace's cap,
   so that two owners never evict each other's programs.
 - **Program**, the counterpart of ``build(name, jitted, lower_args)``.
@@ -21,11 +25,25 @@ hybridized forward (``gluon.HybridBlock``) need:
   the same static buffers with no graph, so that its keys, copies and
   counters run in the CPU tests. A failed capture raises: nothing falls
   back to eager. Each capture counts as 1 trace and each call as 1
-  dispatch, as the reference counts traces and dispatches. Python's
-  cyclic garbage collector is held off while a capture runs
-  (:func:`_graph`): a collection there could free a dead cycle that holds
-  another program's graph, and destroying a graph while a stream captures
-  invalidates the capture.
+  dispatch, as the reference counts traces and dispatches;
+  :meth:`Program.prepare` captures without a dispatch (the engines'
+  ``warmup``, the counterpart of compiling from abstract shapes).
+
+**Threads.** The serving engines capture from their scheduler or
+dispatcher threads while other threads stage copies or replay, so a
+capture is made safe for that (:func:`_graph`): captures are serialized
+under one process-wide lock; Python's cyclic garbage collector stays off
+until the last capture in flight has ended (a collection there could free
+a dead cycle that holds another program's graph, and destroying a graph
+while a stream captures invalidates the capture); a capture uses
+``capture_error_mode="thread_local"``, so that another thread's legal
+CUDA calls (a pinned-memory allocation, a synchronizing copy) neither
+fail nor spoil it; and each thread has its own side stream per device, so
+one thread's eager first call never lands in another thread's capture. A
+replay from a thread other than the one that captured is allowed. A
+device-wide synchronization from another thread would still invalidate a
+capture: :func:`synchronize` waits for the capture lock first (stream
+synchronizations are safe).
 
 A replay runs no Python of the body: counts that the body bumps in Python
 (the kernel wrappers' launch counts, the fused-site counts) move at the
@@ -41,8 +59,8 @@ params), the programs that hold the replaced ones can never hit again:
 and the programs' graphs.
 
 Not ported: ahead-of-time executables and the persistent compilation
-cache (a CUDA graph lives in one process), the serving namespaces and
-``MXNET_PROGRAM_CACHE_CAPS``.
+cache (a CUDA graph lives in one process), the ``serving_spec`` namespace
+(speculative decoding, ROADMAP A5b) and ``MXNET_PROGRAM_CACHE_CAPS``.
 """
 from __future__ import annotations
 
@@ -57,7 +75,7 @@ import torch
 from . import config as _config
 
 __all__ = ["Namespace", "ScopeCache", "Program", "VjpProgram",
-           "CapturedFunction",
+           "CapturedFunction", "CaptureError", "synchronize",
            "NAMESPACES", "namespace", "scope", "stats", "reset_counters",
            "run", "capture", "in_program", "knob_key", "tensor_key",
            "storage_key"]
@@ -155,6 +173,7 @@ NAMESPACES: Dict[str, Namespace] = {
     "train_step": Namespace("train_step", 16, "MXNET_COMPILED_STEP_CACHE"),
     "hybrid_forward": Namespace("hybrid_forward", 32, "MXNET_FORWARD_CACHE"),
     "serving": Namespace("serving", 32, "MXNET_FORWARD_CACHE"),
+    "serving_decode": Namespace("serving_decode", 32, "MXNET_FORWARD_CACHE"),
     "sharded_step": Namespace("sharded_step", 16,
                               "MXNET_COMPILED_STEP_CACHE"),
 }
@@ -197,7 +216,9 @@ class _Building(threading.local):
 
 
 _BUILDING = _Building()
-_SIDE_STREAMS: Dict[torch.device, Any] = {}
+_SIDE_STREAMS = threading.local()     # per thread: {device: stream}
+_CAPTURE_LOCK = threading.RLock()
+_GC_HOLD = {"depth": 0, "was_enabled": False}
 
 
 def in_program() -> bool:
@@ -208,24 +229,51 @@ def in_program() -> bool:
 
 
 def _side_stream(device: torch.device):
-    if device not in _SIDE_STREAMS:
-        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
-    return _SIDE_STREAMS[device]
+    """This thread's side stream on ``device``."""
+    streams = getattr(_SIDE_STREAMS, "by_device", None)
+    if streams is None:
+        streams = _SIDE_STREAMS.by_device = {}
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+def synchronize(device=None) -> None:
+    """``torch.cuda.synchronize(device)`` outside every capture: a device
+    synchronization while another thread captures would invalidate that
+    capture, so it waits for the capture lock."""
+    with _CAPTURE_LOCK:
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def _gc_held():
+    """The cyclic garbage collector off from the first capture in flight
+    until the last one has ended; the cycles it would have freed are
+    collected by a later collection."""
+    with _CAPTURE_LOCK:
+        if _GC_HOLD["depth"] == 0:
+            _GC_HOLD["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _GC_HOLD["depth"] += 1
+    try:
+        yield
+    finally:
+        with _CAPTURE_LOCK:
+            _GC_HOLD["depth"] -= 1
+            if _GC_HOLD["depth"] == 0 and _GC_HOLD["was_enabled"]:
+                gc.enable()
 
 
 @contextlib.contextmanager
 def _graph(graph, **kwargs):
-    """``torch.cuda.graph(graph, **kwargs)`` with the cyclic garbage
-    collector off until the capture ends (see the module docstring); the
-    cycles it would have freed are collected by a later collection."""
-    enabled = gc.isenabled()
-    gc.disable()
-    try:
+    """``torch.cuda.graph(graph, **kwargs)``, safe beside other threads
+    (see the module docstring): one capture at a time process-wide, the
+    garbage collector held off, thread-local capture errors."""
+    kwargs.setdefault("capture_error_mode", "thread_local")
+    with _CAPTURE_LOCK, _gc_held():
         with torch.cuda.graph(graph, **kwargs):
             yield
-    finally:
-        if enabled:
-            gc.enable()
 
 
 def _tensors(out) -> list:
@@ -243,6 +291,12 @@ def _clone(out):
         return type(out)(o.clone() if isinstance(o, torch.Tensor) else o
                          for o in out)
     return out
+
+
+class CaptureError(RuntimeError):
+    """A program's body ran eagerly but its CUDA-graph capture failed. The
+    serving engines deliver it to the requests of the call and never fall
+    back to eager for it."""
 
 
 class Program:
@@ -285,16 +339,37 @@ class Program:
         for t in _tensors(warm):
             t.record_stream(cur)
         graph = torch.cuda.CUDAGraph()
-        with _graph(graph, stream=stream):
-            out = self._run()
+        try:
+            with _graph(graph, stream=stream):
+                out = self._run()
+        except Exception as e:
+            raise CaptureError(f"capture of a {self._ns.name!r} program "
+                               f"failed: {e!r}") from e
         self._graph, self._out = graph, out
         return warm
 
-    def __call__(self, *args):
+    def _copy_in(self, args):
         with torch.inference_mode(False):
             for s, a in zip(self._static, args):
                 if a is not s:
-                    s.copy_(a)
+                    s.copy_(a, non_blocking=True)
+
+    def prepare(self, *args) -> None:
+        """Capture the program at its first call on ``args`` without
+        counting a dispatch (an engine's ``warmup``); a no-op once it was
+        called. The eager run's outputs are dropped."""
+        if self._called:
+            return
+        self._copy_in(args)
+        self._called = True
+        self._ns.bump("traces")
+        if self.device.type == "cuda":
+            self._first_call()
+        else:
+            self._run()
+
+    def __call__(self, *args):
+        self._copy_in(args)
         self._ns.bump("dispatches")
         if not self._called:
             self._called = True

@@ -1,0 +1,1841 @@
+"""Continuous-batching autoregressive serving: captured decode programs, a
+paged KV cache with a content-addressed prefix cache, multi-model SLO-aware
+admission, and seeded sampling.
+
+Counterpart of ``mxnet_tpu/serving_decode.py`` without speculative
+decoding (ROADMAP A5b):
+
+1. **A bounded program set.** Per-token work is ONE captured decode
+   program (``GenerativeEngine._build_decode``): the page-table gather of
+   the KV context, the attention, the sampler for every row and the KV
+   scatter (dead rows into the trash page) are one CUDA graph over static
+   input buffers (tokens, tables, lengths, sampling arguments) at a fixed
+   row capacity ``MXNET_SERVE_DECODE_ROWS``, plus one captured prefill per
+   sequence-length bucket (``serving.BucketPolicy``) and, on a partial
+   prefix hit, one suffix-prefill program per suffix bucket. Programs live
+   in the program store's ``serving_decode`` namespace;
+   :meth:`GenerativeEngine.warmup` captures the prefill grid and the
+   decode program before the scheduler thread starts. Steady state: 0
+   captures, 1 replay per decode iteration, 1 host read of the next tokens
+   per iteration.
+
+2. **Paged KV cache** (:class:`PagePool`): a fixed device pool of
+   ``MXNET_KV_PAGES`` pages of ``MXNET_KV_PAGE`` tokens, one global free
+   list, storage per KV geometry as ``(pages+1, page, L, H, D)`` K and V
+   tensors whose index ``pages`` is the trash page. The programs update
+   the storage in place (the counterpart of the reference's donation), so
+   every captured program sees fixed addresses.
+
+3. **Multi-model, SLO-aware admission**: engines share one pool
+   (:func:`shared_pool`), program caps stay per owner, dispatches of the
+   engines on one pool order through :class:`_DispatchGate`, and admission
+   is priced from measured EMAs: queue, pool, SLO, draining and deadline
+   refusals raise the typed :class:`faults.ShedError` at once (site
+   ``serving.admit``). Pool exhaustion mid-decode preempts the youngest
+   sequence, which re-queues keeping its seniority and enqueue clock.
+
+4. **Content-addressed prefix cache** (``MXNET_PREFIX_CACHE``, on by
+   default): prompt pages keyed by a chained hash of their token blocks,
+   refcounted, published after prefill, kept in an LRU when unreferenced,
+   forked copy-on-write at the first divergent write.
+
+5. **Seeded sampling** (:class:`SamplingSpec`): temperature, top-k and
+   top-p by Gumbel-argmax, keyed by ``fold_in(PRNGKey(seed), position)``.
+   The port reproduces JAX's threefry-2x32 (``PRNGKey``, ``fold_in``, the
+   32-bit ``random_bits`` path with ``jax_threefry_partitionable`` and
+   ``gumbel``'s uniform-to-Gumbel map) in int64 tensors masked to 32 bits,
+   so a sampled request replays the reference seed for seed and stays a
+   pure function of (seed, position): safe inside a CUDA graph and across
+   a preemption. Temperature 0 is the plain argmax, bitwise.
+
+One deliberate divergence: :meth:`PagePool.poison_free` takes the free
+list and writes the poison under one lock; the reference copies the list
+under its lock and writes later, so a page reallocated in between gets
+poisoned (ROADMAP Queue C).
+"""
+from __future__ import annotations
+
+import hashlib
+import heapq
+import math
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import config as _config
+from . import engine as _engine
+from . import faults as _faults
+from . import preemption as _preemption
+from . import program_store as _pstore
+from . import telemetry as _telemetry
+from .context import resolve_device
+from .faults import ShedError
+from .serving import BucketPolicy
+
+__all__ = ["PagePool", "PagePoolExhausted", "ShedError", "DecodeModel",
+           "TinyCausalLM", "GenerativeEngine", "shared_pool",
+           "eager_generate", "trace_count", "dispatch_count",
+           "reset_counters", "SamplingSpec", "GREEDY", "sample_token",
+           "sample_scores",
+           "token_key", "prng_key", "fold_in", "threefry_2x32",
+           "random_bits", "gumbel"]
+
+_NS = _pstore.namespace("serving_decode")
+
+
+def trace_count() -> int:
+    return _NS.traces
+
+
+def dispatch_count() -> int:
+    return _NS.dispatches
+
+
+def reset_counters() -> None:
+    _NS.reset()
+
+
+class PagePoolExhausted(ShedError):
+    """No free KV-cache pages: the typed refusal admission raises and the
+    scheduler's preemption path absorbs."""
+
+    kind = "pool"
+
+
+class _DispatchGate:
+    """SLO-aware dispatch ordering across the engines sharing one pool:
+    each prefill or decode dispatch acquires the gate with a priority (the
+    engine's SLO, ``inf`` when unset) and waiters are served most urgent
+    first, FIFO on ties, so a fast model waits for at most one slow step."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._busy = False
+        self._seq = 0
+        self._heap: List[Tuple[float, int]] = []
+
+    def acquire(self, priority: float) -> None:
+        with self._cv:
+            self._seq += 1
+            tok = (priority, self._seq)
+            heapq.heappush(self._heap, tok)
+            while self._busy or self._heap[0] != tok:
+                self._cv.wait()
+            heapq.heappop(self._heap)
+            self._busy = True
+
+    def release(self) -> None:
+        with self._cv:
+            self._busy = False
+            self._cv.notify_all()
+
+
+# process-global prefix-cache counters (family 'prefix')
+_PREFIX_STATS = _telemetry.CounterGroup(
+    "prefix", ("hit_blocks", "miss_blocks", "cow_forks", "evictions"),
+    doc="content-addressed KV prefix cache (MXNET_PREFIX_CACHE)",
+    family="prefix")
+
+
+def _chain_keys(tokens: Sequence[int], page: int,
+                geom: Tuple) -> List[bytes]:
+    """Rolling content keys, one per ``page``-token block of ``tokens``
+    (the last block may be partial): key ``i`` is ``blake2b(key[i-1] ||
+    block_i)`` seeded with the KV geometry, so a key commits to the whole
+    token prefix through its block and to the storage layout."""
+    prev = repr((geom, page)).encode()
+    keys: List[bytes] = []
+    for i in range(0, len(tokens), page):
+        h = hashlib.blake2b(prev, digest_size=16)
+        h.update(np.asarray(tokens[i:i + page], np.int64).tobytes())
+        prev = h.digest()
+        keys.append(prev)
+    return keys
+
+
+# ---------------------------------------------------------------------------
+# Paged KV-cache pool
+# ---------------------------------------------------------------------------
+class PagePool:
+    """Fixed pool of KV-cache pages shared by every engine in the process.
+
+    Accounting is global (one free list of ``pages`` page ids); storage is
+    per KV geometry ``(n_layers, n_heads, head_dim, dtype)``: a
+    ``(pages+1, page, L, H, D)`` K tensor and V tensor on the pool's
+    device, index ``pages`` the trash page that masked rows and pad
+    positions write. Engines sharing a geometry share storage, so their
+    dispatches serialize through :meth:`exclusive`. The programs update the
+    storage in place; :meth:`set_storage` copies into the same tensors, so
+    their addresses never change. ``alloc`` raises
+    :class:`PagePoolExhausted` instead of blocking. ``device`` (default:
+    the first registering engine's) is where the storage lives.
+    """
+
+    def __init__(self, pages: Optional[int] = None,
+                 page: Optional[int] = None, device=None):
+        self.page = int(page if page is not None
+                        else _config.get("MXNET_KV_PAGE"))
+        self.pages = int(pages if pages is not None
+                         else _config.get("MXNET_KV_PAGES"))
+        if self.page < 1 or self.pages < 1:
+            raise ValueError(
+                f"PagePool needs pages>=1, page>=1 (got {self.pages}, "
+                f"{self.page})")
+        self.device = None if device is None else resolve_device(device)
+        # LIFO free list: a just-freed page is reused first
+        self._free: List[int] = list(range(self.pages - 1, -1, -1))
+        self._in_use: set = set()
+        self._refs: Dict[int, int] = {}
+        self._index: Dict[Tuple, Dict[bytes, int]] = {}  # geom -> key -> page
+        self._page_key: Dict[int, Tuple[Tuple, bytes]] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self._lock = threading.Lock()
+        self._storage: Dict[Tuple, List[torch.Tensor]] = {}
+        self._geom_locks: Dict[Tuple, threading.RLock] = {}
+        self.gate = _DispatchGate()
+        self._counts = _telemetry.CounterGroup(
+            _telemetry.instance_name("kv_pool"),
+            ("alloc", "free", "exhausted"),
+            doc="paged KV-cache pool page accounting", family="kv_pool")
+        self.high_water = 0
+
+    @property
+    def alloc_count(self) -> int:
+        return self._counts["alloc"]
+
+    @property
+    def free_count(self) -> int:
+        return self._counts["free"]
+
+    @property
+    def exhausted_count(self) -> int:
+        return self._counts["exhausted"]
+
+    @property
+    def trash(self) -> int:
+        """The reserved scratch page index (== ``pages``): never allocated
+        and never read unmasked."""
+        return self.pages
+
+    # -- accounting (by reference: alloc and a prefix hit acquire one, free
+    # releases one, so alloc_count - free_count == live references) -------
+    def _evict_locked(self, n: int) -> None:
+        """Reclaim ``n`` cached, unreferenced pages (oldest first) onto the
+        free list; a referenced page is never reclaimed."""
+        for _ in range(n):
+            p, _ = self._lru.popitem(last=False)
+            geom, key = self._page_key.pop(p)
+            self._index[geom].pop(key, None)
+            self._free.append(p)
+            _PREFIX_STATS.inc("evictions")
+
+    def alloc(self, n: int) -> List[int]:
+        with self._lock:
+            short = n - len(self._free)
+            if short > len(self._lru):
+                self._counts.inc("exhausted")
+                raise PagePoolExhausted(
+                    f"KV page pool exhausted: need {n} page(s), "
+                    f"{len(self._free)} free + {len(self._lru)} "
+                    f"evictable of {self.pages} "
+                    f"(page={self.page} tokens)")
+            if short > 0:
+                self._evict_locked(short)
+            got = [self._free.pop() for _ in range(n)]
+            self._in_use.update(got)
+            for p in got:
+                self._refs[p] = 1
+            self._counts.inc("alloc", n)
+            self.high_water = max(self.high_water, len(self._in_use))
+            return got
+
+    def free(self, pages: Sequence[int]) -> None:
+        """Release one reference per page; an unreferenced page returns to
+        the free list, or parks in the resident LRU when it holds
+        published prefix content."""
+        with self._lock:
+            for p in pages:
+                if p not in self._in_use:
+                    raise ValueError(
+                        f"double/foreign free of page {p} (in_use="
+                        f"{len(self._in_use)})")
+                self._counts.inc("free")
+                self._refs[p] -= 1
+                if self._refs[p] > 0:
+                    continue
+                del self._refs[p]
+                self._in_use.discard(p)
+                if p in self._page_key:
+                    self._lru[p] = None
+                else:
+                    self._free.append(p)
+
+    def in_use(self) -> int:
+        with self._lock:
+            return len(self._in_use)
+
+    def free_pages(self) -> int:
+        """Allocatable pages: free plus cached-but-unreferenced."""
+        with self._lock:
+            return len(self._free) + len(self._lru)
+
+    def ref(self, p: int) -> int:
+        """Reference count of page ``p`` (0 = free or cached)."""
+        with self._lock:
+            return self._refs.get(p, 0)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"pages": self.pages, "page": self.page,
+                    "in_use": len(self._in_use),
+                    "free": len(self._free),
+                    "cached": len(self._lru),
+                    "alloc_count": self.alloc_count,
+                    "free_count": self.free_count,
+                    "exhausted_count": self.exhausted_count,
+                    "high_water": self.high_water}
+
+    # -- content-addressed prefix cache ------------------------------------
+    def lookup(self, geom: Tuple, keys: Sequence[bytes]) -> List[int]:
+        """Longest cached prefix of the chain ``keys``: acquires one
+        reference per hit page (an LRU resident revives) and stops at the
+        first miss; counts hit and miss blocks."""
+        hits: List[int] = []
+        with self._lock:
+            idx = self._index.get(geom, {})
+            for key in keys:
+                p = idx.get(key)
+                if p is None:
+                    break
+                if p in self._in_use:
+                    self._refs[p] += 1
+                else:
+                    self._lru.pop(p)
+                    self._in_use.add(p)
+                    self._refs[p] = 1
+                self._counts.inc("alloc")
+                self.high_water = max(self.high_water, len(self._in_use))
+                hits.append(p)
+        _PREFIX_STATS.inc("hit_blocks", len(hits))
+        _PREFIX_STATS.inc("miss_blocks", len(keys) - len(hits))
+        return hits
+
+    def publish(self, geom: Tuple,
+                entries: Sequence[Tuple[bytes, int]]) -> None:
+        """Register freshly prefilled pages under their chain keys; the
+        first writer wins."""
+        with self._lock:
+            idx = self._index.setdefault(geom, {})
+            for key, p in entries:
+                if key in idx or p in self._page_key:
+                    continue
+                if p not in self._in_use:
+                    raise ValueError(
+                        f"publish of page {p} which is not in use")
+                idx[key] = p
+                self._page_key[p] = (geom, key)
+
+    def holds(self, geom: Tuple, keys: Sequence[bytes]) -> int:
+        """How many leading blocks of the chain are resident; no reference
+        bump, no device work."""
+        with self._lock:
+            idx = self._index.get(geom)
+            if not idx:
+                return 0
+            n = 0
+            for key in keys:
+                if key not in idx:
+                    break
+                n += 1
+            return n
+
+    def shared(self, p: int) -> bool:
+        """True when writing page ``p`` needs a copy-on-write fork first:
+        another row references it, or it is published content."""
+        with self._lock:
+            return self._refs.get(p, 0) > 1 or p in self._page_key
+
+    def fork(self, geom: Tuple, p: int) -> int:
+        """Copy-on-write: a private copy of page ``p`` (device copy under
+        the geometry's lock), this caller's reference on ``p`` released;
+        returns the new page id. May evict or raise like ``alloc``."""
+        new = self.alloc(1)[0]
+        with self.exclusive(geom):
+            k, v = self._storage[geom]
+            k[new].copy_(k[p])
+            v[new].copy_(v[p])
+        self.free([p])
+        _PREFIX_STATS.inc("cow_forks")
+        return new
+
+    def clear_prefix_cache(self) -> int:
+        """Drop every cached, unreferenced page back to the free list and
+        unpublish all keys; returns the pages reclaimed."""
+        with self._lock:
+            reclaimed = len(self._lru)
+            for p in self._lru:
+                self._free.append(p)
+            self._lru.clear()
+            self._index.clear()
+            self._page_key.clear()
+            return reclaimed
+
+    def audit(self) -> List[str]:
+        """Refcount and bookkeeping invariants: violation strings, [] when
+        sound."""
+        bad: List[str] = []
+        with self._lock:
+            if set(self._refs) != self._in_use:
+                bad.append(f"refs/in_use mismatch: {sorted(self._refs)}"
+                           f" vs {sorted(self._in_use)}")
+            for p, r in self._refs.items():
+                if r < 1:
+                    bad.append(f"page {p} in use with refcount {r}")
+            free, lru = set(self._free), set(self._lru)
+            if free & lru:
+                bad.append(f"pages both free and cached: {free & lru}")
+            if free & self._in_use or lru & self._in_use:
+                bad.append("pages both free/cached and in use: "
+                           f"{(free | lru) & self._in_use}")
+            total = len(self._free) + len(self._lru) + len(self._in_use)
+            if total != self.pages:
+                bad.append(f"page conservation broke: {len(self._free)}"
+                           f" free + {len(self._lru)} cached + "
+                           f"{len(self._in_use)} in use != {self.pages}")
+            for geom, idx in self._index.items():
+                for key, p in idx.items():
+                    if self._page_key.get(p) != (geom, key):
+                        bad.append(f"index key {key.hex()} -> page {p} "
+                                   "lacks its reverse mapping")
+                    if p not in self._in_use and p not in lru:
+                        bad.append(f"index key {key.hex()} -> page {p} "
+                                   "which is neither live nor cached")
+        return bad
+
+    # -- storage -----------------------------------------------------------
+    def register(self, n_layers: int, n_heads: int, head_dim: int,
+                 dtype=torch.float32, device=None) -> Tuple:
+        """Declare a KV geometry on ``device`` (the pool's, which the first
+        registration fixes); allocates its K and V storage on first sight.
+        Returns the storage key."""
+        dtype = torch.float32 if dtype is None else dtype
+        geom = (int(n_layers), int(n_heads), int(head_dim),
+                str(dtype).replace("torch.", ""))
+        with self._lock:
+            dev = resolve_device(device if device is not None
+                                 else self.device)
+            if self.device is None:
+                self.device = dev
+            elif dev != self.device:
+                raise ValueError(
+                    f"PagePool storage lives on {self.device}; an engine on "
+                    f"{dev} cannot share it")
+            if geom not in self._storage:
+                shape = (self.pages + 1, self.page, geom[0], geom[1],
+                         geom[2])
+                self._storage[geom] = [
+                    torch.zeros(shape, dtype=dtype, device=dev),
+                    torch.zeros(shape, dtype=dtype, device=dev)]
+                self._geom_locks[geom] = threading.RLock()
+        return geom
+
+    def exclusive(self, geom: Tuple) -> threading.RLock:
+        """The per-geometry dispatch lock: every program that updates this
+        geometry's storage holds it across the dispatch."""
+        return self._geom_locks[geom]
+
+    def storage(self, geom: Tuple) -> Tuple[torch.Tensor, torch.Tensor]:
+        k, v = self._storage[geom]
+        return k, v
+
+    def set_storage(self, geom: Tuple, k, v) -> None:
+        """Write ``k`` and ``v`` into the geometry's storage tensors, which
+        keep their addresses (a no-op for the storage itself)."""
+        sk, sv = self._storage[geom]
+        if k is not sk:
+            sk.copy_(k)
+        if v is not sv:
+            sv.copy_(v)
+
+    # -- test hook ---------------------------------------------------------
+    def poison_free(self, value: float = 1e30) -> int:
+        """Overwrite every free page (all geometries) with ``value``: the
+        aliasing canary. The free list is read and the poison written
+        under one hold of the pool's lock, so no page can be allocated in
+        between and get poisoned while live (the reference reads under the
+        lock and writes after it). Returns the pages poisoned."""
+        with self._lock:
+            free = list(self._free)
+            if not free:
+                return 0
+            for g, (k, v) in self._storage.items():
+                idx = torch.tensor(free, dtype=torch.long, device=k.device)
+                with self.exclusive(g):
+                    k[idx] = value
+                    v[idx] = value
+            return len(free)
+
+
+_SHARED: Optional[PagePool] = None
+_SHARED_LOCK = threading.Lock()
+
+
+def shared_pool() -> PagePool:
+    """The process-shared pool every engine defaults to (sized by
+    ``MXNET_KV_PAGES`` / ``MXNET_KV_PAGE`` at first use)."""
+    global _SHARED
+    with _SHARED_LOCK:
+        if _SHARED is None:
+            _SHARED = PagePool()
+        return _SHARED
+
+
+# ---------------------------------------------------------------------------
+# Model contract
+# ---------------------------------------------------------------------------
+def _row(x: torch.Tensor, i) -> torch.Tensor:
+    """``x[i]`` for an int or a 0-d index tensor (no host read)."""
+    if isinstance(i, torch.Tensor):
+        return x.index_select(0, i.reshape(1).long())[0]
+    return x[i]
+
+
+class DecodeModel:
+    """What a model provides to serve through :class:`GenerativeEngine`:
+    ``vocab``, ``n_layers``, ``n_heads``, ``head_dim``, ``max_seq`` and
+    functions of explicit parameter dicts (the engine owns paging, dead-row
+    masking and batching):
+
+    - ``prefill(params, tokens, length) -> (logits, k, v)``: one sequence,
+      ``tokens`` ``(B,)`` padded to a bucket, ``length`` the true length;
+      next-token ``logits`` ``(vocab,)`` at ``length-1`` and the cache
+      ``k``/``v`` ``(L, B, H, D)``.
+    - ``decode(params, tokens, k_ctx, v_ctx, lengths) -> (logits, k_new,
+      v_new)``: one token per row at positions ``lengths`` ``(R,)``,
+      attending ``k_ctx``/``v_ctx`` ``(L, R, C, H, D)`` where context
+      position ``j`` is valid iff ``j < lengths[r]``.
+    - optional ``prefill_chunk(params, tokens, k_ctx, v_ctx, offset,
+      length)``: the uncached suffix at positions ``offset ..``, context
+      ``(L, C, H, D)`` valid below ``offset``; ``None`` recomputes the
+      whole prompt on a partial prefix hit.
+
+    ``decode`` over cached K/V equals a fresh ``prefill`` over the
+    extended sequence: that is what makes continuous-batched greedy decode
+    token-exact against the eager loop.
+    """
+
+    vocab: int
+    n_layers: int
+    n_heads: int
+    head_dim: int
+    max_seq: int
+    prefill_chunk = None
+
+    def init_params(self, seed: int = 0, device=None):
+        raise NotImplementedError
+
+    def prefill(self, params, tokens, length):
+        raise NotImplementedError
+
+    def decode(self, params, tokens, k_ctx, v_ctx, lengths):
+        raise NotImplementedError
+
+
+class TinyCausalLM(DecodeModel):
+    """The reference :class:`DecodeModel` (``serving_decode.py:668``): a
+    causal transformer with learned token and position embeddings,
+    multi-head attention, a ReLU MLP and an untied output head, without
+    layer norms, as plain torch functions of explicit parameter dicts."""
+
+    def __init__(self, vocab: int = 64, d_model: int = 32,
+                 n_layers: int = 2, n_heads: int = 2,
+                 d_mlp: Optional[int] = None, max_seq: int = 128):
+        if d_model % n_heads:
+            raise ValueError("d_model must divide by n_heads")
+        self.vocab = vocab
+        self.d_model = d_model
+        self.n_layers = n_layers
+        self.n_heads = n_heads
+        self.head_dim = d_model // n_heads
+        self.d_mlp = d_mlp or 2 * d_model
+        self.max_seq = max_seq
+
+    def init_params(self, seed: int = 0, device=None):
+        """The reference's weights, draw for draw
+        (``numpy.random.RandomState(seed)``), as fp32 tensors on
+        ``device`` (``cuda`` if None; raises without CUDA unless given the
+        CPU)."""
+        dev = resolve_device(device)
+        rng = np.random.RandomState(seed)
+
+        def mat(*shape, scale=None):
+            scale = scale or 1.0 / math.sqrt(shape[0])
+            arr = (rng.randn(*shape) * scale).astype(np.float32)
+            return torch.from_numpy(arr).to(dev)
+
+        params = {
+            "emb": mat(self.vocab, self.d_model, scale=0.5),
+            "pos": mat(self.max_seq, self.d_model, scale=0.1),
+            "out": mat(self.d_model, self.vocab),
+            "layers": [],
+        }
+        for _ in range(self.n_layers):
+            params["layers"].append({
+                "wq": mat(self.d_model, self.d_model),
+                "wk": mat(self.d_model, self.d_model),
+                "wv": mat(self.d_model, self.d_model),
+                "wo": mat(self.d_model, self.d_model),
+                "w1": mat(self.d_model, self.d_mlp),
+                "w2": mat(self.d_mlp, self.d_model),
+            })
+        return params
+
+    # -- helpers -----------------------------------------------------------
+    def _heads(self, x):
+        return x.reshape(x.shape[:-1] + (self.n_heads, self.head_dim))
+
+    def _attend(self, q, k, v, valid):
+        # q (R, H, D); k/v (R, J, H, D); valid (R, J) bool
+        scores = torch.einsum("rhd,rjhd->rhj", q, k) \
+            / math.sqrt(self.head_dim)
+        scores = scores.masked_fill(~valid[:, None, :], -1e30)
+        w = torch.softmax(scores, dim=-1)
+        return torch.einsum("rhj,rjhd->rhd", w, v)
+
+    def _mlp(self, h, lp):
+        return h + torch.relu(h @ lp["w1"]) @ lp["w2"]
+
+    # -- contract ----------------------------------------------------------
+    def prefill(self, params, tokens, length):
+        b = tokens.shape[0]
+        h = params["emb"][tokens] + params["pos"][:b]        # (B, d)
+        pos = torch.arange(b, device=tokens.device)
+        causal = pos[:, None] >= pos[None, :]                # (B, B)
+        ks, vs = [], []
+        for lp in params["layers"]:
+            q = self._heads(h @ lp["wq"])                    # (B, H, D)
+            k = self._heads(h @ lp["wk"])
+            v = self._heads(h @ lp["wv"])
+            ks.append(k)
+            vs.append(v)
+            scores = torch.einsum("ihd,jhd->ihj", q, k) \
+                / math.sqrt(self.head_dim)
+            scores = scores.masked_fill(~causal[:, None, :], -1e30)
+            w = torch.softmax(scores, dim=-1)
+            att = torch.einsum("ihj,jhd->ihd", w, v)         # (B, H, D)
+            h = h + att.reshape(b, self.d_model) @ lp["wo"]
+            h = self._mlp(h, lp)
+        logits = _row(h, length - 1) @ params["out"]         # (vocab,)
+        return logits, torch.stack(ks), torch.stack(vs)      # (L,B,H,D)
+
+    def decode(self, params, tokens, k_ctx, v_ctx, lengths):
+        r = tokens.shape[0]
+        c = k_ctx.shape[2]
+        h = params["emb"][tokens] + params["pos"][lengths]   # (R, d)
+        ctx_valid = torch.arange(c, device=tokens.device)[None, :] \
+            < lengths[:, None]                               # (R, C)
+        # the new token always attends itself (appended key slot C)
+        valid = torch.cat(
+            [ctx_valid, torch.ones((r, 1), dtype=torch.bool,
+                                   device=tokens.device)], dim=1)
+        k_news, v_news = [], []
+        for li, lp in enumerate(params["layers"]):
+            q = self._heads(h @ lp["wq"])                    # (R, H, D)
+            k_new = self._heads(h @ lp["wk"])
+            v_new = self._heads(h @ lp["wv"])
+            k_news.append(k_new)
+            v_news.append(v_new)
+            k = torch.cat([k_ctx[li], k_new[:, None]], dim=1)
+            v = torch.cat([v_ctx[li], v_new[:, None]], dim=1)
+            att = self._attend(q, k, v, valid)               # (R, H, D)
+            h = h + att.reshape(r, self.d_model) @ lp["wo"]
+            h = self._mlp(h, lp)
+        logits = h @ params["out"]                           # (R, vocab)
+        return logits, torch.stack(k_news), torch.stack(v_news)
+
+    def prefill_chunk(self, params, tokens, k_ctx, v_ctx, offset, length):
+        b = tokens.shape[0]
+        c = k_ctx.shape[1]
+        dev = tokens.device
+        ii = torch.arange(b, device=dev)
+        pos = offset + ii
+        h = params["emb"][tokens] \
+            + params["pos"][torch.clamp(pos, max=self.max_seq - 1)]
+        # cached context: every suffix token attends positions < offset
+        ctx_valid = (torch.arange(c, device=dev)[None, :] < offset) \
+            .expand(b, c)
+        # in-chunk: causal, and pad keys (global pos >= length) masked
+        chunk_valid = (ii[None, :] <= ii[:, None]) \
+            & (ii[None, :] < length - offset)
+        valid = torch.cat([ctx_valid, chunk_valid], dim=1)
+        ks, vs = [], []
+        for li, lp in enumerate(params["layers"]):
+            q = self._heads(h @ lp["wq"])                    # (B, H, D)
+            k_new = self._heads(h @ lp["wk"])
+            v_new = self._heads(h @ lp["wv"])
+            ks.append(k_new)
+            vs.append(v_new)
+            k = torch.cat([k_ctx[li], k_new], dim=0)         # (C+B,H,D)
+            v = torch.cat([v_ctx[li], v_new], dim=0)
+            scores = torch.einsum("ihd,jhd->ihj", q, k) \
+                / math.sqrt(self.head_dim)
+            scores = scores.masked_fill(~valid[:, None, :], -1e30)
+            w = torch.softmax(scores, dim=-1)
+            att = torch.einsum("ihj,jhd->ihd", w, v)         # (B, H, D)
+            h = h + att.reshape(b, self.d_model) @ lp["wo"]
+            h = self._mlp(h, lp)
+        logits = _row(h, length - offset - 1) @ params["out"]
+        return logits, torch.stack(ks), torch.stack(vs)      # (L,B,H,D)
+
+
+# ---------------------------------------------------------------------------
+# threefry-2x32, as JAX computes it (jax/_src/prng.py, random.py)
+# ---------------------------------------------------------------------------
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry_2x32(k1, k2, x1, x2):
+    """The threefry-2x32 hash (20 rounds) of the count pair ``(x1, x2)``
+    under the key ``(k1, k2)``: int64 tensors holding uint32 values,
+    broadcast together. Returns the pair of uint32 words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x1, x2
+
+
+def _u32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(torch.int64) & _M32
+
+
+def prng_key(seed, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``'s key data for seeds in [0, 2**31)
+    (what :class:`SamplingSpec` keeps): ``(..., 2)`` int64 words
+    ``(0, seed)``."""
+    s = _u32(seed, device)
+    return torch.stack([torch.zeros_like(s), s], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the hash of the count pair
+    ``(0, uint32(data))`` under ``key``."""
+    d = _u32(data, key.device)
+    y1, y2 = threefry_2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def token_key(seed, position, device=None) -> torch.Tensor:
+    """The key of the token at absolute sequence ``position``:
+    ``fold_in(PRNGKey(seed), position)``, a pure function of (seed,
+    position)."""
+    return fold_in(prng_key(seed, device), position)
+
+
+def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` on the partitionable path:
+    ``(..., n)`` int64 words, the XOR of the hash of ``(0, i)``."""
+    counts = torch.arange(n, device=key.device, dtype=torch.int64)
+    b1, b2 = threefry_2x32(key[..., 0:1], key[..., 1:2],
+                           torch.zeros_like(counts), counts)
+    return b1 ^ b2
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,))`` (mode "low", float32): the uniform
+    draw on [tiny, 1) from the top 23 bits, then ``-log(-log(u))``."""
+    bits = random_bits(key, n)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    # (1 - tiny) is 1.0 in fp32, as JAX's (maxval - minval); Python
+    # scalars, so that nothing is copied from the host inside a capture
+    u = torch.clamp(floats * (1.0 - _F32_TINY) + _F32_TINY, min=_F32_TINY)
+    return -torch.log(-torch.log(u))
+
+
+# ---------------------------------------------------------------------------
+# Sampling (temperature / top-k / top-p)
+# ---------------------------------------------------------------------------
+class SamplingSpec:
+    """Per-request stochastic decoding spec. ``temperature == 0`` is greedy
+    (the sampler's 0-branch is the plain argmax, bitwise); ``top_k <= 0`` /
+    ``top_p >= 1`` disable their filters; ``seed`` keys the counter-based
+    PRNG: the token at absolute position ``i`` draws from
+    ``fold_in(PRNGKey(seed), i)``, so a preemption re-prefill replays the
+    same tokens."""
+
+    __slots__ = ("temperature", "top_k", "top_p", "seed")
+
+    def __init__(self, temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, seed: int = 0):
+        t = float(temperature)
+        if not (0.0 <= t < float("inf")):
+            raise ValueError(f"temperature must be finite >= 0, got {t}")
+        p = float(top_p)
+        if not (0.0 < p <= 1.0):
+            raise ValueError(f"top_p must be in (0, 1], got {p}")
+        self.temperature = t
+        self.top_k = int(top_k)
+        self.top_p = p
+        self.seed = int(seed) & 0x7FFFFFFF
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature == 0.0
+
+    def to_wire(self) -> Dict[str, Any]:
+        return {"temperature": self.temperature, "top_k": self.top_k,
+                "top_p": self.top_p, "seed": self.seed}
+
+    @classmethod
+    def from_wire(cls, d: Dict[str, Any]) -> "SamplingSpec":
+        return cls(temperature=d.get("temperature", 0.0),
+                   top_k=d.get("top_k", 0), top_p=d.get("top_p", 1.0),
+                   seed=d.get("seed", 0))
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, SamplingSpec)
+                and self.to_wire() == other.to_wire())
+
+    def __repr__(self) -> str:
+        return (f"SamplingSpec(temperature={self.temperature}, "
+                f"top_k={self.top_k}, top_p={self.top_p}, "
+                f"seed={self.seed})")
+
+
+#: the spec every greedy request decodes under
+GREEDY = SamplingSpec()
+
+
+def _keep_mask(scaled, top_k, top_p):
+    """Keep-mask of the top-k and nucleus (top-p) filters over
+    temperature-scaled logits ``scaled`` ``(..., V)``; ``top_k`` and
+    ``top_p`` ``(...)``. The rank-0 token is always kept."""
+    v = scaled.shape[-1]
+    order = torch.argsort(-scaled, dim=-1, stable=True)
+    iota = torch.arange(v, device=scaled.device).expand_as(order)
+    ranks = torch.empty_like(order).scatter_(-1, order, iota)
+    k_eff = torch.where(top_k <= 0, torch.full_like(top_k, v), top_k)
+    keep_k = ranks < k_eff[..., None]
+    # nucleus: smallest prefix of the sorted distribution whose mass
+    # reaches top_p; exclusive cumsum < p keeps the boundary token
+    sprobs = torch.softmax(torch.gather(scaled, -1, order), dim=-1)
+    excl = torch.cumsum(sprobs, dim=-1) - sprobs
+    keep_p = torch.gather(excl < top_p[..., None], -1, ranks)
+    return keep_k & keep_p
+
+
+def sample_scores(logits, temperature, top_k, top_p, key):
+    """``(scaled, scores)`` of the sampler: the temperature-scaled logits,
+    and ``scaled`` masked by top-k / top-p plus the Gumbel noise of ``key``
+    ``(..., 2)``, whose argmax is the sampled token. The sampling arguments
+    are tensors of shape ``(...)`` (or scalars)."""
+    dev = logits.device
+    temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                  device=dev)
+    top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev)
+    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
+    scaled = logits / torch.clamp(temperature, min=1e-6)[..., None]
+    keep = _keep_mask(scaled, top_k.expand(scaled.shape[:-1]),
+                      top_p.expand(scaled.shape[:-1]))
+    masked = scaled.masked_fill(~keep, float("-inf"))
+    return scaled, masked + gumbel(key, logits.shape[-1])
+
+
+def sample_token(logits, temperature, top_k, top_p, key):
+    """Sample token ids from ``logits`` ``(..., V)`` under temperature /
+    top-k / top-p by Gumbel-argmax on the masked scaled logits
+    (:func:`sample_scores`). Where the temperature is 0 the result is the
+    plain argmax, bitwise. No host read: it runs inside the captured
+    programs and in the eager oracle alike."""
+    temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                  device=logits.device)
+    greedy = torch.argmax(logits, dim=-1)
+    _scaled, scores = sample_scores(logits, temperature, top_k, top_p, key)
+    sampled = torch.argmax(scores, dim=-1)
+    return torch.where(temperature > 0.0, sampled, greedy).to(torch.int32)
+
+
+def _sampling_args(sampling: Optional[SamplingSpec]):
+    """The four host scalars a spec rides the program signature as."""
+    s = sampling or GREEDY
+    return (np.float32(s.temperature), np.int32(s.top_k),
+            np.float32(s.top_p), np.int32(s.seed))
+
+
+def _device_of(params) -> torch.device:
+    return params["emb"].device
+
+
+def eager_generate(model: DecodeModel, params, prompt: Sequence[int],
+                   max_new_tokens: int, eos: Optional[int] = None,
+                   sampling: Optional[SamplingSpec] = None) -> List[int]:
+    """The one-request-at-a-time reference loop: a full forward over the
+    tokens so far for every generated token (no KV cache, no batching,
+    exact shapes), on the parameters' device; the parity oracle of the
+    continuous batcher. ``sampling`` keys each token by
+    ``fold_in(PRNGKey(seed), position)`` as the engine's programs do."""
+    dev = _device_of(params)
+    toks = [int(t) for t in prompt]
+    out: List[int] = []
+    temp, top_k, top_p, seed = _sampling_args(sampling)
+    with torch.no_grad():
+        for _ in range(max_new_tokens):
+            logits, _k, _v = model.prefill(
+                params, torch.tensor(toks, dtype=torch.long, device=dev),
+                len(toks))
+            if sampling is None or sampling.greedy:
+                nxt = int(torch.argmax(logits))
+            else:
+                # the token being generated sits at absolute position
+                # len(toks): the counter the engine's programs fold in
+                nxt = int(sample_token(
+                    logits, float(temp), int(top_k), float(top_p),
+                    token_key(int(seed), len(toks), dev)))
+            out.append(nxt)
+            toks.append(nxt)
+            if eos is not None and nxt == eos:
+                break
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Requests + per-row state
+# ---------------------------------------------------------------------------
+class _GenRequest:
+    __slots__ = ("prompt", "max_new", "eos", "out", "event", "error",
+                 "t_enqueue", "t_done", "preempts", "joined", "trace_id",
+                 "sampling")
+
+    def __init__(self, prompt: List[int], max_new: int,
+                 eos: Optional[int],
+                 sampling: Optional[SamplingSpec] = None):
+        self.prompt = prompt
+        self.max_new = max_new
+        self.eos = eos
+        # carried like t_enqueue: a preemption re-queue replays the same
+        # seed, and the position-keyed PRNG regenerates the same tokens
+        self.sampling = sampling
+        self.out: List[int] = []        # survives preemption
+        self.event = threading.Event()
+        self.error: Optional[BaseException] = None
+        self.trace_id: Optional[str] = None
+        # the one enqueue clock, never reset by a preemption re-queue
+        self.t_enqueue = time.monotonic()
+        self.t_done = 0.0
+        self.preempts = 0
+        # admission order, stamped at the first prefill and kept across
+        # preemption re-queues (youngest-first victims)
+        self.joined: Optional[int] = None
+
+
+class _Row:
+    __slots__ = ("req", "pages", "cached", "pending", "joined")
+
+    def __init__(self, req: _GenRequest, pages: List[int], cached: int,
+                 pending: int, joined: int):
+        self.req = req
+        self.pages = pages        # page ids, in sequence order
+        self.cached = cached      # tokens whose KV is in the pool
+        self.pending = pending    # next token to feed the decode step
+        self.joined = joined      # admission order
+
+
+class GenerativeEngine:
+    """Continuous-batching decoder over one :class:`DecodeModel`.
+
+    ``eng = GenerativeEngine(model, params, device="cpu"); toks =
+    eng.generate([1, 2, 3], max_new_tokens=16)``: ``generate`` is
+    thread-safe and blocking; concurrent callers share decode iterations
+    (one replay per token batch). Admission sheds loudly
+    (:class:`faults.ShedError`) instead of queueing toward a timeout. The
+    engine runs on ``device`` (``cuda`` unless given the CPU; raises
+    without CUDA), where its parameters must lie; it never moves them. See
+    the module docstring for the design."""
+
+    def __init__(self, model: DecodeModel, params=None,
+                 pool: Optional[PagePool] = None,
+                 name: Optional[str] = None,
+                 max_rows: Optional[int] = None,
+                 max_queue: Optional[int] = None,
+                 slo_us: Optional[int] = None,
+                 policy: Optional[BucketPolicy] = None,
+                 eos: Optional[int] = None,
+                 device=None):
+        self._device = resolve_device(device)
+        self._model = model
+        self._params = (params if params is not None
+                        else model.init_params(device=self._device))
+        pdev = _device_of(self._params)
+        if pdev.type != self._device.type or (
+                pdev.index is not None and self._device.index is not None
+                and pdev.index != self._device.index):
+            raise ValueError(
+                f"GenerativeEngine on {self._device} was given parameters "
+                f"on {pdev}; the engine never moves its parameters")
+        self._pool = pool if pool is not None else shared_pool()
+        self.name = name or type(model).__name__
+        self._rows = int(max_rows if max_rows is not None
+                         else _config.get("MXNET_SERVE_DECODE_ROWS"))
+        self._max_queue = int(max_queue if max_queue is not None
+                              else _config.get("MXNET_SERVE_MAX_QUEUE"))
+        self._slo = (slo_us if slo_us is not None
+                     else _config.get("MXNET_SERVE_SLO_US")) / 1e6
+        # dispatch-gate urgency: a tighter SLO dispatches first
+        self._priority = self._slo if self._slo > 0 else float("inf")
+        self._policy = policy or BucketPolicy()
+        self._eos = eos
+        self._geom = self._pool.register(
+            model.n_layers, model.n_heads, model.head_dim,
+            dtype=self._params["emb"].dtype, device=self._device)
+        self._max_pages = -(-int(model.max_seq) // self._pool.page)
+        self._programs = _pstore.scope("serving_decode")
+        self._keep = self._param_tensors() + list(
+            self._pool.storage(self._geom))
+        # the cost table: measured seconds per prefill bucket and per
+        # decode step (admission prices requests from these EMAs)
+        self._cost: Dict[Any, float] = {}
+        self._cv = threading.Condition()
+        self._queue: "deque[_GenRequest]" = deque()
+        self._live: List[_Row] = []
+        self._joined = 0
+        self._thread: Optional[threading.Thread] = None
+        self._closed = False
+        self._draining = False
+        self._latencies: "deque[float]" = deque(maxlen=8192)
+        self._decode_host = self._host_buffers()
+        self._stats = _telemetry.CounterGroup(
+            _telemetry.instance_name("decode.engine"),
+            ("requests", "delivered", "tokens_out", "prefills",
+             "decode_steps", "decode_row_util", "shed", "shed_queue",
+             "shed_pool", "shed_slo", "shed_draining", "shed_deadline",
+             "preempts", "slo_violations", "warmup_programs",
+             "bucket_fallbacks"),
+            doc=f"GenerativeEngine counters (model {self.name!r})",
+            family="decode.engine")
+        _telemetry.register_load_gauges(self, self._stats.prefix)
+        _engine.register_drainable(self)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    def _param_tensors(self) -> List[torch.Tensor]:
+        p = self._params
+        out = [p["emb"], p["pos"], p["out"]]
+        for lp in p["layers"]:
+            out += list(lp.values())
+        return out
+
+    def _host_buffers(self) -> List[torch.Tensor]:
+        """The decode step's host-side inputs (pinned on CUDA, so their
+        copies into the program's buffers are asynchronous): tokens,
+        tables, lengths, temperatures, top-k, top-p, seeds."""
+        r, p = self._rows, self._max_pages
+        pin = self._device.type == "cuda"
+        return [torch.empty(shape, dtype=dtype, pin_memory=pin)
+                for shape, dtype in (
+                    ((r,), torch.int64), ((r, p), torch.int64),
+                    ((r,), torch.int64), ((r,), torch.float32),
+                    ((r,), torch.int64), ((r,), torch.float32),
+                    ((r,), torch.int64))]
+
+    # -- public ------------------------------------------------------------
+    def generate(self, prompt, max_new_tokens: int = 32,
+                 eos: Optional[int] = None,
+                 sampling: Optional[SamplingSpec] = None) -> List[int]:
+        """Generate up to ``max_new_tokens`` token ids after ``prompt`` (a
+        1-D int sequence); blocks until delivered. ``sampling`` turns on
+        temperature / top-k / top-p decode inside the same programs
+        (``None`` or temperature 0 is greedy). Raises
+        :class:`faults.ShedError` at once when admission refuses."""
+        with _telemetry.trace_scope():
+            return self._generate_traced(prompt, max_new_tokens, eos,
+                                         sampling)
+
+    def _generate_traced(self, prompt, max_new_tokens: int,
+                         eos: Optional[int],
+                         sampling: Optional[SamplingSpec] = None
+                         ) -> List[int]:
+        if self._closed:
+            raise RuntimeError("GenerativeEngine is closed")
+        if isinstance(prompt, torch.Tensor):
+            prompt = prompt.tolist()
+        toks = [int(t) for t in np.asarray(prompt).ravel()]
+        if not toks:
+            raise ValueError("generate() needs a non-empty prompt")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if len(toks) + max_new_tokens > self._model.max_seq:
+            raise ValueError(
+                f"prompt({len(toks)}) + max_new({max_new_tokens}) "
+                f"exceeds model.max_seq={self._model.max_seq}")
+        eos = eos if eos is not None else self._eos
+        if sampling is not None and not isinstance(sampling,
+                                                   SamplingSpec):
+            raise TypeError(
+                f"sampling must be a SamplingSpec, got {sampling!r}")
+        req = _GenRequest(toks, int(max_new_tokens), eos,
+                          sampling=sampling)
+        req.trace_id = _telemetry.current_trace()
+        self._stats.inc("requests")
+        if req.trace_id is not None:
+            _telemetry.event("admit", self.name, tokens=len(toks),
+                             max_new=int(max_new_tokens))
+        rem_us = _faults.deadline_remaining_us()
+        until = (time.monotonic() + rem_us / 1e6
+                 if rem_us is not None else None)
+        self._admit(req)                 # may raise ShedError, fail-fast
+        with self._cv:
+            self._start_thread()
+            self._queue.append(req)
+            self._cv.notify_all()
+        if until is None:
+            delivered = req.event.wait(timeout=600.0)
+        else:
+            delivered = req.event.wait(
+                timeout=max(0.0, until - time.monotonic()))
+        if not delivered:
+            if until is not None:
+                with self._cv:
+                    try:
+                        self._queue.remove(req)
+                    except ValueError:
+                        pass
+                self._shed("deadline",
+                           f"deadline budget exhausted after "
+                           f"{(time.monotonic() - req.t_enqueue) * 1e6:.0f}"
+                           "us (admission + queue + decode)")
+            raise _faults.DeadlineExceeded(
+                "generation not delivered within 600s (scheduler "
+                "wedged?)")
+        if req.error is not None:
+            raise req.error
+        self._latencies.append(req.t_done - req.t_enqueue)
+        if self._slo > 0 and req.t_done - req.t_enqueue > self._slo:
+            self._stats.inc("slo_violations")
+        if req.trace_id is not None:
+            _telemetry.event("retire", self.name,
+                             tokens_out=len(req.out),
+                             preempts=req.preempts)
+        _telemetry.record_span(
+            "decode.request", "serving",
+            int(req.t_enqueue * 1e9), int(req.t_done * 1e9),
+            args={"model": self.name, "tokens_out": len(req.out),
+                  "preempts": req.preempts})
+        return list(req.out)
+
+    def spans(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Recent decode-path spans (prefill dispatches and decode
+        iterations, cat ``decode``)."""
+        return _telemetry.spans(cat="decode", limit=limit)
+
+    def load(self) -> Dict[str, float]:
+        """Live load signals: queue depth, live-row occupancy, page-pool
+        pressure. No device reads."""
+        with self._cv:
+            depth = len(self._queue)
+            live = len(self._live)
+        return {
+            "queue_depth": depth + 0.0,
+            "in_flight": live / max(self._rows, 1),
+            "pool_pressure": 1.0 - (self._pool.free_pages()
+                                    / max(self._pool.pages, 1)),
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        """Per-model counters and request-latency percentiles."""
+        out = dict(self._stats)
+        out["model"] = self.name
+        out["programs"] = len(self._programs)
+        out["queue_depth"] = len(self._queue)
+        out["live_rows"] = len(self._live)
+        out["rows"] = self._rows
+        out["pool"] = self._pool.stats()
+        if out["decode_steps"]:
+            out["rows_per_decode"] = (out["decode_row_util"]
+                                      / out["decode_steps"])
+        lat = sorted(self._latencies)
+        if lat:
+            out["p50_us"] = lat[len(lat) // 2] * 1e6
+            out["p99_us"] = lat[min(len(lat) - 1,
+                                    int(len(lat) * 0.99))] * 1e6
+        else:
+            out["p50_us"] = out["p99_us"] = 0.0
+        return out
+
+    def drain(self, timeout: float = 120.0) -> None:
+        """``engine.waitall()`` hook: block until every admitted request
+        has been delivered (queue empty, no live rows)."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._cv:
+                if not self._queue and not self._live:
+                    return
+            time.sleep(0.002)
+
+    def begin_drain(self) -> None:
+        """Drain this one engine: new admissions and the queued backlog
+        shed typed ``draining``, live rows decode to completion."""
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+
+    def pool_audit(self) -> List[str]:
+        """``PagePool.audit()``: [] when every page is free, cached, or
+        referenced consistently."""
+        return list(self._pool.audit())
+
+    def pool_in_use(self) -> int:
+        """Referenced pages right now (0 after a drain = no leak)."""
+        return int(self._pool.in_use())
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- admission (site serving.admit) -------------------------------------
+    def _estimate_s(self, req: _GenRequest) -> float:
+        """Cost-table price of one request: its prefill bucket's EMA plus
+        max_new decode-step EMAs; unknown entries price 0."""
+        b = self._policy.bucket(len(req.prompt))
+        pre = self._cost.get(("prefill", b), 0.0)
+        dec = self._cost.get("decode", 0.0)
+        return pre + req.max_new * dec
+
+    def _shed(self, kind: str, reason: str,
+              cause: Optional[BaseException] = None):
+        self._stats.inc("shed")
+        self._stats.inc("shed_" + kind)
+        _telemetry.event("shed", self.name, shed_kind=kind, reason=reason)
+        _faults.record_event("serving.admit", "shed", cause,
+                             model=self.name, kind=kind, reason=reason)
+        err = ShedError(f"[{self.name}] {reason}", kind=kind)
+        if cause is not None:
+            raise err from cause
+        raise err
+
+    def _admit(self, req: _GenRequest) -> None:
+        """Fail-fast admission in the caller's thread: the
+        ``serving.admit`` site and the draining / deadline / queue / pool /
+        SLO checks, each refusal an immediate typed ShedError."""
+        if _preemption.draining() or self._draining:
+            self._shed("draining",
+                       "engine draining (preemption notice or replica "
+                       "drain); re-queue this request on another "
+                       "replica or after the restart")
+        try:
+            _faults.inject("serving.admit")
+        except _faults.FaultInjected as e:
+            self._shed("queue", "admission fault injected", cause=e)
+        rem_us = _faults.deadline_remaining_us()
+        if rem_us is not None:
+            est = self._estimate_s(req)
+            if rem_us <= 0:
+                self._shed("deadline",
+                           "deadline budget already spent at admission")
+            if est > rem_us / 1e6:
+                self._shed("deadline",
+                           f"cost table predicts {est * 1e6:.0f}us vs "
+                           f"{rem_us}us remaining in the deadline budget")
+        with self._cv:
+            qlen = len(self._queue)
+        if qlen >= self._max_queue:
+            self._shed("queue",
+                       f"admission queue full ({qlen} >= "
+                       f"MXNET_SERVE_MAX_QUEUE={self._max_queue})")
+        need = -(-(len(req.prompt) + req.max_new) // self._pool.page)
+        if need > self._pool.pages:
+            self._shed("pool",
+                       f"request needs {need} KV pages, pool holds "
+                       f"{self._pool.pages} total — can never fit")
+        if self._slo > 0:
+            est = (qlen + 1) * self._estimate_s(req)
+            if est > self._slo:
+                self._shed("slo",
+                           f"cost table predicts {est*1e6:.0f}us wait "
+                           f"vs SLO {self._slo*1e6:.0f}us "
+                           f"({qlen} queued ahead)")
+
+    # -- scheduler ----------------------------------------------------------
+    def _start_thread(self) -> None:
+        if self._thread is None and not self._closed:
+            self._thread = threading.Thread(
+                target=self._sched_loop, daemon=True,
+                name=f"mxnet-decode-{self.name}")
+            self._thread.start()
+
+    def _sched_loop(self) -> None:
+        while True:
+            with self._cv:
+                while (not self._queue and not self._live
+                       and not self._closed):
+                    self._cv.wait(timeout=0.1)
+                if self._closed and not self._queue and not self._live:
+                    return
+            try:
+                self._iteration()
+            except BaseException as e:      # deliver, never wedge
+                self._fail_all(e)
+
+    def _fail_all(self, e: BaseException) -> None:
+        with self._cv:
+            rows, self._live = self._live, []
+            reqs = list(self._queue)
+            self._queue.clear()
+        for row in rows:
+            self._release(row)
+            self._finish(row.req, e)
+        for req in reqs:
+            self._finish(req, e)
+
+    @staticmethod
+    def _finish(req: _GenRequest, error: Optional[BaseException]) -> None:
+        req.error = error
+        req.t_done = time.monotonic()
+        req.event.set()
+
+    def _requeue_for_drain(self) -> None:
+        """Drain handback: queued, not-yet-prefilled requests return to
+        their callers as typed ``draining`` sheds, while live rows keep
+        decoding to completion."""
+        with self._cv:
+            reqs, self._queue = list(self._queue), deque()
+        for req in reqs:
+            self._stats.inc("shed")
+            self._stats.inc("shed_draining")
+            with _telemetry.trace_scope(trace_id=req.trace_id):
+                _telemetry.event(
+                    "shed", self.name, shed_kind="draining",
+                    reason="queued request re-queued at drain")
+                _faults.record_event(
+                    "serving.admit", "shed", model=self.name,
+                    kind="draining",
+                    reason="queued request re-queued at drain",
+                    tokens_done=len(req.out))
+            self._finish(req, ShedError(
+                f"[{self.name}] draining after a preemption notice "
+                "before this request was scheduled; re-queue it after the "
+                f"restart (its {len(req.out)} partial token(s) regenerate "
+                "token-exactly)", kind="draining"))
+
+    def _iteration(self) -> None:
+        """One scheduler iteration: admit prefills into free rows, run one
+        decode step over the live sequences, retire."""
+        if _preemption.draining() or self._draining:
+            self._requeue_for_drain()
+        while len(self._live) < self._rows:
+            with self._cv:
+                if not self._queue:
+                    break
+                req = self._queue.popleft()
+            try:
+                self._prefill(req)
+                continue
+            except PagePoolExhausted:
+                with self._cv:
+                    self._queue.appendleft(req)   # head-of-line: retry
+                if not self._live:
+                    # nothing of ours will retire: wait briefly for other
+                    # engines, then shed loudly
+                    if self._wait_for_pages(req):
+                        continue
+                    with self._cv:
+                        self._queue.remove(req)
+                    self._stats.inc("shed")
+                    self._stats.inc("shed_pool")
+                    with _telemetry.trace_scope(trace_id=req.trace_id):
+                        _telemetry.event(
+                            "shed", self.name, shed_kind="pool",
+                            reason="pool exhausted at prefill")
+                        _faults.record_event(
+                            "serving.admit", "shed", model=self.name,
+                            kind="pool",
+                            reason="pool exhausted at prefill")
+                    self._finish(req, ShedError(
+                        f"[{self.name}] KV page pool exhausted at "
+                        "prefill and no progress upstream", kind="pool"))
+                break
+            except BaseException as e:
+                # a bad request fails only its own caller
+                self._finish(req, e)
+        if self._live:
+            self._decode_step()
+            self._retire_finished()
+
+    def _wait_for_pages(self, req: _GenRequest, budget: float = 5.0
+                        ) -> bool:
+        need = -(-len(req.prompt) // self._pool.page) or 1
+        deadline = time.monotonic() + budget
+        while time.monotonic() < deadline:
+            if self._pool.free_pages() >= need:
+                return True
+            if self._closed:
+                return False
+            time.sleep(0.005)
+        return False
+
+    # -- prefill ------------------------------------------------------------
+    def _prefill(self, req: _GenRequest) -> None:
+        """The prompt program of the request's bucket: writes its KV into
+        fresh pages (scatter inside the program) and emits the first
+        generated token. Runs on the scheduler thread inside the request's
+        trace."""
+        with _telemetry.trace_scope(trace_id=req.trace_id):
+            self._prefill_traced(req)
+
+    def _prefix_on(self) -> bool:
+        return bool(_config.get("MXNET_PREFIX_CACHE"))
+
+    def _prefix_min_blocks(self) -> int:
+        """Cost-table floor for content addressing: the per-block probe
+        cost must undercut the per-block prefill a hit saves; an
+        unmeasured table prices the floor at 1."""
+        probe = self._cost.get(("prefix", "probe"), 0.0)
+        saved = self._cost.get(("prefix", "block"), 0.0)
+        if probe <= 0.0 or saved <= 0.0:
+            return 1
+        return max(1, int(math.ceil(probe / saved)))
+
+    def _prefix_lookup(self, prompt: List[int]
+                       ) -> Tuple[List[bytes], List[int]]:
+        """Hash the prompt's block chain and acquire the longest cached
+        prefix: ``(keys, hit_pages)``, both empty when the knob is off or
+        the prompt is under the cost-table floor."""
+        if not self._prefix_on():
+            return [], []
+        t0 = time.perf_counter()
+        keys = _chain_keys(prompt, self._pool.page, self._geom)
+        if len(keys) < self._prefix_min_blocks():
+            return [], []
+        hits = self._pool.lookup(self._geom, keys)
+        self._ema(("prefix", "probe"),
+                  (time.perf_counter() - t0) / len(keys))
+        return keys, hits
+
+    def prefix_probe(self, prompt: Sequence[int]) -> int:
+        """How many leading page blocks of ``prompt`` are resident in this
+        engine's pool; 0 when the cache is off."""
+        if not self._prefix_on():
+            return 0
+        toks = [int(t) for t in prompt]
+        return self._pool.holds(
+            self._geom, _chain_keys(toks, self._pool.page, self._geom))
+
+    def _join(self, req: _GenRequest) -> int:
+        if req.joined is None:           # first admission only: a
+            req.joined = self._joined    # preemption re-queue keeps its
+            self._joined += 1            # original seniority
+        return req.joined
+
+    def _add_row(self, row: _Row) -> None:
+        if self._done(row):
+            self._deliver(row)
+        else:
+            self._live.append(row)
+
+    def _prefill_traced(self, req: _GenRequest) -> None:
+        prompt = req.prompt + req.out     # re-grown after preemption
+        n = len(prompt)
+        page = self._pool.page
+        keys, hits = self._prefix_lookup(prompt)
+        blocks = len(keys)
+        if hits and min(len(hits) * page, n) >= n:
+            # full hit: no prefill dispatch; rewind one position so the
+            # decode step recomputes the last prompt token's logits (its
+            # write lands in a shared page, which _ensure_page forks)
+            _telemetry.event("prefix_hit", self.name,
+                             hit_blocks=blocks, blocks=blocks,
+                             hit_rate=1.0, tokens=n)
+            self._add_row(_Row(req, hits, cached=n - 1, pending=prompt[-1],
+                               joined=self._join(req)))
+            return
+        if hits and self._model.prefill_chunk is None:
+            self._pool.free(hits)
+            hits = []
+        cached = len(hits) * page   # page-aligned: a partial-tail hit is a
+        m = n - cached              # full hit
+        bucket = self._policy.bucket(m)
+        if bucket is None:                # above the largest bucket
+            self._stats.inc("bucket_fallbacks")
+            bucket = m
+        bucket = min(bucket, int(self._model.max_seq))
+        try:
+            fresh = self._pool.alloc(-(-n // page) - len(hits))
+        except BaseException:
+            if hits:
+                self._pool.free(hits)    # lookup references never leak
+            raise
+        pages = hits + fresh
+        try:
+            tokens = np.zeros((bucket,), np.int64)
+            tokens[:m] = prompt[cached:]
+            table = np.full((self._max_pages,), self._pool.trash, np.int64)
+            table[:len(pages)] = pages
+            span_args: Dict[str, Any] = {"model": self.name,
+                                         "bucket": bucket, "tokens": n}
+            if keys:
+                span_args.update(
+                    hit_blocks=len(hits), blocks=blocks,
+                    hit_rate=len(hits) / max(blocks, 1))
+            samp = [torch.tensor(a) for a in _sampling_args(req.sampling)]
+            t0 = time.perf_counter()
+            with _telemetry.span("decode.prefill", cat="decode",
+                                 args=span_args):
+                self._pool.gate.acquire(self._priority)
+                try:
+                    with self._pool.exclusive(self._geom):
+                        if hits:
+                            # suffix-only dispatch: the cached prefix
+                            # rides in through the page-table gather
+                            first = self._call(
+                                ("prefill_chunk", bucket),
+                                lambda: self._chunk_fn(bucket),
+                                [torch.from_numpy(tokens),
+                                 torch.tensor(cached), torch.tensor(n),
+                                 torch.from_numpy(table), *samp])
+                        else:
+                            first = self._call(
+                                ("prefill", bucket),
+                                lambda: self._prefill_fn(bucket),
+                                [torch.from_numpy(tokens), torch.tensor(n),
+                                 torch.from_numpy(table), *samp])
+                        first = int(first)    # host read = real cost
+                finally:
+                    self._pool.gate.release()
+            secs = time.perf_counter() - t0
+            self._ema(("prefill", bucket), secs)
+            self._ema(("prefix", "block"), secs * page / max(m, 1))
+            self._stats.inc("prefills")
+            if keys:
+                self._pool.publish(
+                    self._geom, [(keys[i], pages[i])
+                                 for i in range(len(hits), blocks)])
+        except BaseException:
+            self._pool.free(pages)
+            raise
+        req.out.append(first)
+        self._add_row(_Row(req, pages, cached=n, pending=first,
+                           joined=self._join(req)))
+
+    def _call(self, key, build, args):
+        """The program of ``key`` on ``args``: a replay, or on a miss a new
+        program captured at this first call (kept once that succeeded)."""
+        return _pstore.run(self._programs, key, build, args,
+                           device=self._device, keep=self._keep)
+
+    def _scatter(self, pidx, slot, k, v) -> None:
+        """Write per-position K/V rows ``(L, B, H, D)`` at (page, slot) of
+        the pool storage, in place."""
+        k_pool, v_pool = self._pool.storage(self._geom)
+        k_pool[pidx, slot] = k.transpose(0, 1)
+        v_pool[pidx, slot] = v.transpose(0, 1)
+
+    def _prefill_fn(self, bucket: int):
+        model, params = self._model, self._params
+        page, trash = self._pool.page, self._pool.trash
+
+        def prefill_fn(tokens, length, table, temp, top_k, top_p, seed):
+            with torch.no_grad():
+                logits, k, v = model.prefill(params, tokens, length)
+                pos = torch.arange(bucket, device=tokens.device)
+                pidx = torch.where(pos < length, table[pos // page],
+                                   torch.full_like(pos, trash))
+                self._scatter(pidx, pos % page, k, v)
+                # the first generated token sits at absolute position
+                # ``length``: its counter-based key
+                return sample_token(logits, temp, top_k, top_p,
+                                    token_key(seed, length))
+
+        return prefill_fn
+
+    def _gather_ctx(self, table):
+        """The page-table gather: ``(..., P)`` page ids -> K and V context
+        ``(L, ..., P*page, H, D)``."""
+        model, page = self._model, self._pool.page
+        k_pool, v_pool = self._pool.storage(self._geom)
+        lead = table.shape[:-1]
+        c = table.shape[-1] * page
+        nd = len(lead)
+        perm = (nd + 1,) + tuple(range(nd + 1)) + (nd + 2, nd + 3)
+        out = []
+        for pool_t in (k_pool, v_pool):
+            ctx = pool_t[table].reshape(lead + (c, model.n_layers,
+                                                model.n_heads,
+                                                model.head_dim))
+            out.append(ctx.permute(perm))
+        return out
+
+    def _chunk_fn(self, bucket: int):
+        model, params = self._model, self._params
+        page, trash = self._pool.page, self._pool.trash
+        max_pages = self._max_pages
+
+        def prefill_chunk_fn(tokens, offset, length, table, temp, top_k,
+                             top_p, seed):
+            with torch.no_grad():
+                k_ctx, v_ctx = self._gather_ctx(table)      # (L, C, H, D)
+                logits, k, v = model.prefill_chunk(
+                    params, tokens, k_ctx, v_ctx, offset, length)
+                pos = offset + torch.arange(bucket, device=tokens.device)
+                # bucket padding can point past the table: clamp, then
+                # mask to the trash page
+                pidx = torch.where(
+                    pos < length,
+                    table[torch.clamp(pos // page, max=max_pages - 1)],
+                    torch.full_like(pos, trash))
+                self._scatter(pidx, pos % page, k, v)
+                return sample_token(logits, temp, top_k, top_p,
+                                    token_key(seed, length))
+
+        return prefill_chunk_fn
+
+    def _decode_fn(self):
+        model, params, page = self._model, self._params, self._pool.page
+
+        def decode_fn(tokens, tables, lengths, temps, top_ks, top_ps,
+                      seeds):
+            with torch.no_grad():
+                k_ctx, v_ctx = self._gather_ctx(tables)   # (L, R, C, H, D)
+                logits, k_new, v_new = model.decode(
+                    params, tokens, k_ctx, v_ctx, lengths)
+                # the new token's KV at (page of position len, slot); dead
+                # rows have trash tables and length 0
+                rows = torch.arange(tokens.shape[0], device=tokens.device)
+                self._scatter(tables[rows, lengths // page], lengths % page,
+                              k_new, v_new)
+                # the sampled token lands at absolute position lengths+1
+                return sample_token(logits, temps, top_ks, top_ps,
+                                    token_key(seeds, lengths + 1))
+
+        return decode_fn
+
+    @staticmethod
+    def _scalars(*dtypes):
+        return [torch.zeros((), dtype=d) for d in dtypes]
+
+    def _sampling_example(self):
+        return self._scalars(torch.float32, torch.int64, torch.float32,
+                             torch.int64)
+
+    def _prefill_example(self, bucket: int):
+        table = torch.full((self._max_pages,), self._pool.trash,
+                           dtype=torch.int64)
+        return [torch.zeros((bucket,), dtype=torch.int64),
+                torch.tensor(bucket), table, *self._sampling_example()]
+
+    def _decode_example(self):
+        r, p = self._rows, self._max_pages
+        return [torch.zeros((r,), dtype=torch.int64),
+                torch.full((r, p), self._pool.trash, dtype=torch.int64),
+                torch.zeros((r,), dtype=torch.int64),
+                torch.zeros((r,), dtype=torch.float32),
+                torch.zeros((r,), dtype=torch.int64),
+                torch.ones((r,), dtype=torch.float32),
+                torch.zeros((r,), dtype=torch.int64)]
+
+    # -- decode -------------------------------------------------------------
+    def _decode_step(self) -> None:
+        """One replay for every live sequence (gather, attend, sample,
+        scatter inside the one program; dead rows masked into the trash
+        page), then the iteration's one host read of the next tokens."""
+        for row in list(self._live):
+            # a preemption inside an earlier row's _ensure_page may have
+            # evicted this row: allocating onto it would orphan the page
+            if row in self._live:
+                self._ensure_page(row)
+        if not self._live:
+            return
+        bufs = self._decode_host
+        tokens, tables, lengths, temps, top_ks, top_ps, seeds = \
+            [b.numpy() for b in bufs]
+        tokens[:] = 0
+        tables[:] = self._pool.trash
+        lengths[:] = 0
+        temps[:] = 0.0
+        top_ks[:] = 0
+        top_ps[:] = 1.0
+        seeds[:] = 0
+        for i, row in enumerate(self._live):
+            tokens[i] = row.pending
+            tables[i, :len(row.pages)] = row.pages
+            lengths[i] = row.cached
+            (temps[i], top_ks[i], top_ps[i],
+             seeds[i]) = _sampling_args(row.req.sampling)
+        t0 = time.perf_counter()
+        step_args: Dict[str, Any] = {"model": self.name,
+                                     "rows": len(self._live)}
+        traces = [row.req.trace_id for row in self._live
+                  if row.req.trace_id is not None]
+        if traces:
+            step_args["trace_ids"] = traces
+        with _telemetry.span("decode.step", cat="decode",
+                             args=step_args):
+            self._pool.gate.acquire(self._priority)
+            try:
+                with self._pool.exclusive(self._geom):
+                    nxt = self._call(("decode",), self._decode_fn, bufs)
+                    # THE one host read per decode iteration
+                    nxt = nxt.tolist()
+            finally:
+                self._pool.gate.release()
+        self._ema("decode", time.perf_counter() - t0)
+        self._stats.inc("decode_steps")
+        self._stats.inc("decode_row_util", len(self._live))
+        for i, row in enumerate(self._live):
+            row.cached += 1               # pending's KV is now paged
+            row.pending = int(nxt[i])
+            row.req.out.append(row.pending)
+        self._stats.inc("tokens_out", len(self._live))
+
+    def _ensure_page(self, row: _Row) -> None:
+        """The incoming token writes KV at position ``row.cached``:
+        allocate its page if that position opens one, fork it first when
+        it is shared or published. Exhaustion preempts the youngest other
+        live sequence (pages freed, request re-queued at the head)."""
+        if row.cached < len(row.pages) * self._pool.page:
+            i = row.cached // self._pool.page
+            if not self._pool.shared(row.pages[i]):
+                return
+
+            def grow() -> None:
+                row.pages[i] = self._pool.fork(self._geom, row.pages[i])
+        else:
+
+            def grow() -> None:
+                row.pages.extend(self._pool.alloc(1))
+        while True:
+            try:
+                grow()
+                return
+            except PagePoolExhausted as e:
+                victims = [x for x in self._live if x is not row]
+                if not victims:
+                    # this sequence alone outgrew the pool: a loud typed
+                    # failure, never a silent truncation
+                    self._live.remove(row)
+                    self._release(row)
+                    self._stats.inc("shed")
+                    self._stats.inc("shed_pool")
+                    with _telemetry.trace_scope(
+                            trace_id=row.req.trace_id):
+                        _telemetry.event(
+                            "shed", self.name, shed_kind="pool",
+                            reason="single sequence outgrew pool")
+                        _faults.record_event(
+                            "serving.admit", "shed", e, model=self.name,
+                            kind="pool",
+                            reason="single sequence outgrew pool")
+                    self._finish(row.req, ShedError(
+                        f"[{self.name}] sequence needs page "
+                        f"{len(row.pages) + 1}, pool exhausted with no "
+                        "other sequence to preempt", kind="pool"))
+                    return
+                self._preempt(max(victims, key=lambda x: x.joined))
+
+    def _preempt(self, row: _Row) -> None:
+        self._live.remove(row)
+        self._release(row)
+        row.req.preempts += 1
+        self._stats.inc("preempts")
+        with _telemetry.trace_scope(trace_id=row.req.trace_id):
+            _telemetry.event("preempt", self.name,
+                             tokens_done=len(row.req.out))
+            _faults.record_event("serving.admit", "preempt",
+                                 model=self.name,
+                                 tokens_done=len(row.req.out))
+        with self._cv:
+            self._queue.appendleft(row.req)
+
+    # -- retire / deliver ----------------------------------------------------
+    def _done(self, row: _Row) -> bool:
+        req = row.req
+        return (len(req.out) >= req.max_new
+                or (req.eos is not None and bool(req.out)
+                    and req.out[-1] == req.eos))
+
+    def _retire_finished(self) -> None:
+        for row in [x for x in self._live if self._done(x)]:
+            self._live.remove(row)
+            self._deliver(row)
+
+    def _release(self, row: _Row) -> None:
+        if row.pages:
+            self._pool.free(row.pages)
+            row.pages = []
+
+    def _deliver(self, row: _Row) -> None:
+        self._release(row)               # pages free this iteration
+        self._stats.inc("delivered")
+        self._finish(row.req, None)
+
+    def _ema(self, key, secs: float, alpha: float = 0.3) -> None:
+        prev = self._cost.get(key)
+        self._cost[key] = secs if prev is None \
+            else (1 - alpha) * prev + alpha * secs
+
+    # -- ahead-of-time warmup ------------------------------------------------
+    def warmup(self, max_len: Optional[int] = None) -> int:
+        """Capture the bounded program set before serving: one prefill per
+        bucket of the ``MXNET_SHAPE_BUCKETS`` grid (pow2 spans
+        1..``max_len``, default ``model.max_seq``; an explicit grid is
+        taken as it is) and THE decode program. Each capture writes only
+        the trash page. Returns the programs captured (0 = already
+        warm)."""
+        if self._closed:
+            raise RuntimeError("GenerativeEngine is closed")
+        cap = int(max_len if max_len is not None else self._model.max_seq)
+        cap = min(cap, int(self._model.max_seq))
+        if not self._policy.enabled:
+            grid: List[int] = [cap]
+        elif self._policy.buckets() is not None:
+            grid = [b for b in self._policy.buckets() if b <= cap]
+        else:
+            grid, b = [], 1
+            while b <= cap:
+                grid.append(b)
+                b <<= 1
+        specs = [(("prefill", b), lambda b=b: self._prefill_fn(b),
+                  self._prefill_example(b)) for b in grid]
+        specs.append((("decode",), self._decode_fn, self._decode_example()))
+        compiled = 0
+        with self._pool.exclusive(self._geom):
+            for key, build, example in specs:
+                if key in self._programs:
+                    continue
+                self._programs.lookup(key)            # counted miss
+                prog = _pstore.Program(_NS, build(), example, self._device,
+                                       keep=self._keep)
+                prog.prepare(*example)
+                self._programs.insert(key, prog)
+                compiled += 1
+        self._stats.inc("warmup_programs", compiled)
+        return compiled
+

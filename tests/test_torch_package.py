@@ -14,7 +14,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "mxnet_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "tools").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
 
 
@@ -101,6 +101,14 @@ def test_scan_finds_every_port_module():
             "mxnet_tpu_torch/ops/init.py",
             "mxnet_tpu_torch/ops/random.py",
             "mxnet_tpu_torch/optimizer/adam.py",
+            "mxnet_tpu_torch/config.py",
+            "mxnet_tpu_torch/faults.py",
+            "mxnet_tpu_torch/telemetry.py",
+            "mxnet_tpu_torch/preemption.py",
+            "mxnet_tpu_torch/engine.py",
+            "mxnet_tpu_torch/serving_decode.py",
+            "mxnet_tpu_torch/convert.py",
+            "tools/torch_serving_latency.py",
             "chip_smoke.py"} <= names
 
 
@@ -271,6 +279,30 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         models.make_train_step(cfg)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serving_entry_points_raise_without_cuda(no_cuda):
+    from mxnet_tpu_torch import gluon, serving, serving_decode as sd
+
+    model = sd.TinyCausalLM(vocab=16, d_model=8, n_layers=1, n_heads=2,
+                            max_seq=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_params(0)
+    params = model.init_params(0, device="cpu")
+    pool = sd.PagePool(pages=4, page=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sd.GenerativeEngine(model, params=params, pool=pool)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pool.register(1, 2, 4)
+
+    class Double(gluon.HybridBlock):
+        def forward(self, x):
+            return x * 2
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.ServingEngine(Double())
+    eng = sd.GenerativeEngine(model, params=params, pool=pool, device="cpu")
+    eng.close()
 
 
 def test_gluon_entry_points_raise_without_cuda(no_cuda):
