@@ -226,6 +226,38 @@ Phases, in order; any failure exits non-zero before the result line:
    (``lanes_phase``): the lane_infer stream, the two-model storm and the
    shared-prefix lane at their own widths, with their bars printed. A
    JSON line holds phase 11's numbers.
+12. Speculative decoding (``GenerativeEngine(draft=...)``,
+   ``MXNET_SPEC_DECODE=1``) at SPEC_WIDTH: ``high_agreement_pair`` at the
+   flagship widths (a 12-layer target whose layers 2-12 are the identity,
+   a 1-layer draft sharing its first layer) and a low-agreement 1-layer
+   draft drawn on its own, SPEC_REQUESTS greedy requests of SPEC_NEW
+   tokens at SPEC_ROWS rows, k SPEC_K, each engine on a pool of its own.
+   Gated: in fp64 both drafts' streams token-exact against the non-spec
+   engine, the low-agreement one auto-disabled; a seeded sampled request
+   on the card equal, seed for seed, to the same engine on the CPU; in
+   fp32 both drafts' streams token-exact against the non-spec engine,
+   acceptance >= SPEC_MIN_ACCEPTANCE and the low-agreement leg
+   auto-disabled; 0 captures after warm-up and no leaked page on every
+   leg; no launch of a TPU kernel's port. Printed: tokens/s spec against
+   baseline, the captured draft-round and verify programs' wall, device
+   busy and host ms, peak memory; then ``tools/torch_serving_latency.py``'s
+   ``--speculative`` lane (the reference's widths and bars) with its
+   bars printed, gated on token-exactness and 0 captures. A JSON line
+   holds phase 12's numbers.
+13. The mixture-of-experts LM: the flagship config with MOE_EXPERTS
+   experts, top MOE_TOP_K, capacity factor MOE_CAPACITY (``num_experts``,
+   ``parallel.moe``), Adam at TRAIN_LR on tokens TRAIN_TOKENS, at
+   ``grad_accum`` 1 and 2: two eager runs of MOE_EAGER_STEPS steps and one
+   captured run of MOE_CAPTURED_STEPS; the path's launches are those of
+   these runs alone (not of the capacity-drop forwards or the timing
+   loops). Gated: captured against eager by phase 8's rule over the first
+   MOE_EAGER_STEPS steps (losses, params, moments), 1 capture and 1
+   dispatch a step, the flash kernels' launches each eager step counted
+   by the wrappers and each replay's traced (12, or 24 at ``grad_accum``
+   2), their sum over the runs, finite falling losses, no flash
+   fallback. Printed: eager against captured wall, device busy and peak
+   memory of the step, the capacity-drop share per layer at init and
+   after the steps. A JSON line holds phase 13's numbers.
 10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
@@ -567,6 +599,19 @@ AB_REQUESTS, AB_NEW = 16, 32     # the lane_decode A/B at full width
 SERVE_REQUESTS, SERVE_THREADS, SERVE_ROWS = 64, 4, (1, 8)
 SERVE_VERIFY = (1e-5, 1e-6)      # the verify rule's last-ulp bound
 SERVE_IMAGE = 224
+
+# phase 12 (speculative decoding): high_agreement_pair at the flagship
+# widths (__graft_entry__.py:25-28), the decode phase's max_seq
+SPEC_WIDTH = dict(vocab=30528, d_model=768, target_layers=12,
+                  draft_layers=1, n_heads=12, max_seq=DECODE_WIDTH["max_seq"])
+SPEC_REQUESTS, SPEC_NEW, SPEC_K, SPEC_ROWS = 12, 32, 4, 4
+SPEC_PROMPT = (8, 64)            # prompt tokens, drawn from numpy seed 12
+SPEC_WARM = 128                  # warm-up covers prompt + new tokens
+SPEC_POOL = 256                  # pages of 16 tokens, one pool an engine
+SPEC_MIN_ACCEPTANCE = 0.7        # the reference's bar
+# phase 13 (the MoE LM): the flagship config with experts
+MOE_EXPERTS, MOE_TOP_K, MOE_CAPACITY = 8, 2, 1.25
+MOE_EAGER_STEPS, MOE_CAPTURED_STEPS = 3, 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1173,6 +1218,8 @@ TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 
 
 _PROFILER_WARM = []
+# traced_launches' traces in this process (printed with the kernels line)
+TRACES = [0]
 
 
 def traced_launches(ck, fn, trace=True, total=None):
@@ -1193,11 +1240,18 @@ def traced_launches(ck, fn, trace=True, total=None):
     if not trace:
         out, traced = fn(), None
     else:
+        marker = torch.ones(1, device="cuda")
         torch.cuda.synchronize()
         with trace_(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(TRACE_SETTLE_S)
+            # a marker kernel run to its end inside the trace before fn:
+            # with the settle alone, two traces of the MoE step each lost
+            # one flash-forward record (PERF.md §6)
+            marker.add_(1)
+            torch.cuda.synchronize()
             out = fn()
             torch.cuda.synchronize()
+        TRACES[0] += 1
         traced = {}
         for evt in prof.events():
             name = ck.kernel_of(evt.name) \
@@ -2675,28 +2729,41 @@ def hold_captured(what, eager_a, eager_b, captured) -> str:
     order): where two eager runs from the same state are bitwise equal,
     the captured run must be too; otherwise it must lie within
     FUSED_SPREAD x their spread (max |Δ| over all values) plus FUSED_SLACK
-    of the largest value, the rule of fused against unfused. Prints and
-    returns the rule used."""
-    a, b, c = (torch.cat([t.detach().double().ravel() for t in ts])
-               for ts in (eager_a, eager_b, captured))
-    if torch.equal(a, b):
+    of the largest value, the rule of fused against unfused. Compared
+    tensor by tensor, in float64 (a model's params and moments can be
+    1.5 G values). Prints and returns the rule used."""
+    def flat(t):
+        return t.detach().double().ravel()
+
+    def equal(xs, ys):
+        return all(torch.equal(flat(x), flat(y)) for x, y in zip(xs, ys))
+
+    def dist(xs, ys):
+        return max(((flat(x) - flat(y)).abs().max().item()
+                    for x, y in zip(xs, ys) if x.numel()), default=0.0)
+
+    n = sum(t.numel() for t in eager_a)
+    if equal(eager_a, eager_b):
         rule = "bitwise (two eager runs bitwise equal)"
-        if not torch.equal(c, a):
-            fail(f"{what}: captured differs from eager in "
-                 f"{(c != a).sum().item()} of {a.numel()} values (max |Δ| "
-                 f"{(c - a).abs().max().item():.3e}), where two eager runs "
-                 f"are bitwise equal")
+        if not equal(captured, eager_a):
+            bad = sum((flat(z) != flat(x)).sum().item()
+                      for x, z in zip(eager_a, captured))
+            fail(f"{what}: captured differs from eager in {bad} of {n} "
+                 f"values (max |Δ| {dist(captured, eager_a):.3e}), where "
+                 f"two eager runs are bitwise equal")
     else:
-        spread_ = (b - a).abs().max().item()
-        err = (c - a).abs().max().item()
-        lim = FUSED_SPREAD * spread_ + FUSED_SLACK * a.abs().max().item()
+        spread_ = dist(eager_b, eager_a)
+        err = dist(captured, eager_a)
+        top = max((flat(x).abs().max().item() for x in eager_a
+                   if x.numel()), default=0.0)
+        lim = FUSED_SPREAD * spread_ + FUSED_SLACK * top
         rule = (f"within {FUSED_SPREAD} x the eager spread (two eager runs "
                 f"differ): max |Δ| {err:.3e} <= {lim:.3e}, spread "
                 f"{spread_:.3e}")
         if not err <= lim:
             fail(f"{what}: captured vs eager max |Δ| {err:.3e} > {lim:.3e} "
                  f"({FUSED_SPREAD} x the eager spread {spread_:.3e})")
-    print(f"{what}: captured vs eager over {a.numel()} values, {rule}  ok")
+    print(f"{what}: captured vs eager over {n} values, {rule}  ok")
     return rule
 
 
@@ -4807,6 +4874,483 @@ def port_gluon():
 # ---------------------------------------------------------------------------
 
 
+# -- 12. speculative decoding ------------------------------------------------
+def decode_params_to(params, *to):
+    """A decode-parameter dict with every tensor ``.to(*to)``."""
+    return {k: (v.to(*to) if k != "layers" else
+                [{n: w.to(*to) for n, w in lp.items()} for lp in v])
+            for k, v in params.items()}
+
+
+def spec_prompts(vocab):
+    rng = np.random.RandomState(12)
+    return [rng.randint(0, vocab, size=rng.randint(SPEC_PROMPT[0],
+                                                   SPEC_PROMPT[1] + 1)
+                        ).tolist() for _ in range(SPEC_REQUESTS)]
+
+
+def spec_engine(sd, model, params, name, draft=None, dparams=None,
+                device="cuda", warm=True):
+    """A decode engine on a pool of its own (SPEC_POOL pages of 16), spec
+    at SPEC_K when given a draft, warmed over prompts up to SPEC_WARM."""
+    pool = sd.PagePool(pages=SPEC_POOL, page=16)
+    kw = dict(draft=draft, draft_params=dparams, spec_k=SPEC_K) \
+        if draft is not None else {}
+    eng = sd.GenerativeEngine(model, params=params, pool=pool,
+                              max_rows=SPEC_ROWS, name=name, device=device,
+                              **kw)
+    if warm:
+        eng.warmup(max_len=SPEC_WARM)
+    return eng, pool
+
+
+def spec_pass(sd, lat, eng, pool, prompts, what, sampling=None):
+    """The prompts from one client thread each through ``eng``: (wall s,
+    tokens, outputs, stats); gated: no shed, 0 captures after warm-up, no
+    page leaked after the drain, a clean audit."""
+    c0 = sd.trace_count() + sd.spec_trace_count()
+    wall, tokens, sheds, outs = lat.drive(eng, prompts, len(prompts),
+                                          SPEC_NEW, sampling=sampling)
+    eng.drain()
+    captures = sd.trace_count() + sd.spec_trace_count() - c0
+    if sheds or captures:
+        fail(f"{what}: {sheds} sheds, {captures} captures after warm-up")
+    if pool.in_use() or pool.audit():
+        fail(f"{what}: {pool.in_use()} pages in use after the drain, audit "
+             f"{pool.audit()}")
+    return wall, tokens, outs, eng.stats()
+
+
+def spec_program_numbers(sd, eng, card_line) -> dict:
+    """The captured draft round (kmax = SPEC_K) and verify (k = SPEC_K) of
+    ``eng``, replayed on inputs of SPEC_ROWS live rows at SAMPLED's
+    arguments whose tables all point at the trash page (the work of real
+    rows: the gather fetches every table entry): wall, device busy, host
+    ms a call, idle share."""
+    r, trash, v = eng._rows, eng._pool.trash, eng._model.vocab
+    rng = np.random.RandomState(3)
+    lengths = torch.from_numpy(rng.randint(
+        8, eng._model.max_seq - SPEC_K - 2, size=r))
+    toks = torch.from_numpy(rng.randint(0, v, size=r))
+    samp = [torch.full((r,), SAMPLED["temperature"]),
+            torch.full((r,), SAMPLED["top_k"]),
+            torch.full((r,), SAMPLED["top_p"]),
+            torch.full((r,), SAMPLED["seed"])]
+    dtables = torch.full((r, eng._draft_max_pages), trash, dtype=torch.long)
+    tables = torch.full((r, eng._max_pages), trash, dtype=torch.long)
+    drec = eng._spec_programs[("draft_round", SPEC_K)]
+    vrec = eng._spec_programs[("verify", SPEC_K)]
+    dargs = [toks, torch.zeros(r, dtype=torch.bool), toks, dtables,
+             lengths, *samp]
+    props, q_dist = drec(*dargs)
+    vargs = [toks, props, tables, lengths, q_dist, *samp]
+    out = {}
+    with eng._pool.exclusive(eng._draft_geom):
+        out["draft_round"] = mode_numbers(
+            f"12: captured draft round, kmax {SPEC_K}, {r} rows", "captured",
+            lambda: drec(*dargs), 0, card_line)
+    with eng._pool.exclusive(eng._geom):
+        out["verify"] = mode_numbers(
+            f"12: captured verify, k {SPEC_K}, {r} rows", "captured",
+            lambda: vrec(*vargs), 0, card_line)
+    return out
+
+
+def spec_phase(sd, lat, ck, card_line) -> dict:
+    """Phase 12: speculative decoding at the flagship widths
+    (``high_agreement_pair`` at SPEC_WIDTH: a 12-layer target whose layers
+    2-12 are the identity, a 1-layer draft sharing its first layer; a
+    low-agreement draft drawn on its own). Gated: in fp64 the greedy
+    speculative streams (the high-agreement draft, and the low-agreement
+    one, which must auto-disable) token-exact against the non-spec
+    engine on the same weights; a seeded sampled request on the card
+    replaying the same engine on the CPU seed for seed; in fp32 both legs'
+    greedy streams token-exact against the non-spec engine (the target has
+    one live layer, so the fp32 rounding that leaves the eager loop at
+    these widths in phase 11 cannot reach it) and acceptance >= 0.7 on
+    the high-agreement leg; 0 captures after warm-up and no page leaked on
+    every leg. Printed: tokens/s spec against baseline, the captured
+    draft-round and verify programs' walls and device busy, the launch
+    counts by kernel (no TPU kernel's port lies on this path), peak
+    memory; then the reference's --speculative lane
+    (``tools/torch_serving_latency.py``) with its bars printed."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    target, tp, draft, dp = sd.high_agreement_pair(device="cuda",
+                                                   **SPEC_WIDTH)
+    low = sd.TinyCausalLM(vocab=SPEC_WIDTH["vocab"],
+                          d_model=SPEC_WIDTH["d_model"], n_layers=1,
+                          n_heads=SPEC_WIDTH["n_heads"],
+                          max_seq=SPEC_WIDTH["max_seq"])
+    lp = low.init_params(99, device="cuda")
+    prompts = spec_prompts(target.vocab)
+    out = {"width": SPEC_WIDTH, "requests": SPEC_REQUESTS,
+           "new_tokens": SPEC_NEW, "k": SPEC_K, "rows": SPEC_ROWS}
+    prev = os.environ.get("MXNET_SPEC_DECODE")
+    os.environ["MXNET_SPEC_DECODE"] = "1"
+    try:
+        # -- fp64: the gates on tokens -------------------------------------
+        tp64, dp64, lp64 = (decode_params_to(p, torch.float64)
+                            for p in (tp, dp, lp))
+        plain, ppool = spec_engine(sd, target, tp64, "spec_plain64")
+        try:
+            _w, _t, want, _st = spec_pass(sd, lat, plain, ppool, prompts,
+                                          "12: fp64 non-spec engine")
+        finally:
+            plain.close()
+        for name, d, dparams in (("high", draft, dp64), ("low", low, lp64)):
+            eng, pool = spec_engine(sd, target, tp64, f"spec_{name}64", d,
+                                    dparams)
+            try:
+                _w, _t, got, st = spec_pass(sd, lat, eng, pool, prompts,
+                                            f"12: fp64 {name}-agreement "
+                                            "spec engine")
+            finally:
+                eng.close()
+            for i, (a, b) in enumerate(zip(got, want)):
+                if a != b:
+                    fail(f"12: fp64 {name}-agreement spec request {i} "
+                         f"differs from the non-spec engine at token "
+                         f"{first_difference(a, b)}")
+            if not st["spec_rounds"] or (name == "low") != \
+                    st["spec_disabled"]:
+                fail(f"12: fp64 {name}-agreement leg: {st['spec_rounds']} "
+                     f"rounds, disabled {st['spec_disabled']}")
+            out[f"fp64_{name}"] = {k: st[k] for k in (
+                "spec_rounds", "spec_proposed", "spec_accepted",
+                "spec_fallbacks", "spec_disabled", "decode_steps")}
+            print(f"12: fp64 {name}-agreement spec engine: {SPEC_REQUESTS} "
+                  f"greedy requests token-exact against the non-spec "
+                  f"engine; {st['spec_rounds']} rounds, "
+                  f"{st['spec_accepted']} of {st['spec_proposed']} "
+                  f"proposals accepted, {st['decode_steps']} plain decode "
+                  f"steps, auto-disabled {st['spec_disabled']}  ok")
+        # a seeded sampled request on the card and the same engine on the
+        # CPU (fresh engines, one request: the same round schedule)
+        spec = sd.SamplingSpec(**SAMPLED)
+        outs = {}
+        for where, dev in (("card", "cuda"), ("host", "cpu")):
+            eng, pool = spec_engine(sd, target,
+                                    decode_params_to(tp64, dev),
+                                    f"spec_{where}", draft,
+                                    decode_params_to(dp64, dev),
+                                    device=dev, warm=where == "card")
+            try:
+                outs[where] = eng.generate(prompts[0],
+                                           max_new_tokens=SPEC_NEW,
+                                           sampling=spec)
+                outs[where + "_rounds"] = eng.stats()["spec_rounds"]
+            finally:
+                eng.close()
+        if outs["card"] != outs["host"] or not outs["card_rounds"]:
+            fail(f"12: sampled spec request ({spec}) on the card differs "
+                 f"from the CPU's at token "
+                 f"{first_difference(outs['card'], outs['host'])} "
+                 f"({outs['card_rounds']} / {outs['host_rounds']} rounds)")
+        out["sampled"] = dict(spec=str(spec), rounds=outs["card_rounds"],
+                              tokens=outs["card"])
+        print(f"12: fp64 seeded sampled spec request ({spec}): "
+              f"{outs['card_rounds']} rounds on the card, the same "
+              f"{SPEC_NEW} tokens as the same engine on the CPU  ok")
+        del tp64, dp64, lp64
+
+        # -- fp32: acceptance, throughput, the programs ----------------------
+        ck.reset_launch_counts()
+        base, bpool = spec_engine(sd, target, tp, "spec_base32")
+        try:
+            bwall, btok, bouts, bst = spec_pass(sd, lat, base, bpool,
+                                                prompts, "12: fp32 baseline")
+        finally:
+            base.close()
+        legs = {}
+        for name, d, dparams in (("low", low, lp), ("high", draft, dp)):
+            eng, pool = spec_engine(sd, target, tp, f"spec_{name}32", d,
+                                    dparams)
+            try:
+                wall, tok, outs32, st = spec_pass(
+                    sd, lat, eng, pool, prompts,
+                    f"12: fp32 {name}-agreement spec engine")
+                if name == "high":
+                    programs = spec_program_numbers(sd, eng, card_line)
+            finally:
+                eng.close()
+            agree = sum(a == b for a, b in zip(outs32, bouts))
+            legs[name] = dict(
+                tokens_s=tok / wall, rounds=st["spec_rounds"],
+                proposed=st["spec_proposed"], accepted=st["spec_accepted"],
+                acceptance=st["spec_accepted"] / max(st["spec_proposed"],
+                                                     1),
+                fallbacks=st["spec_fallbacks"],
+                disabled=st["spec_disabled"],
+                decode_steps=st["decode_steps"],
+                equal_to_non_spec=agree,
+                first_differences={i: first_difference(a, b) for i, (a, b)
+                                   in enumerate(zip(outs32, bouts))
+                                   if a != b})
+        torch.cuda.synchronize()
+        counts = ck.launch_counts()
+        hi, lo = legs["high"], legs["low"]
+        if hi["acceptance"] < SPEC_MIN_ACCEPTANCE or hi["disabled"]:
+            fail(f"12: fp32 high-agreement acceptance {hi['acceptance']:.4f}"
+                 f" (bar >= {SPEC_MIN_ACCEPTANCE}), disabled "
+                 f"{hi['disabled']}")
+        if not lo["disabled"]:
+            fail("12: the fp32 low-agreement draft never auto-disabled")
+        for name, leg in legs.items():
+            if leg["equal_to_non_spec"] != SPEC_REQUESTS:
+                fail(f"12: fp32 {name}-agreement spec engine: "
+                     f"{leg['equal_to_non_spec']} of {SPEC_REQUESTS} streams "
+                     f"equal to the non-spec engine's (first differences "
+                     f"{leg['first_differences']})")
+        out["fp32"] = dict(baseline_tokens_s=btok / bwall, legs=legs,
+                           speedup=hi["tokens_s"] / (btok / bwall),
+                           programs=programs, launches=counts)
+        print(f"12: fp32, {SPEC_REQUESTS} requests x {SPEC_NEW} tokens from "
+              f"{SPEC_REQUESTS} threads, {SPEC_ROWS} rows: baseline "
+              f"{btok / bwall:.1f} tokens/s; high-agreement spec "
+              f"{hi['tokens_s']:.1f} tokens/s ({out['fp32']['speedup']:.2f}"
+              f"x), acceptance {hi['acceptance']:.4f} (bar >= "
+              f"{SPEC_MIN_ACCEPTANCE}), {hi['rounds']} rounds, "
+              f"{hi['decode_steps']} plain steps; low-agreement "
+              f"{lo['tokens_s']:.1f} tokens/s, auto-disabled after "
+              f"{lo['rounds']} rounds ({lo['accepted']} of {lo['proposed']} "
+              f"accepted) [{card_line}]")
+        print(f"12: fp32 high- and low-agreement spec engines: "
+              f"{SPEC_REQUESTS} greedy requests each token-exact against the "
+              f"non-spec engine  ok")
+        print(f"12: launch counts of the fp32 legs (no TPU kernel's port on "
+              f"this path): {counts}")
+        if any(counts.values()):
+            fail(f"12: a TPU kernel's port launched on the spec path: "
+                 f"{counts}")
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_SPEC_DECODE", None)
+        else:
+            os.environ["MXNET_SPEC_DECODE"] = prev
+    lane = lat.run_speculative(device="cuda")
+    missed = lat.check_bars(spec=lane)
+    out["lane"] = {k: v for k, v in lane.items()}
+    out["lane"]["bars_missed"] = missed
+    print(f"12: --speculative lane (reference widths, 12 requests x 24 "
+          f"tokens, k 4, 2 rows): baseline {lane['baseline_tokens_s']:.1f} "
+          f"tokens/s, spec {lane['spec_tokens_s']:.1f} "
+          f"({lane['speedup']:.2f}x, bar >= 1.5), acceptance "
+          f"{lane['acceptance']:.4f} (bar >= 0.7), token-exact "
+          f"{lane['token_exact']}, draft round "
+          f"{lane['draft_round_ms']:.3f} ms, verify {lane['verify_ms']:.3f} "
+          f"ms, baseline decode step {lane['baseline_decode_step_ms']:.3f} "
+          f"ms (cost-table EMAs, host included), low-agreement "
+          f"{lane['low_agreement']['ratio_vs_baseline']:.2f}x baseline, "
+          f"auto-disabled {lane['low_agreement']['autodisabled']}; bars "
+          f"missed: {missed or 'none'} [{card_line}]")
+    if not lane["token_exact"] or lane["captures_after_warm"]:
+        fail(f"12: --speculative lane: token-exact {lane['token_exact']}, "
+             f"{lane['captures_after_warm']} captures after warm-up")
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"12: peak memory {out['peak_gib']:.2f} GiB, {out['phase_s']:.1f} s")
+    return out
+
+
+# -- 13. the mixture-of-experts LM --------------------------------------------
+def moe_config(models):
+    return dataclasses.replace(bert_base(models), num_experts=MOE_EXPERTS,
+                               moe_top_k=MOE_TOP_K,
+                               capacity_factor=MOE_CAPACITY)
+
+
+def drop_share(models, cfg, params, tokens) -> list:
+    """Per layer, the share of the (token, choice) assignments a forward
+    drops at the experts' capacity."""
+    from mxnet_tpu_torch.parallel import moe as moe_mod
+
+    orig, shares = moe_mod.top_k_gating, []
+
+    def counting(x, gate_w, **kw):
+        d, c, a = orig(x, gate_w, **kw)
+        shares.append(1.0 - d.float().sum() / (x.shape[0] * x.shape[1]
+                                               * kw["k"]))
+        return d, c, a
+
+    moe_mod.top_k_gating = counting
+    try:
+        with torch.no_grad():
+            models.forward(params, tokens, cfg)
+    finally:
+        moe_mod.top_k_gating = orig
+    return [float(s) for s in shares]
+
+
+def moe_steps(ck, step, state, tokens, labels, t_first, n, captured,
+              total):
+    """n steps from step number t_first on ``state`` (params, m, v):
+    (losses, counted launches of each step, launches traced in each
+    replay, None for an eager or a capturing step)."""
+    p, m, v = state
+    losses, counted, traced = [], [], []
+    for t in range(t_first, t_first + n):
+        def call():
+            return step(p, m, v, tokens, labels, t)
+        (_p, _m, _v, loss), c, tr = traced_launches(
+            ck, call, trace=captured and t != 1, total=total)
+        losses.append(loss.clone())
+        counted.append(c)
+        traced.append(tr)
+    return losses, counted, traced
+
+
+def moe_phase(models, cs, ck, config, card_line, counts,
+              traced_total) -> dict:
+    """Phase 13: the MoE LM train step at BERT-base width (12 x 768, MLP
+    3072, 12 heads, vocab 30528, bf16) with MOE_EXPERTS experts, top
+    MOE_TOP_K, capacity factor MOE_CAPACITY, Adam at TRAIN_LR on a fixed
+    batch of TRAIN_TOKENS, at grad_accum 1 and 2: two eager runs
+    (MXNET_COMPILED_STEP=0) of MOE_EAGER_STEPS steps and one captured run,
+    whose first MOE_EAGER_STEPS steps (losses, params, moments) are held
+    to the eager ones by phase 8's rule and which goes on to
+    MOE_CAPTURED_STEPS; gated: 1 capture and 1 dispatch a step, the flash
+    kernels' launches each eager step counted by the wrappers, and each
+    replay's traced by kernel name (check_step_launches), finite losses
+    that fall, no flash fallback. The launches of these runs alone, counted
+    by the wrappers and traced in the replays, are added into ``counts``
+    and ``traced_total`` and their sums gated: the capacity-drop forwards
+    and the timing loops are in neither. Printed: eager against captured
+    wall, device busy and peak memory, the capacity-drop share per layer at
+    init and after the steps."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = moe_config(models)
+    L = cfg.num_layers
+
+    def init():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        return models.init_params(cfg, gen, device="cuda")
+
+    params = init()
+    n_params = sum(t.numel() for t in params.values())
+    rng = np.random.RandomState(13)
+    tokens, labels = batch(rng, cfg, *TRAIN_TOKENS)
+    out = {"n_params": n_params, "experts": MOE_EXPERTS, "top_k": MOE_TOP_K,
+           "capacity_factor": MOE_CAPACITY,
+           "drop_share_init": drop_share(models, cfg, params, tokens)}
+    del params
+    fallback0 = models.flash_fallback_count()
+    # each run's launches the wrappers count: every eager step's, and the
+    # captured run's first call twice (its eager run and its capture)
+    want_counts = {k: 0 for k in TRAIN_KERNELS}
+    want_traced = dict(want_counts)
+    for accum in (1, 2):
+        want = {k: accum * L for k in TRAIN_KERNELS}
+        for k in TRAIN_KERNELS:
+            want_counts[k] += (2 * MOE_EAGER_STEPS + 2) * want[k]
+            want_traced[k] += (MOE_CAPTURED_STEPS - 1) * want[k]
+        runs = []
+        for capture in (False, False, True):
+            set_compiled(config, capture)
+            step = models.make_train_step(cfg, lr=TRAIN_LR, grad_accum=accum)
+            p = init()
+            m, v = models.init_opt_state(p)
+            t0, d0 = cs.trace_count(), cs.dispatch_count()
+            losses, counted, traced = moe_steps(
+                ck, step, (p, m, v), tokens, labels, 1, MOE_EAGER_STEPS,
+                capture, traced_total if capture else None)
+            state = [x.clone() for d in (p, m, v) for x in d.values()]
+            if capture:
+                more, c2, t2 = moe_steps(
+                    ck, step, (p, m, v), tokens, labels,
+                    MOE_EAGER_STEPS + 1,
+                    MOE_CAPTURED_STEPS - MOE_EAGER_STEPS, True,
+                    traced_total)
+                losses_all = losses + more
+                counted, traced = counted + c2, traced + t2
+                n = MOE_CAPTURED_STEPS
+                out[f"drop_share_after_accum{accum}"] = drop_share(
+                    models, cfg, p, tokens)
+            else:
+                n = MOE_EAGER_STEPS
+            for c in counted:
+                for k, cnt in c.items():
+                    counts[k] = counts.get(k, 0) + cnt
+            got = (cs.trace_count() - t0, cs.dispatch_count() - d0)
+            if got != ((1, n) if capture else (0, 0)):
+                fail(f"13: MoE step accum {accum}, capture={capture}: "
+                     f"(captures, dispatches) {got} over {n} steps")
+            what = f"13: MoE step accum {accum}, capture={capture}"
+            if capture:
+                check_step_launches(what, counted, traced, want, True)
+            elif any(c != want for c in counted):
+                # an eager step's launches are the wrappers' own count
+                # (a trace of a 3500-kernel eager step lost a record once)
+                fail(f"{what}: counted launches {counted}, want {want} a "
+                     f"step")
+            runs.append((losses, state))
+            del p, m, v, step
+        (la, sa), (lb, sb), (lc, sc) = runs
+        rule = hold_captured(f"13: MoE step accum {accum} losses", la, lb,
+                             lc)
+        hold_captured(f"13: MoE step accum {accum} params and moments "
+                      f"after {MOE_EAGER_STEPS} steps", sa, sb, sc)
+        vals = [x.item() for x in losses_all]
+        if not all(math.isfinite(x) for x in vals) or \
+                not vals[-1] < vals[0]:
+            fail(f"13: MoE step accum {accum}: losses {vals} not finite "
+                 f"and falling")
+        out[f"accum{accum}"] = dict(losses=vals, captured_vs_eager=rule,
+                                    launches_per_step=want)
+        print(f"13: MoE LM ({MOE_EXPERTS} experts, top {MOE_TOP_K}, "
+              f"capacity factor {MOE_CAPACITY}) train step, grad_accum "
+              f"{accum}, tokens {TRAIN_TOKENS}, Adam lr {TRAIN_LR}: "
+              f"captured losses " + " ".join(f"{x:.6f}" for x in vals)
+              + f"; 1 capture, 1 dispatch a step; flash launches a step "
+              f"{want}  ok")
+        del runs, sa, sb, sc, la, lb, lc
+        torch.cuda.empty_cache()
+    fallbacks = models.flash_fallback_count() - fallback0
+    if fallbacks:
+        fail(f"13: {fallbacks} flash fallbacks on the MoE path")
+    if counts != want_counts or traced_total != want_traced:
+        fail(f"13: the MoE runs' launches: counted {counts}, traced in the "
+             f"replays {traced_total}; want {want_counts}, {want_traced}")
+    fns, kept = {}, 0
+    for mode in ("eager", "captured"):
+        step = models.make_train_step(cfg, lr=TRAIN_LR)
+        p = init()
+        m, v = models.init_opt_state(p)
+        state = [p, m, v, 1]
+
+        def one(step=step, state=state, on=mode == "captured"):
+            set_compiled(config, on)
+            p_, m_, v_, t = state
+            step(p_, m_, v_, tokens, labels, t)
+            state[3] = t + 1
+
+        if mode == "captured":
+            _, kept = reserved_by(one)
+        fns[mode] = one
+    t0 = cs.trace_count()
+    out["numbers"] = capture_numbers(
+        f"13: MoE LM train step adam, tokens {TRAIN_TOKENS}", fns, kept,
+        card_line)
+    set_compiled(config, True)
+    if cs.trace_count() != t0:
+        fail("13: MoE LM train step: a capture after warm-up")
+    del fns
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"13: MoE LM: {n_params / 1e6:.1f} M params; capacity-drop share "
+          f"per layer at init {[round(x, 4) for x in out['drop_share_init']]}"
+          f", after {MOE_CAPTURED_STEPS} steps (accum 1) "
+          f"{[round(x, 4) for x in out['drop_share_after_accum1']]}; peak "
+          f"memory {out['peak_gib']:.2f} GiB; {out['phase_s']:.1f} s "
+          f"[{card_line}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4975,18 +5519,40 @@ def main() -> int:
                      default=str))
     torch.cuda.empty_cache()
 
+    # -- 12. speculative decoding ---------------------------------------------
+    ck.reset_launch_counts()
+    spec = spec_phase(sd, lat, ck, card_line)
+    torch.cuda.synchronize()
+    spec_counts = ck.launch_counts()
+    print(json.dumps({"speculative": {"card": card_line, **spec}},
+                     default=str))
+    torch.cuda.empty_cache()
+
+    # -- 13. the mixture-of-experts LM ----------------------------------------
+    moe_counts, moe_traced = {}, {}
+    moe = moe_phase(models, cs, ck, config, card_line, moe_counts,
+                    moe_traced)
+    torch.cuda.synchronize()
+    print(f"phase 13 launch counts of the MoE runs: counted by the "
+          f"wrappers {moe_counts}; traced on the device in the replays "
+          f"{moe_traced}")
+    print(json.dumps({"moe": {"card": card_line, **moe}}, default=str))
+    torch.cuda.empty_cache()
+
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
              "capture": capture_counts, "compiled_steps": steps_counts,
              "nd": nd_counts, "int8": int8_counts,
-             "serving": serving_counts}
+             "serving": serving_counts, "speculative": spec_counts,
+             "moe": moe_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were
     # checked (the captured runs of the train and capture phases)
     traced_paths = {"train": train_traced, "capture": capture_traced,
-                    "compiled_steps": steps_traced, "nd": nd_traced}
+                    "compiled_steps": steps_traced, "nd": nd_traced,
+                    "moe": moe_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
@@ -5114,6 +5680,7 @@ def main() -> int:
         "library_w_col_major_ms": t["library_w_col_major_ms"],
         "bf16_matmul_ms": t["bf16_matmul_ms"], "sites": int8_times["sites"],
     })
+    print(f"traces of launches by kernel name in this run: {TRACES[0]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,13 @@ which is what the graph bakes in.
     trainer.step(batch_size)
 
 and returns the loss (a clone: the next replay overwrites the program's
-own). Gradients are taken with ``torch.autograd.grad`` into the program's
-buffers; parameter ``.grad``s are not touched on the compiled path, as the
+own). The forward runs inside ``parallel.moe.aux_scope``: the load-balance
+aux losses that ``MoEBlock``s record there are summed, weighted by
+``MXNET_MOE_AUX_WEIGHT`` and differentiated as one more head, on the
+compiled path and on the eager tape alike (reference ``cached_step.py:
+503-512, :1249``), while the returned loss stays the user's. Gradients
+are taken with ``torch.autograd.grad`` into the program's buffers;
+parameter ``.grad``s are not touched on the compiled path, as the
 reference does not materialize them there. The eager tape writes them as
 usual.
 
@@ -75,6 +80,8 @@ from . import program_store as _pstore
 from . import serving as _serving
 from .base import MXNetError
 from .gluon.block import traced_call
+from .ndarray.ndarray import NDArray, _wrap
+from .parallel import moe as _moe
 
 __all__ = ["TrainStep", "enabled", "trace_count", "dispatch_count",
            "cache_stats", "reset_counters"]
@@ -110,6 +117,24 @@ def _heads(loss) -> list:
     return list(loss) if isinstance(loss, (list, tuple)) else [loss]
 
 
+def _tensor(x):
+    return x._data if isinstance(x, NDArray) else x
+
+
+def _fold_aux(auxes, heads) -> list:
+    """The recorded MoE aux losses folded into the differentiated heads as
+    ONE more head, ``MXNET_MOE_AUX_WEIGHT * sum`` in fp32, seeded with a
+    unit cotangent like every head, so that its gradient reaches the
+    optimizer while the loss the caller sees stays untouched."""
+    if not auxes:
+        return heads
+    aux_w = float(_config.get("MXNET_MOE_AUX_WEIGHT"))
+    at = auxes[0]
+    for a in auxes[1:]:
+        at = at + a
+    return list(heads) + [(at * aux_w).float()]
+
+
 class TrainStep:
     """One training step as one captured program
     (``Trainer.compile_step``); see the module docstring."""
@@ -139,6 +164,9 @@ class TrainStep:
         self.fallback_reason: Optional[str] = None
         # why the LAST call ran the eager tape (None when it ran compiled)
         self.last_fallback_reason: Optional[str] = None
+        # the positions of the call's NDArray arguments and their contexts:
+        # the compiled path runs on their tensors and hands loss_fn NDArrays
+        self._nd: Dict[int, object] = {}
 
     @property
     def last_step_compiled(self) -> bool:
@@ -152,10 +180,29 @@ class TrainStep:
         self.last_fallback_reason = reason
         if reason is not None:
             return self._eager_step(args, batch_size)
+        # NDArray arguments (the reference's tests feed mx.nd.array): the
+        # program takes their tensors, loss_fn gets them rewrapped, and the
+        # loss comes back as an NDArray on the first one's context
+        self._nd = {i: a.ctx for i, a in enumerate(args)
+                    if isinstance(a, NDArray)}
+        args = tuple(map(_tensor, args))
         pargs = self._maybe_pad(args)
         if self._accum_steps > 1:
-            return self._accum_step(pargs, batch_size)
-        return self._compiled_step(pargs, batch_size)
+            loss = self._accum_step(pargs, batch_size)
+        else:
+            loss = self._compiled_step(pargs, batch_size)
+        if self._nd:
+            ctx = next(iter(self._nd.values()))
+            loss = type(loss)(_wrap(h, ctx) for h in loss) \
+                if isinstance(loss, (list, tuple)) else _wrap(loss, ctx)
+        return loss
+
+    def _user_args(self, args, nd=None) -> tuple:
+        """``args`` as loss_fn takes them: the NDArray positions rewrapped
+        (``nd``, else the call's)."""
+        nd = self._nd if nd is None else nd
+        return tuple(_wrap(a, nd[i]) if i in nd else a
+                     for i, a in enumerate(args))
 
     def _eligibility(self) -> Optional[str]:
         if not enabled():
@@ -179,8 +226,10 @@ class TrainStep:
                 "step (one update a window); the eager tape cannot honor "
                 f"the window, fallback reason: {self.last_fallback_reason}")
         with autograd.record():
-            loss = self._loss_fn(self._net, *args)
-        autograd.backward(_heads(loss))
+            with _moe.aux_scope() as auxes:
+                loss = self._loss_fn(self._net, *args)
+            heads = _fold_aux(auxes, _heads(loss))
+        autograd.backward(heads)
         self._trainer.step(batch_size)
         return loss
 
@@ -232,8 +281,10 @@ class TrainStep:
         snap = [t.detach().clone() for t in held]
         try:
             with autograd.pause(train_mode=True):
-                lt = _heads(self._loss_fn(self._net, *args))
-                lp = _heads(self._loss_fn(self._net, *pargs))
+                lt = [_tensor(h) for h in _heads(
+                    self._loss_fn(self._net, *self._user_args(args)))]
+                lp = [_tensor(h) for h in _heads(
+                    self._loss_fn(self._net, *self._user_args(pargs)))]
         finally:
             with torch.no_grad():
                 for t, v in zip(held, snap):
@@ -265,8 +316,8 @@ class TrainStep:
         held += [p._data for p in trainable]
         held += [s for s in states if isinstance(s, torch.Tensor)]
         tensors, others = self._call_parts(args)
-        key = (_pstore.tensor_key(tensors), others, _pstore.knob_key(),
-               type(opt).__name__, opt.fixed_signature(),
+        key = (_pstore.tensor_key(tensors), others, tuple(self._nd),
+               _pstore.knob_key(), type(opt).__name__, opt.fixed_signature(),
                tuple(map(id, trainable)), _pstore.storage_key(held))
 
         def build():
@@ -292,11 +343,13 @@ class TrainStep:
         trainable = self._trainer._params
         slots = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
         consts = [None if i in slots else a for i, a in enumerate(args)]
+        nd = dict(self._nd)
 
         def fb(*inputs):
             call_args = list(consts)
             for i, t in zip(slots, inputs):
                 call_args[i] = t
+            call_args = self._user_args(call_args, nd)
             weights = [p._data for p in trainable]
             leaves = [w.detach().requires_grad_() for w in weights]
             try:
@@ -304,8 +357,10 @@ class TrainStep:
                     p._data = leaf
                 with traced_call():
                     with autograd.record():
-                        loss = loss_fn(net, *call_args)
-                    heads = _heads(loss)
+                        with _moe.aux_scope() as auxes:
+                            loss = loss_fn(net, *call_args)
+                        heads = _fold_aux(auxes, [_tensor(h) for h in
+                                                  _heads(loss)])
                     grads = torch.autograd.grad(
                         heads, leaves, [torch.ones_like(h) for h in heads],
                         allow_unused=True)
@@ -315,9 +370,9 @@ class TrainStep:
             grads = [torch.zeros_like(w) if g is None else g
                      for g, w in zip(grads, weights)]
             if isinstance(loss, (list, tuple)):
-                loss = type(loss)(h.detach() for h in loss)
+                loss = type(loss)(_tensor(h).detach() for h in loss)
             else:
-                loss = loss.detach()
+                loss = _tensor(loss).detach()
             return loss, weights, grads
 
         return fb
@@ -346,7 +401,7 @@ class TrainStep:
         held += weights + accs
         tensors, others = self._call_parts(args)
         key = ("accum_grad", _pstore.tensor_key(tensors), others,
-               _pstore.knob_key(), tuple(map(id, trainable)),
+               tuple(self._nd), _pstore.knob_key(), tuple(map(id, trainable)),
                _pstore.storage_key(held))
 
         def build_grad():

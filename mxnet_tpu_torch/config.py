@@ -21,6 +21,8 @@ class EnvVar(NamedTuple):
     default: Any
     doc: str
     cached: bool = True
+    # a value it refuses raises ValueError at get()
+    validator: Optional[Callable[[Any], bool]] = None
 
 
 VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
@@ -68,9 +70,9 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "oldest program and frees its graph."),
     EnvVar("MXNET_FORWARD_CACHE", int, 32,
            "Per-owner cap of the program store's 'hybrid_forward' namespace "
-           "and of the 'serving' and 'serving_decode' namespaces (the "
-           "captured forwards of a hybridized block or of an engine, LRU).",
-           cached=False),
+           "and of the 'serving', 'serving_decode' and 'serving_spec' "
+           "namespaces (the captured forwards of a hybridized block or of an "
+           "engine, LRU).", cached=False),
     EnvVar("MXNET_BACKWARD_DO_MIRROR", bool, False,
            "Recompute the forward during the backward (torch.utils."
            "checkpoint) instead of keeping activations alive: about one "
@@ -146,6 +148,33 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "evicted LRU under pool pressure: PagePoolExhausted only when "
            "even eviction cannot help. Off (0) = the pre-cache pool: no "
            "hashing, no index, prefix.* counters stay 0.", cached=False),
+    EnvVar("MXNET_SPEC_DECODE", bool, False,
+           "Speculative decoding (serving_decode.GenerativeEngine): when on "
+           "AND the engine was built with a draft model, each decode round "
+           "has the cheap draft propose MXNET_SPEC_K tokens and the target "
+           "score all k+1 positions in ONE verify dispatch (standard "
+           "rejection sampling: the output distribution is the target's; "
+           "exact token match under greedy). Whether speculation PAYS is "
+           "arbitrated per round from the cost table's measured "
+           "draft/verify/decode EMAs, and persistently low measured "
+           "acceptance auto-disables it (spec.autodisabled). Off (0) = the "
+           "plain decode loop: no draft dispatches, spec.* counters stay 0.",
+           cached=False),
+    EnvVar("MXNET_SPEC_K", str, "4",
+           "Speculative decoding draft depth: tokens proposed per round "
+           "(the verify program scores k+1 positions in one dispatch). "
+           "'auto' picks k per round from the cost table (measured "
+           "acceptance EMA and draft/verify EMAs) over 1..4, the draft "
+           "round's captured depth.", cached=False,
+           validator=lambda v: v == "auto" or (v.isdigit() and int(v) >= 1)),
+    EnvVar("MXNET_MOE_AUX_WEIGHT", float, 0.01,
+           "Weight on the MoE load-balance auxiliary loss "
+           "(parallel.moe.MoEBlock records the Shazeer balance penalty into "
+           "moe.aux_scope; cached_step.TrainStep folds weight*sum(aux) into "
+           "the differentiated loss heads on both the compiled and eager "
+           "paths, so the penalty reaches the optimizer without widening "
+           "the user loss_fn contract). 0 disables the fold.", cached=False,
+           validator=lambda v: v >= 0),
     EnvVar("MXNET_FAULT_PLAN", str, None,
            "Deterministic fault-injection plan for subprocess tests: "
            "'site[@after]:times[:kind]' comma-list (kind: transient|fatal|"
@@ -233,6 +262,8 @@ def get(name: str) -> Any:
     if raw is None:
         return var.default
     val = _parse(var, raw)
+    if var.validator is not None and not var.validator(val):
+        raise ValueError(f"{name}={raw!r} is out of range")
     if var.cached:
         _CACHE[name] = val
     return val

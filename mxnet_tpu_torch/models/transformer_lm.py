@@ -15,9 +15,13 @@ Ported so far: the single-device forward and loss, rematerialisation
 once per input shape and replayed after that (``program_store``), the
 counterpart of the reference's ``jax.jit(step, donate_argnums=...)``.
 Callers capture the forward the same way (``program_store.capture``), as
-the reference's callers ``jax.jit`` it. Mixture-of-experts layers,
-ring attention and a device mesh raise ``NotImplementedError``; the
-sharding plan and pipeline stages are not ported yet.
+the reference's callers ``jax.jit`` it. ``num_experts > 0`` makes every
+layer's MLP a top-k mixture of experts (``parallel.moe.moe_layer``, the
+reference's :113-150, :206-216) whose load-balance aux losses the forward
+sums, and the loss and the train step weight by ``aux_weight`` (under
+``grad_accum=k`` per micro-batch, divided by k: the reference's semantics,
+kept). Ring attention and a device mesh raise ``NotImplementedError``; the
+sharding plan and pipeline stages are not ported yet (ROADMAP A6b).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from .. import program_store as _pstore
 from .. import telemetry as _telemetry
 from ..context import resolve_device
 from ..ops import cuda_kernels as _kernels
+from ..parallel import moe as _moe
 
 __all__ = ["TransformerLMConfig", "param_shapes", "init_params", "forward",
            "loss_fn", "init_opt_state", "make_train_step",
@@ -78,8 +83,10 @@ class TransformerLMConfig:
     mlp_hidden: int = 3072
     max_len: int = 512
     dtype: Any = torch.bfloat16
-    # MoE: 0 = dense MLP everywhere (the only setting ported so far)
+    # MoE: 0 = dense MLP everywhere; E > 0 = every layer is a top-k MoE
     num_experts: int = 0
+    moe_top_k: int = 2
+    capacity_factor: float = 1.25
     use_ring_attention: bool = False
     remat: bool = False
     # None = auto: flash attention (the CUDA kernel on CUDA tensors, its
@@ -94,10 +101,6 @@ class TransformerLMConfig:
 
 
 def _check_ported(cfg: TransformerLMConfig, mesh: Any = None) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "num_experts > 0 (mixture-of-experts layers) is not ported to "
-            "mxnet_tpu_torch yet")
     if cfg.use_ring_attention:
         raise NotImplementedError(
             "use_ring_attention is not ported to mxnet_tpu_torch yet")
@@ -124,10 +127,16 @@ def param_shapes(cfg: TransformerLMConfig
         for ln in ("ln1", "ln2"):
             p[pre + ln + ".gamma"] = ((H,), f32)
             p[pre + ln + ".beta"] = ((H,), f32)
-        p[pre + "ffn_1.weight"] = ((M, H), dt)
-        p[pre + "ffn_1.bias"] = ((M,), dt)
-        p[pre + "ffn_2.weight"] = ((H, M), dt)
-        p[pre + "ffn_2.bias"] = ((H,), dt)
+        if cfg.num_experts:
+            E = cfg.num_experts
+            p[pre + "moe.gate.weight"] = ((H, E), dt)
+            p[pre + "expert.ffn_1.weight"] = ((E, H, M), dt)
+            p[pre + "expert.ffn_2.weight"] = ((E, M, H), dt)
+        else:
+            p[pre + "ffn_1.weight"] = ((M, H), dt)
+            p[pre + "ffn_1.bias"] = ((M,), dt)
+            p[pre + "ffn_2.weight"] = ((H, M), dt)
+            p[pre + "ffn_2.bias"] = ((H,), dt)
     p["final_ln.gamma"] = ((H,), f32)
     p["final_ln.beta"] = ((H,), f32)
     return p
@@ -137,10 +146,11 @@ def init_params(cfg: TransformerLMConfig,
                 generator: Optional[torch.Generator] = None,
                 device=None) -> Dict[str, torch.Tensor]:
     """Flat param dict; truncated-normal(0.02) like BERT, with
-    0.02/sqrt(2L) on the residual-branch outputs (out_proj, ffn_2), zero
-    biases, unit gammas. Draws come from ``generator`` (seed 0 on the
-    target device if None); they differ from the JAX package's draws, so
-    parity tests carry the JAX weights over with ``convert``."""
+    0.02/sqrt(2L) on the residual-branch outputs (out_proj, ffn_2 and the
+    experts' ffn_2), zero biases, unit gammas. Draws come from
+    ``generator`` (seed 0 on the target device if None); they differ from
+    the JAX package's draws, so parity tests carry the JAX weights over
+    with ``convert``."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -202,20 +212,29 @@ def _attention(x, p, pre: str, cfg: TransformerLMConfig):
         p[pre + "attn.out_proj.bias"]
 
 
-def _mlp(x, p, pre: str):
+def _mlp(x, p, pre: str, cfg: TransformerLMConfig):
+    """(the MLP's output, its aux loss): the dense MLP's aux is 0.0, the
+    MoE's the gating load-balance loss."""
+    if cfg.num_experts:
+        return _moe.moe_layer(
+            x, p[pre + "moe.gate.weight"].to(x.dtype),
+            p[pre + "expert.ffn_1.weight"], p[pre + "expert.ffn_2.weight"],
+            k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
     h = F.gelu(x @ p[pre + "ffn_1.weight"].T + p[pre + "ffn_1.bias"],
                approximate="tanh")
-    return h @ p[pre + "ffn_2.weight"].T + p[pre + "ffn_2.bias"]
+    return h @ p[pre + "ffn_2.weight"].T + p[pre + "ffn_2.bias"], 0.0
 
 
 def _block(params, x, i: int, cfg: TransformerLMConfig):
-    """One pre-LN transformer block (attention + MLP residual)."""
+    """One pre-LN transformer block (attention + MLP/MoE residual):
+    (output, the MLP's aux loss)."""
     pre = f"layer{i}."
     x = x + _attention(_layer_norm(x, params[pre + "ln1.gamma"],
                                    params[pre + "ln1.beta"]),
                        params, pre, cfg)
-    return x + _mlp(_layer_norm(x, params[pre + "ln2.gamma"],
-                                params[pre + "ln2.beta"]), params, pre)
+    m, aux = _mlp(_layer_norm(x, params[pre + "ln2.gamma"],
+                              params[pre + "ln2.beta"]), params, pre, cfg)
+    return x + m, aux
 
 
 def _tokens_on(tokens, params, device) -> torch.Tensor:
@@ -233,12 +252,14 @@ def forward(params, tokens, cfg: TransformerLMConfig, mesh=None, *,
     """tokens [B, S] int -> (logits [B, S, V] float32, aux loss float32).
 
     Runs on ``device`` (``cuda`` if None, where ``params`` must live). The
-    aux loss is 0: mixture-of-experts layers are not ported yet."""
+    aux loss is the sum over layers of the MoE gating load-balance losses
+    (0 for a dense config)."""
     _check_ported(cfg, mesh)
     tokens = _tokens_on(tokens, params, device)
     S = tokens.shape[1]
     x = (params["embed.weight"][tokens] + params["pos_embed.weight"][:S]) \
         .to(cfg.dtype)
+    aux_total = 0.0
     # remat: keep only each layer's input and recompute the layer in the
     # backward, as jax.checkpoint does in the reference
     remat = cfg.remat and torch.is_grad_enabled()
@@ -246,12 +267,15 @@ def forward(params, tokens, cfg: TransformerLMConfig, mesh=None, *,
         if remat:
             # no random ops to replay, and no RNG state to stash (which a
             # captured step could not read)
-            x = checkpoint(_block, params, x, i, cfg, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, aux = checkpoint(_block, params, x, i, cfg,
+                                use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _block(params, x, i, cfg)
+            x, aux = _block(params, x, i, cfg)
+        aux_total = aux_total + aux
     x = _layer_norm(x, params["final_ln.gamma"], params["final_ln.beta"])
     logits = x @ params["embed.weight"].T.to(cfg.dtype)
+    if isinstance(aux_total, torch.Tensor):
+        return logits.float(), aux_total.float()
     return logits.float(), torch.zeros((), dtype=torch.float32,
                                        device=x.device)
 

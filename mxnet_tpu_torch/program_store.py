@@ -6,7 +6,8 @@ hybridized forward (``gluon.HybridBlock``) and the serving engines
 (``serving.ServingEngine``, ``serving_decode.GenerativeEngine``) need:
 
 - **Namespaces** ``train_step`` (cap ``MXNET_COMPILED_STEP_CACHE``, 16),
-  ``hybrid_forward``, ``serving`` and ``serving_decode`` (cap
+  ``hybrid_forward``, ``serving``, ``serving_decode`` and ``serving_spec``
+  (the speculative draft and verify programs) (cap
   ``MXNET_FORWARD_CACHE``, 32) and ``sharded_step``, each one metrics
   surface: hits, misses, evictions, traces and dispatches (:func:`stats`).
   Caps are per owner (below), so two engines never evict each other's
@@ -59,8 +60,7 @@ params), the programs that hold the replaced ones can never hit again:
 and the programs' graphs.
 
 Not ported: ahead-of-time executables and the persistent compilation
-cache (a CUDA graph lives in one process), the ``serving_spec`` namespace
-(speculative decoding, ROADMAP A5b) and ``MXNET_PROGRAM_CACHE_CAPS``.
+cache (a CUDA graph lives in one process) and ``MXNET_PROGRAM_CACHE_CAPS``.
 """
 from __future__ import annotations
 
@@ -174,6 +174,7 @@ NAMESPACES: Dict[str, Namespace] = {
     "hybrid_forward": Namespace("hybrid_forward", 32, "MXNET_FORWARD_CACHE"),
     "serving": Namespace("serving", 32, "MXNET_FORWARD_CACHE"),
     "serving_decode": Namespace("serving_decode", 32, "MXNET_FORWARD_CACHE"),
+    "serving_spec": Namespace("serving_spec", 32, "MXNET_FORWARD_CACHE"),
     "sharded_step": Namespace("sharded_step", 16,
                               "MXNET_COMPILED_STEP_CACHE"),
 }

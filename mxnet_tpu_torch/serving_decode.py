@@ -2,8 +2,7 @@
 paged KV cache with a content-addressed prefix cache, multi-model SLO-aware
 admission, and seeded sampling.
 
-Counterpart of ``mxnet_tpu/serving_decode.py`` without speculative
-decoding (ROADMAP A5b):
+Counterpart of ``mxnet_tpu/serving_decode.py``:
 
 1. **A bounded program set.** Per-token work is ONE captured decode
    program (``GenerativeEngine._build_decode``): the page-table gather of
@@ -48,6 +47,25 @@ decoding (ROADMAP A5b):
    pure function of (seed, position): safe inside a CUDA graph and across
    a preemption. Temperature 0 is the plain argmax, bitwise.
 
+6. **Speculative decoding** (``MXNET_SPEC_DECODE``, ``MXNET_SPEC_K``;
+   reference :1141-1170, :2060-2620): an engine built with a ``draft``
+   model runs, when the cost table says it pays, rounds of ONE captured
+   draft program (an optional catch-up step, then ``kmax`` proposals with
+   their sampling distributions, all on the device) and ONE captured verify
+   program per ``k`` (the target's ``decode_chunk`` over the pending token
+   and ``k`` proposals, standard rejection sampling, the residual resample,
+   and the KV scatter of the accepted prefix only; rejected positions write
+   the trash page), then one host read of ``(n_acc, next, proposals)``. The
+   draft's KV pages live in the same pool under their own geometry and are
+   never published to the prefix cache. The programs live in the
+   ``serving_spec`` namespace; ``warmup`` captures them too. Greedy decode
+   stays token-exact; sampled decode draws the accept test from JAX's
+   ``uniform`` (:func:`uniform`, bitwise) and the resample from ``gumbel``
+   on the same counter-based keys as the reference. A page shortage skips
+   the round (plain decode instead), as in the reference; a failing
+   dispatch or capture raises to the round's requests, where the reference
+   turns speculation off.
+
 One deliberate divergence: :meth:`PagePool.poison_free` takes the free
 list and writes the poison under one lock; the reference copies the list
 under its lock and writes later, so a page reallocated in between gets
@@ -82,9 +100,14 @@ __all__ = ["PagePool", "PagePoolExhausted", "ShedError", "DecodeModel",
            "reset_counters", "SamplingSpec", "GREEDY", "sample_token",
            "sample_scores",
            "token_key", "prng_key", "fold_in", "threefry_2x32",
-           "random_bits", "gumbel"]
+           "random_bits", "gumbel", "uniform", "spec_trace_count",
+           "spec_dispatch_count", "high_agreement_pair"]
 
 _NS = _pstore.namespace("serving_decode")
+# the speculative programs (draft prefill, draft round, verify) in their own
+# namespace, so that their program set and "0 spec dispatches with
+# MXNET_SPEC_DECODE=0" read apart from the plain decode budget
+_SPEC_NS = _pstore.namespace("serving_spec")
 
 
 def trace_count() -> int:
@@ -95,8 +118,17 @@ def dispatch_count() -> int:
     return _NS.dispatches
 
 
+def spec_trace_count() -> int:
+    return _SPEC_NS.traces
+
+
+def spec_dispatch_count() -> int:
+    return _SPEC_NS.dispatches
+
+
 def reset_counters() -> None:
     _NS.reset()
+    _SPEC_NS.reset()
 
 
 class PagePoolExhausted(ShedError):
@@ -139,6 +171,28 @@ _PREFIX_STATS = _telemetry.CounterGroup(
     "prefix", ("hit_blocks", "miss_blocks", "cow_forks", "evictions"),
     doc="content-addressed KV prefix cache (MXNET_PREFIX_CACHE)",
     family="prefix")
+
+
+# process-global speculative-decoding counters (family 'spec'): rounds (1
+# draft + 1 verify dispatch each), draft tokens proposed and accepted, rounds
+# the arbiter declined, sticky low-acceptance cutoffs
+_SPEC_STATS = _telemetry.CounterGroup(
+    "spec", ("rounds", "proposed", "accepted", "fallback_rounds",
+             "autodisabled"),
+    doc="speculative decoding (MXNET_SPEC_DECODE)", family="spec")
+
+_telemetry.gauge_fn(
+    "spec.acceptance_rate",
+    lambda: (_SPEC_STATS["accepted"] / _SPEC_STATS["proposed"]
+             if _SPEC_STATS["proposed"] else 0.0),
+    doc="speculative decoding: fraction of drafted tokens accepted",
+    family="spec")
+_telemetry.gauge_fn(
+    "spec.tokens_per_target_dispatch",
+    lambda: ((_SPEC_STATS["accepted"] + _SPEC_STATS["rounds"])
+             / _SPEC_STATS["rounds"] if _SPEC_STATS["rounds"] else 0.0),
+    doc="speculative decoding: tokens committed per verify dispatch",
+    family="spec")
 
 
 def _chain_keys(tokens: Sequence[int], page: int,
@@ -522,10 +576,18 @@ class DecodeModel:
       length)``: the uncached suffix at positions ``offset ..``, context
       ``(L, C, H, D)`` valid below ``offset``; ``None`` recomputes the
       whole prompt on a partial prefix hit.
+    - optional ``decode_chunk(params, tokens, k_ctx, v_ctx, lengths)``:
+      ``tokens`` ``(R, S)``, row ``r``'s chunk at positions ``lengths[r] ..
+      lengths[r]+S-1``, context ``(L, R, C, H, D)`` valid below
+      ``lengths[r]``, causal inside the chunk; ``logits`` ``(R, S, vocab)``
+      (``logits[r, i]`` scores the token after chunk position ``i``) and the
+      chunk's ``k_new``/``v_new`` ``(L, R, S, H, D)``. The verify scorer of
+      speculative decoding; ``None`` refuses a draft.
 
     ``decode`` over cached K/V equals a fresh ``prefill`` over the
-    extended sequence: that is what makes continuous-batched greedy decode
-    token-exact against the eager loop.
+    extended sequence, and ``decode_chunk`` equals ``S`` successive
+    ``decode`` calls: that is what makes continuous-batched (and
+    speculative) greedy decode token-exact against the eager loop.
     """
 
     vocab: int
@@ -534,6 +596,7 @@ class DecodeModel:
     head_dim: int
     max_seq: int
     prefill_chunk = None
+    decode_chunk = None
 
     def init_params(self, seed: int = 0, device=None):
         raise NotImplementedError
@@ -691,6 +754,69 @@ class TinyCausalLM(DecodeModel):
         logits = _row(h, length - offset - 1) @ params["out"]
         return logits, torch.stack(ks), torch.stack(vs)      # (L,B,H,D)
 
+    def decode_chunk(self, params, tokens, k_ctx, v_ctx, lengths):
+        r, s = tokens.shape
+        c = k_ctx.shape[2]
+        dev = tokens.device
+        ii = torch.arange(s, device=dev)
+        pos = lengths[:, None] + ii[None, :]                 # (R, S)
+        h = params["emb"][tokens] \
+            + params["pos"][torch.clamp(pos, max=self.max_seq - 1)]
+        # cached context: chunk tokens attend positions < lengths
+        ctx_valid = (torch.arange(c, device=dev)[None, None, :]
+                     < lengths[:, None, None]).expand(r, s, c)
+        # in-chunk: plain causal (the engine masks rejected tails at the KV
+        # scatter, not here)
+        chunk_valid = (ii[None, :] <= ii[:, None])[None].expand(r, s, s)
+        valid = torch.cat([ctx_valid, chunk_valid], dim=2)
+        k_news, v_news = [], []
+        for li, lp in enumerate(params["layers"]):
+            q = self._heads(h @ lp["wq"])                    # (R,S,H,D)
+            k_new = self._heads(h @ lp["wk"])
+            v_new = self._heads(h @ lp["wv"])
+            k_news.append(k_new)
+            v_news.append(v_new)
+            k = torch.cat([k_ctx[li], k_new], dim=1)         # (R,C+S,H,D)
+            v = torch.cat([v_ctx[li], v_new], dim=1)
+            scores = torch.einsum("rshd,rjhd->rshj", q, k) \
+                / math.sqrt(self.head_dim)
+            scores = scores.masked_fill(~valid[:, :, None, :], -1e30)
+            w = torch.softmax(scores, dim=-1)
+            att = torch.einsum("rshj,rjhd->rshd", w, v)      # (R,S,H,D)
+            h = h + att.reshape(r, s, self.d_model) @ lp["wo"]
+            h = self._mlp(h, lp)
+        logits = h @ params["out"]                           # (R,S,V)
+        return logits, torch.stack(k_news), torch.stack(v_news)
+
+
+def high_agreement_pair(vocab: int = 64, d_model: int = 32,
+                        target_layers: int = 4, draft_layers: int = 1,
+                        n_heads: int = 2, max_seq: int = 128,
+                        seed: int = 0, device=None):
+    """``(target, target_params, draft, draft_params)`` whose draft agrees
+    with the target exactly (reference ``serving_decode.py:841``): both
+    share the embeddings, the position table, the output head and the
+    leading ``draft_layers`` layers, and the target's extra layers have
+    ``wo = 0`` and ``w2 = 0``, so each is the identity and the target's
+    logits are the draft's while it still pays ``target_layers /
+    draft_layers`` times the compute. Acceptance is 1.0 by construction.
+    The draws are :meth:`TinyCausalLM.init_params`' (the reference's): the
+    draft from ``seed``, the target from ``seed + 1``, on ``device``
+    (``cuda`` if None)."""
+    draft = TinyCausalLM(vocab, d_model, draft_layers, n_heads,
+                         max_seq=max_seq)
+    target = TinyCausalLM(vocab, d_model, target_layers, n_heads,
+                          max_seq=max_seq)
+    dp = draft.init_params(seed, device=device)
+    tp = target.init_params(seed + 1, device=device)
+    tp["emb"], tp["pos"], tp["out"] = dp["emb"], dp["pos"], dp["out"]
+    for i in range(draft_layers):
+        tp["layers"][i] = dp["layers"][i]
+    for i in range(draft_layers, target_layers):
+        tp["layers"][i]["wo"] = torch.zeros_like(tp["layers"][i]["wo"])
+        tp["layers"][i]["w2"] = torch.zeros_like(tp["layers"][i]["w2"])
+    return target, tp, draft, dp
+
 
 # ---------------------------------------------------------------------------
 # threefry-2x32, as JAX computes it (jax/_src/prng.py, random.py)
@@ -733,9 +859,15 @@ def prng_key(seed, device=None) -> torch.Tensor:
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)``: the hash of the count pair
-    ``(0, uint32(data))`` under ``key``."""
-    d = _u32(data, key.device)
-    y1, y2 = threefry_2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    ``(0, uint32(data))`` under ``key``. A Python int ``data`` stays a
+    Python number (no host-to-device copy, so that it folds inside a
+    capture)."""
+    if isinstance(data, int):
+        y1, y2 = threefry_2x32(key[..., 0], key[..., 1], 0, data & _M32)
+    else:
+        d = _u32(data, key.device)
+        y1, y2 = threefry_2x32(key[..., 0], key[..., 1],
+                               torch.zeros_like(d), d)
     return torch.stack([y1, y2], dim=-1)
 
 
@@ -755,15 +887,30 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     return b1 ^ b2
 
 
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """JAX's float32 draw on [0, 1) from uint32 words: the top 23 bits as
+    the mantissa of a float in [1, 2), minus 1."""
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return fbits.view(torch.float32) - 1.0
+
+
+def uniform(key: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """``jax.random.uniform(key)`` (float32 on [0, 1)) bitwise, one draw per
+    key ``(..., 2)``: shape ``(...)``, or ``(..., n)`` draws each for ``n``
+    (``jax.random.uniform(key, (n,))``)."""
+    bits = random_bits(key, 1 if n is None else n)
+    # JAX's floats * (1 - 0) + 0, then max(0, .), which change nothing
+    u = _unit_floats(bits)
+    return u[..., 0] if n is None else u
+
+
 _F32_TINY = float(np.finfo(np.float32).tiny)
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.gumbel(key, (n,))`` (mode "low", float32): the uniform
     draw on [tiny, 1) from the top 23 bits, then ``-log(-log(u))``."""
-    bits = random_bits(key, n)
-    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
+    floats = _unit_floats(random_bits(key, n))
     # (1 - tiny) is 1.0 in fp32, as JAX's (maxval - minval); Python
     # scalars, so that nothing is copied from the host inside a capture
     u = torch.clamp(floats * (1.0 - _F32_TINY) + _F32_TINY, min=_F32_TINY)
@@ -873,6 +1020,64 @@ def sample_token(logits, temperature, top_k, top_p, key):
     return torch.where(temperature > 0.0, sampled, greedy).to(torch.int32)
 
 
+def _sample_dist(logits, temperature, top_k, top_p):
+    """The sampling distribution ``(..., V)`` a request decodes under (the
+    masked, normalized one :func:`sample_token` draws from; one-hot at the
+    argmax where the temperature is 0): the ``p`` and ``q`` both sides of
+    speculative rejection sampling score (reference
+    ``serving_decode.py:979``). The sampling arguments are tensors of shape
+    ``(...)`` (or scalars)."""
+    dev = logits.device
+    temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                  device=dev).expand(logits.shape[:-1])
+    top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev)
+    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
+    v = logits.shape[-1]
+    one_hot = (torch.argmax(logits, dim=-1, keepdim=True)
+               == torch.arange(v, device=dev)).to(logits.dtype)
+    scaled = logits / torch.clamp(temperature, min=1e-6)[..., None]
+    keep = _keep_mask(scaled, top_k.expand(scaled.shape[:-1]),
+                      top_p.expand(scaled.shape[:-1]))
+    probs = torch.softmax(scaled.masked_fill(~keep, float("-inf")), dim=-1)
+    return torch.where(temperature[..., None] > 0.0, probs, one_hot)
+
+
+def _rejection_sample(logits, props, lengths, q_dist, temps, top_ks,
+                      top_ps, seeds):
+    """``(n_acc, next token)`` of verify's rejection sampling (see
+    ``GenerativeEngine._verify_fn``) from the target's logits ``(R, k+1,
+    V)``, the proposals and their distributions ``q_dist`` ``(R, k, V)``,
+    and the rows' sampling arguments."""
+    r, s, _v = logits.shape
+    k = s - 1
+    rows = torch.arange(r, device=logits.device)
+    ar = torch.arange(s, device=logits.device)
+    # the target's own sampling distribution at every position
+    p = _sample_dist(logits, temps[:, None].expand(r, s),
+                     top_ks[:, None].expand(r, s),
+                     top_ps[:, None].expand(r, s))
+    # accept d_j iff u_j q_j(d_j) < p_j(d_j) (strict, so a proposal p gives
+    # no mass never survives); n_acc is the length of the accepted prefix
+    jpos = lengths[:, None] + 1 + ar[None, :k]
+    u = uniform(fold_in(token_key(seeds[:, None], jpos), 1))
+    qd = torch.gather(q_dist, 2, props[..., None])[..., 0]
+    pd = torch.gather(p[:, :k], 2, props[..., None])[..., 0]
+    acc = (u * qd < pd).long()
+    n_acc = torch.cumprod(acc, dim=1).sum(dim=1)
+    # the residual at every candidate rejection point
+    qz = torch.cat([q_dist, torch.zeros_like(q_dist[:, :1])], dim=1)
+    res = torch.clamp(p - qz, min=0.0)
+    tot = res.sum(dim=-1, keepdim=True)
+    dist = torch.where(
+        tot > 0.0, res / torch.where(tot > 0.0, tot, torch.ones_like(tot)),
+        p)
+    rpos = lengths[:, None] + 1 + ar[None, :]
+    gum = gumbel(fold_in(token_key(seeds[:, None], rpos), 2),
+                 logits.shape[-1])
+    cand = torch.argmax(torch.log(dist) + gum, dim=-1)       # (R, S)
+    return n_acc, cand[rows, n_acc]
+
+
 def _sampling_args(sampling: Optional[SamplingSpec]):
     """The four host scalars a spec rides the program signature as."""
     s = sampling or GREEDY
@@ -882,6 +1087,13 @@ def _sampling_args(sampling: Optional[SamplingSpec]):
 
 def _device_of(params) -> torch.device:
     return params["emb"].device
+
+
+def _param_tensors(params) -> List[torch.Tensor]:
+    out = [params["emb"], params["pos"], params["out"]]
+    for lp in params["layers"]:
+        out += list(lp.values())
+    return out
 
 
 def eager_generate(model: DecodeModel, params, prompt: Sequence[int],
@@ -947,7 +1159,8 @@ class _GenRequest:
 
 
 class _Row:
-    __slots__ = ("req", "pages", "cached", "pending", "joined")
+    __slots__ = ("req", "pages", "cached", "pending", "joined",
+                 "draft_pages", "draft_cached")
 
     def __init__(self, req: _GenRequest, pages: List[int], cached: int,
                  pending: int, joined: int):
@@ -956,6 +1169,12 @@ class _Row:
         self.cached = cached      # tokens whose KV is in the pool
         self.pending = pending    # next token to feed the decode step
         self.joined = joined      # admission order
+        # speculative decoding: the draft's own page table in the shared
+        # pool (never published to the prefix cache) and how many leading
+        # tokens hold valid draft KV; a rejected speculation just rewinds
+        # draft_cached (stale KV past it is masked out of every attention)
+        self.draft_pages: List[int] = []
+        self.draft_cached = 0
 
 
 class GenerativeEngine:
@@ -967,8 +1186,11 @@ class GenerativeEngine:
     (one replay per token batch). Admission sheds loudly
     (:class:`faults.ShedError`) instead of queueing toward a timeout. The
     engine runs on ``device`` (``cuda`` unless given the CPU; raises
-    without CUDA), where its parameters must lie; it never moves them. See
-    the module docstring for the design."""
+    without CUDA), where its parameters must lie; it never moves them.
+    ``draft`` (with ``draft_params``, on the same device) enables
+    speculative decoding under ``MXNET_SPEC_DECODE``, ``spec_k`` (an int
+    or ``"auto"``) overriding ``MXNET_SPEC_K``. See the module docstring
+    for the design."""
 
     def __init__(self, model: DecodeModel, params=None,
                  pool: Optional[PagePool] = None,
@@ -978,18 +1200,15 @@ class GenerativeEngine:
                  slo_us: Optional[int] = None,
                  policy: Optional[BucketPolicy] = None,
                  eos: Optional[int] = None,
+                 draft: Optional[DecodeModel] = None,
+                 draft_params=None,
+                 spec_k: Optional[Any] = None,
                  device=None):
         self._device = resolve_device(device)
         self._model = model
         self._params = (params if params is not None
                         else model.init_params(device=self._device))
-        pdev = _device_of(self._params)
-        if pdev.type != self._device.type or (
-                pdev.index is not None and self._device.index is not None
-                and pdev.index != self._device.index):
-            raise ValueError(
-                f"GenerativeEngine on {self._device} was given parameters "
-                f"on {pdev}; the engine never moves its parameters")
+        self._check_device(self._params)
         self._pool = pool if pool is not None else shared_pool()
         self.name = name or type(model).__name__
         self._rows = int(max_rows if max_rows is not None
@@ -1007,8 +1226,45 @@ class GenerativeEngine:
             dtype=self._params["emb"].dtype, device=self._device)
         self._max_pages = -(-int(model.max_seq) // self._pool.page)
         self._programs = _pstore.scope("serving_decode")
-        self._keep = self._param_tensors() + list(
+        self._keep = _param_tensors(self._params) + list(
             self._pool.storage(self._geom))
+        # -- speculative decoding: a co-hosted draft proposes k tokens a
+        # round and the target scores all k+1 in one verify dispatch
+        self._draft = draft
+        self._draft_params = None
+        if draft is not None:
+            if model.decode_chunk is None:
+                raise ValueError(
+                    "speculative decoding needs the TARGET model to "
+                    "implement decode_chunk (the k+1-position verify "
+                    "scorer)")
+            if int(draft.vocab) != int(model.vocab):
+                raise ValueError(
+                    f"draft vocab {draft.vocab} != target vocab "
+                    f"{model.vocab}: rejection sampling needs one token "
+                    "space")
+            self._draft_params = (draft_params if draft_params is not None
+                                  else draft.init_params(
+                                      device=self._device))
+            self._check_device(self._draft_params)
+            self._draft_geom = self._pool.register(
+                draft.n_layers, draft.n_heads, draft.head_dim,
+                dtype=self._draft_params["emb"].dtype, device=self._device)
+            self._draft_max_pages = -(-int(draft.max_seq) // self._pool.page)
+            # every speculative program keeps both models' tensors, so
+            # that no call of one drops another as stale
+            self._spec_keep = self._keep + _param_tensors(
+                self._draft_params) + list(
+                self._pool.storage(self._draft_geom))
+            self._spec_host = self._spec_buffers()
+        self._spec_programs = _pstore.scope("serving_spec")
+        # the constructor's spec_k wins over MXNET_SPEC_K (both take 'auto')
+        self._spec_k_setting = str(spec_k) if spec_k is not None else None
+        # the sticky low-acceptance cutoff and the acceptance-rate EMA that
+        # trips it
+        self._spec_disabled = False
+        self._spec_acc_ema: Optional[float] = None
+        self._spec_rounds_done = 0
         # the cost table: measured seconds per prefill bucket and per
         # decode step (admission prices requests from these EMAs)
         self._cost: Dict[Any, float] = {}
@@ -1027,7 +1283,8 @@ class GenerativeEngine:
              "decode_steps", "decode_row_util", "shed", "shed_queue",
              "shed_pool", "shed_slo", "shed_draining", "shed_deadline",
              "preempts", "slo_violations", "warmup_programs",
-             "bucket_fallbacks"),
+             "bucket_fallbacks", "spec_rounds", "spec_proposed",
+             "spec_accepted", "spec_fallbacks"),
             doc=f"GenerativeEngine counters (model {self.name!r})",
             family="decode.engine")
         _telemetry.register_load_gauges(self, self._stats.prefix)
@@ -1037,12 +1294,14 @@ class GenerativeEngine:
     def device(self) -> torch.device:
         return self._device
 
-    def _param_tensors(self) -> List[torch.Tensor]:
-        p = self._params
-        out = [p["emb"], p["pos"], p["out"]]
-        for lp in p["layers"]:
-            out += list(lp.values())
-        return out
+    def _check_device(self, params) -> None:
+        pdev = _device_of(params)
+        if pdev.type != self._device.type or (
+                pdev.index is not None and self._device.index is not None
+                and pdev.index != self._device.index):
+            raise ValueError(
+                f"GenerativeEngine on {self._device} was given parameters "
+                f"on {pdev}; the engine never moves its parameters")
 
     def _host_buffers(self) -> List[torch.Tensor]:
         """The decode step's host-side inputs (pinned on CUDA, so their
@@ -1165,6 +1424,8 @@ class GenerativeEngine:
         out = dict(self._stats)
         out["model"] = self.name
         out["programs"] = len(self._programs)
+        out["spec_programs"] = len(self._spec_programs)
+        out["spec_disabled"] = self._spec_disabled
         out["queue_depth"] = len(self._queue)
         out["live_rows"] = len(self._live)
         out["rows"] = self._rows
@@ -1386,8 +1647,13 @@ class GenerativeEngine:
             except BaseException as e:
                 # a bad request fails only its own caller
                 self._finish(req, e)
+        # one decode dispatch for the live sequences, or, when the cost
+        # table says speculation pays, one draft and one verify dispatch
+        # for up to k+1 tokens a row
         if self._live:
-            self._decode_step()
+            k = self._spec_should_engage()
+            if not (k and self._spec_round(k)):
+                self._decode_step()
             self._retire_finished()
 
     def _wait_for_pages(self, req: _GenRequest, budget: float = 5.0
@@ -1551,12 +1817,13 @@ class GenerativeEngine:
         return _pstore.run(self._programs, key, build, args,
                            device=self._device, keep=self._keep)
 
-    def _scatter(self, pidx, slot, k, v) -> None:
-        """Write per-position K/V rows ``(L, B, H, D)`` at (page, slot) of
-        the pool storage, in place."""
-        k_pool, v_pool = self._pool.storage(self._geom)
-        k_pool[pidx, slot] = k.transpose(0, 1)
-        v_pool[pidx, slot] = v.transpose(0, 1)
+    def _scatter(self, pidx, slot, k, v, geom=None) -> None:
+        """Write per-position K/V rows ``(L, ..., H, D)`` at (page, slot)
+        ``(...)`` of the pool storage of ``geom`` (the target's if None), in
+        place."""
+        k_pool, v_pool = self._pool.storage(geom or self._geom)
+        k_pool[pidx, slot] = k.movedim(0, -3)
+        v_pool[pidx, slot] = v.movedim(0, -3)
 
     def _prefill_fn(self, bucket: int):
         model, params = self._model, self._params
@@ -1576,11 +1843,12 @@ class GenerativeEngine:
 
         return prefill_fn
 
-    def _gather_ctx(self, table):
+    def _gather_ctx(self, table, geom=None, model=None):
         """The page-table gather: ``(..., P)`` page ids -> K and V context
-        ``(L, ..., P*page, H, D)``."""
-        model, page = self._model, self._pool.page
-        k_pool, v_pool = self._pool.storage(self._geom)
+        ``(L, ..., P*page, H, D)`` of ``model`` from ``geom``'s storage
+        (the target's if None)."""
+        model, page = model or self._model, self._pool.page
+        k_pool, v_pool = self._pool.storage(geom or self._geom)
         lead = table.shape[:-1]
         c = table.shape[-1] * page
         nd = len(lead)
@@ -1774,6 +2042,430 @@ class GenerativeEngine:
         with self._cv:
             self._queue.appendleft(row.req)
 
+    # -- speculative decoding (MXNET_SPEC_DECODE) ----------------------------
+    #: draft depth ceiling under MXNET_SPEC_K=auto: the draft-round program
+    #: is captured once at this k and verify consumes the first k of its
+    #: proposals, so auto-k never re-captures the draft
+    _SPEC_AUTO_KMAX = 4
+
+    def _spec_setting(self) -> str:
+        return (self._spec_k_setting if self._spec_k_setting is not None
+                else str(_config.get("MXNET_SPEC_K")))
+
+    def _spec_kmax(self) -> int:
+        s = self._spec_setting()
+        if s == "auto":
+            return self._SPEC_AUTO_KMAX
+        if not _config.VARIABLES["MXNET_SPEC_K"].validator(s):
+            raise ValueError(f"spec_k must be 'auto' or an int >= 1, got "
+                             f"{s!r}")
+        return int(s)
+
+    def _spec_should_engage(self) -> int:
+        """Per-round arbitration: the k to draft this round, or 0 for a
+        plain decode step. Speculation engages only when the cost table
+        says a round pays for itself, ``(E_acc + 1) * t_target > t_draft +
+        t_verify``, over measured EMAs; unmeasured entries engage, so the
+        table only ever turns speculation off once it has numbers."""
+        if (self._draft is None or not _config.get("MXNET_SPEC_DECODE")
+                or self._spec_disabled):
+            return 0
+        kmax = self._spec_kmax()
+        k = self._spec_auto_k() if self._spec_setting() == "auto" else kmax
+        # every live row must fit the draft's kmax-deep proposal run and
+        # the k+1-position verify chunk inside max_seq
+        for row in self._live:
+            if row.cached + kmax + 1 > int(self._model.max_seq) - 1:
+                self._spec_fallback()
+                return 0
+        t_t = self._cost.get("decode")
+        t_d = self._cost.get(("spec", "draft"))
+        t_v = self._cost.get(("spec_verify", k))
+        if t_t is not None and t_d is not None and t_v is not None:
+            # an unmeasured acceptance prices as k (optimistic bootstrap)
+            e_acc = self._cost.get(("spec", "acc"), float(k))
+            if (e_acc + 1.0) * t_t <= t_d + t_v:
+                self._spec_fallback()
+                return 0
+        return k
+
+    def _spec_auto_k(self) -> int:
+        """``MXNET_SPEC_K=auto``: the verify depth k that maximizes the
+        expected tokens per second, ``E_tok(k) = (1 - beta^(k+1)) / (1 -
+        beta)`` over the acceptance-rate EMA ``beta``, priced at ``t_draft
+        + t_verify(k)``. An unmeasured k is tried first (smallest first)."""
+        t_d = self._cost.get(("spec", "draft"))
+        beta = self._spec_acc_ema
+        if t_d is None or beta is None:
+            return self._SPEC_AUTO_KMAX
+        beta = min(max(beta, 0.0), 0.999)
+        best_k, best = self._SPEC_AUTO_KMAX, -1.0
+        for k in range(1, self._SPEC_AUTO_KMAX + 1):
+            t_v = self._cost.get(("spec_verify", k))
+            if t_v is None:
+                return k
+            e_tok = (1.0 - beta ** (k + 1)) / max(1.0 - beta, 1e-6)
+            score = e_tok / max(t_d + t_v, 1e-12)
+            if score > best:
+                best, best_k = score, k
+        return best_k
+
+    def _spec_fallback(self) -> None:
+        _SPEC_STATS.inc("fallback_rounds")
+        self._stats.inc("spec_fallbacks")
+
+    def _spec_autodisable(self, reason: str, **fields) -> None:
+        """Sticky degrade to plain decode, for this engine's lifetime, once
+        the measured acceptance collapses: plain decode is always correct,
+        so this costs throughput only."""
+        if self._spec_disabled:
+            return
+        self._spec_disabled = True
+        _SPEC_STATS.inc("autodisabled")
+        _telemetry.event("spec.autodisabled", self.name, reason=reason,
+                         **fields)
+        _faults.record_event("serving.spec", "autodisabled",
+                             model=self.name, reason=reason)
+
+    def _ensure_spec_pages(self, row: _Row, last_pos: int) -> bool:
+        """Grow the target's page table to cover verify's writes through
+        ``last_pos``, forking a shared or published page on the way; never
+        preempts: on exhaustion the round is skipped and plain decode
+        proceeds under the ordinary preemption rules."""
+        page = self._pool.page
+        try:
+            for i in range(row.cached // page, last_pos // page + 1):
+                if i < len(row.pages):
+                    if self._pool.shared(row.pages[i]):
+                        row.pages[i] = self._pool.fork(self._geom,
+                                                       row.pages[i])
+                else:
+                    row.pages.extend(self._pool.alloc(1))
+            return True
+        except PagePoolExhausted:
+            return False
+
+    def _ensure_draft_ready(self, row: _Row, kmax: int) -> bool:
+        """Draft pages covering this round's writes (positions ``cached ..
+        cached + kmax - 1``), and a draft prefill where the draft lags the
+        target by more than the round's catch-up step absorbs (the row's
+        first round, or rounds decoded plainly meanwhile)."""
+        page = self._pool.page
+        c = row.cached
+        try:
+            while len(row.draft_pages) * page <= c + kmax - 1:
+                row.draft_pages.extend(self._pool.alloc(1))
+        except PagePoolExhausted:
+            return False
+        if c - row.draft_cached > 1 and c > 0:
+            self._draft_prefill(row)
+        return True
+
+    def _spec_call(self, key, build, args):
+        """The speculative program of ``key`` on ``args`` (``_call`` in the
+        ``serving_spec`` scope)."""
+        return _pstore.run(self._spec_programs, key, build, args,
+                           device=self._device, keep=self._spec_keep)
+
+    def _draft_prefill(self, row: _Row) -> None:
+        """One draft-prefill dispatch at the bucket of the row's committed
+        prefix: writes the draft's KV for it, so that the round can start
+        proposing from ``pending``."""
+        c = row.cached
+        seq = (row.req.prompt + row.req.out)[:c]
+        bucket = self._policy.bucket(c)
+        if bucket is None:
+            bucket = c
+        bucket = min(bucket, int(self._draft.max_seq))
+        tokens = np.zeros((bucket,), np.int64)
+        tokens[:c] = seq
+        table = np.full((self._draft_max_pages,), self._pool.trash, np.int64)
+        table[:len(row.draft_pages)] = row.draft_pages
+        t0 = time.perf_counter()
+        with _telemetry.span("decode.spec_draft_prefill", cat="decode",
+                             args={"model": self.name, "bucket": bucket,
+                                   "tokens": c}):
+            self._pool.gate.acquire(self._priority)
+            try:
+                with self._pool.exclusive(self._draft_geom):
+                    self._spec_call(
+                        ("draft_prefill", bucket),
+                        lambda: self._draft_prefill_fn(bucket),
+                        [torch.from_numpy(tokens), torch.tensor(c),
+                         torch.from_numpy(table)])
+            finally:
+                self._pool.gate.release()
+        self._ema(("spec", "draft_prefill"), time.perf_counter() - t0)
+        row.draft_cached = c
+
+    def _spec_buffers(self) -> Dict[str, torch.Tensor]:
+        """The round's host-side inputs (pinned on CUDA): the draft round's
+        catch-up token, its switch and the pending tokens, the draft and
+        target page tables and lengths, and the sampling arguments."""
+        r = self._rows
+        pin = self._device.type == "cuda"
+        shapes = {"catch": ((r,), torch.int64),
+                  "catch_on": ((r,), torch.bool),
+                  "pending": ((r,), torch.int64),
+                  "dtables": ((r, self._draft_max_pages), torch.int64),
+                  "dlengths": ((r,), torch.int64),
+                  "tables": ((r, self._max_pages), torch.int64),
+                  "lengths": ((r,), torch.int64),
+                  "temps": ((r,), torch.float32),
+                  "top_ks": ((r,), torch.int64),
+                  "top_ps": ((r,), torch.float32),
+                  "seeds": ((r,), torch.int64)}
+        return {k: torch.empty(shape, dtype=dtype, pin_memory=pin)
+                for k, (shape, dtype) in shapes.items()}
+
+    def _spec_round(self, k: int) -> bool:
+        """One speculative round over the live rows: one draft-round
+        dispatch (kmax proposals a row) and one verify dispatch (k+1
+        target positions a row), then the host commit of each row's
+        accepted prefix and its resampled or bonus token. False when the
+        pages did not fit: the caller runs a plain decode step
+        (speculation is opportunistic). A failing dispatch or capture
+        raises, to the round's requests (the reference instead turns
+        speculation off and decodes plainly, which would hide a fault of
+        the programs behind a slower stream)."""
+        kmax = self._spec_kmax()
+        live = list(self._live)
+        for row in live:
+            if (not self._ensure_spec_pages(row, row.cached + k)
+                    or not self._ensure_draft_ready(row, kmax)):
+                self._spec_fallback()
+                return False
+        h = {name: b.numpy() for name, b in self._spec_host.items()}
+        trash = self._pool.trash
+        h["catch"][:] = 0
+        h["catch_on"][:] = False
+        h["pending"][:] = 0
+        h["dtables"][:] = trash
+        h["dlengths"][:] = 0
+        h["tables"][:] = trash
+        h["lengths"][:] = 0
+        h["temps"][:] = 0.0
+        h["top_ks"][:] = 0
+        h["top_ps"][:] = 1.0
+        h["seeds"][:] = 0
+        for i, row in enumerate(live):
+            h["pending"][i] = row.pending
+            d = row.draft_cached
+            if row.cached - d == 1:
+                # a lag of 1 iff the last round accepted every proposal:
+                # its last proposal is committed but its KV never drafted
+                h["catch_on"][i] = True
+                h["catch"][i] = (row.req.prompt + row.req.out)[d]
+            h["dtables"][i, :len(row.draft_pages)] = row.draft_pages
+            h["dlengths"][i] = d
+            h["tables"][i, :len(row.pages)] = row.pages
+            h["lengths"][i] = row.cached
+            (h["temps"][i], h["top_ks"][i], h["top_ps"][i],
+             h["seeds"][i]) = _sampling_args(row.req.sampling)
+        b = self._spec_host
+        samp = [b["temps"], b["top_ks"], b["top_ps"], b["seeds"]]
+        dargs = [b["catch"], b["catch_on"], b["pending"], b["dtables"],
+                 b["dlengths"], *samp]
+        step_args: Dict[str, Any] = {"model": self.name, "rows": len(live),
+                                     "k": k}
+        traces = [row.req.trace_id for row in live
+                  if row.req.trace_id is not None]
+        if traces:
+            step_args["trace_ids"] = traces
+        with _telemetry.span("decode.spec_round", cat="decode",
+                             args=step_args):
+            t0 = time.perf_counter()
+            self._pool.gate.acquire(self._priority)
+            try:
+                with self._pool.exclusive(self._draft_geom):
+                    props, q_dist = self._spec_call(
+                        ("draft_round", kmax),
+                        lambda: self._draft_round_fn(kmax), dargs)
+            finally:
+                self._pool.gate.release()
+            t1 = time.perf_counter()
+            vargs = [b["pending"], props[:, :k], b["tables"], b["lengths"],
+                     q_dist[:, :k], *samp]
+            self._pool.gate.acquire(self._priority)
+            try:
+                with self._pool.exclusive(self._geom):
+                    res = self._spec_call(
+                        ("verify", k), lambda: self._verify_fn(k), vargs)
+                    # THE one host read per round: accepted counts, next
+                    # tokens and proposals feed the host commit
+                    res = res.tolist()
+            finally:
+                self._pool.gate.release()
+            t2 = time.perf_counter()
+        self._ema(("spec", "draft"), t1 - t0)
+        self._ema(("spec_verify", k), t2 - t1)
+        total_acc = 0
+        committed = 0
+        for i, row in enumerate(live):
+            na, nxt, props_i = res[i][0], res[i][1], res[i][2:]
+            total_acc += na
+            c = row.cached
+            for t in props_i[:na] + [nxt]:
+                row.req.out.append(t)
+                committed += 1
+                if self._done(row):
+                    break
+            if not self._done(row):
+                row.cached = c + 1 + na
+                row.pending = row.req.out[-1]
+            # the draft's KV stays valid through the committed prefix it
+            # holds: positions c .. c+kmax-1 hold [pending, d_1 ..
+            # d_{kmax-1}], of which 1 + min(na, kmax-1) lead the committed
+            # sequence; a rejected tail just rewinds
+            row.draft_cached = c + 1 + min(na, kmax - 1)
+        self._stats.inc("spec_rounds")
+        self._stats.inc("spec_proposed", k * len(live))
+        self._stats.inc("spec_accepted", total_acc)
+        self._stats.inc("tokens_out", committed)
+        _SPEC_STATS.inc("rounds")
+        _SPEC_STATS.inc("proposed", k * len(live))
+        _SPEC_STATS.inc("accepted", total_acc)
+        # the expected-acceptance EMA feeds the arbiter; the rate EMA trips
+        # the sticky low-acceptance cutoff
+        self._ema(("spec", "acc"), total_acc / max(len(live), 1))
+        rate = total_acc / float(max(k * len(live), 1))
+        self._spec_acc_ema = (rate if self._spec_acc_ema is None
+                              else 0.7 * self._spec_acc_ema + 0.3 * rate)
+        self._spec_rounds_done += 1
+        if self._spec_rounds_done >= 4 and self._spec_acc_ema < 0.2:
+            self._spec_autodisable("measured acceptance persistently low",
+                                   acceptance=round(self._spec_acc_ema, 4))
+        return True
+
+    # -- speculative programs (namespace 'serving_spec') ---------------------
+    def _draft_prefill_fn(self, bucket: int):
+        draft, dparams = self._draft, self._draft_params
+        page, trash = self._pool.page, self._pool.trash
+
+        def draft_prefill_fn(tokens, length, table):
+            with torch.no_grad():
+                _logits, k, v = draft.prefill(dparams, tokens, length)
+                pos = torch.arange(bucket, device=tokens.device)
+                pidx = torch.where(pos < length, table[pos // page],
+                                   torch.full_like(pos, trash))
+                self._scatter(pidx, pos % page, k, v, geom=self._draft_geom)
+            return ()
+
+        return draft_prefill_fn
+
+    def _draft_round_fn(self, kmax: int):
+        """The whole draft phase of a round as one program: a masked
+        catch-up step, then the pending token, then kmax-1 proposal feeds
+        (kmax+1 draft decode steps), so a round costs two dispatches
+        however deep it drafts. Returns the proposals ``(R, kmax)`` and
+        their sampling distributions ``(R, kmax, V)``, which stay on the
+        device into verify."""
+        draft, dparams = self._draft, self._draft_params
+        page, trash = self._pool.page, self._pool.trash
+        dmp = self._draft_max_pages
+        dgeom = self._draft_geom
+
+        def draft_round_fn(catch, catch_on, pending, tables, lengths,
+                           temps, top_ks, top_ps, seeds):
+            rows = torch.arange(tables.shape[0], device=tables.device)
+
+            def step(tok, pos, write):
+                # feed tok at per-row position pos, scatter its KV (masked
+                # rows into the trash page); re-gathers, so step j attends
+                # step j-1's KV
+                k_ctx, v_ctx = self._gather_ctx(tables, dgeom, draft)
+                logits, k_new, v_new = draft.decode(dparams, tok, k_ctx,
+                                                    v_ctx, pos)
+                pidx = torch.where(
+                    write, tables[rows, torch.clamp(pos // page,
+                                                    max=dmp - 1)],
+                    torch.full_like(pos, trash))
+                self._scatter(pidx, pos % page, k_new, v_new, geom=dgeom)
+                return logits
+
+            with torch.no_grad():
+                # catch-up: after a fully accepted round the draft lags by
+                # one committed token; rows that do not need it write the
+                # trash page and do not advance
+                step(catch, lengths, catch_on)
+                cur = lengths + catch_on.long()
+                props, qs = [], []
+                tok = pending
+                for j in range(1, kmax + 1):
+                    logits = step(tok, cur + (j - 1),
+                                  torch.ones_like(catch_on))
+                    # proposal j sits at position cur + j; salt 3 keeps
+                    # the draft's noise apart from verify's accept (1) and
+                    # resample (2) streams on the same counter
+                    keys = fold_in(token_key(seeds, cur + j), 3)
+                    d = sample_token(logits, temps, top_ks, top_ps,
+                                     keys).long()
+                    qs.append(_sample_dist(logits, temps, top_ks, top_ps))
+                    props.append(d)
+                    tok = d
+                return torch.stack(props, dim=1), torch.stack(qs, dim=1)
+
+        return draft_round_fn
+
+    def _verify_fn(self, k: int):
+        """The verify program of depth k: one target ``decode_chunk`` over
+        the k+1 positions (pending and k proposals), standard rejection
+        sampling against the draft's distributions (accept ``d_j`` iff
+        ``u_j q_j(d_j) < p_j(d_j)``), the first rejection resampled from
+        ``norm(max(p - q, 0))`` (the bonus token after a full acceptance as
+        the residual with ``q := 0``; ``p`` where the residual is all
+        zero), and the KV scatter of the accepted prefix only (rejected
+        positions write the trash page). Returns ``(R, 2 + k)``: ``n_acc``,
+        the next token, and the proposals."""
+        model, params = self._model, self._params
+        page, trash = self._pool.page, self._pool.trash
+        mp = self._max_pages
+        s = k + 1
+
+        def verify_fn(pending, props, tables, lengths, *sampled):
+            dev = tables.device
+            r = tables.shape[0]
+            rows = torch.arange(r, device=dev)
+            ar = torch.arange(s, device=dev)
+            with torch.no_grad():
+                k_ctx, v_ctx = self._gather_ctx(tables)
+                toks = torch.cat([pending[:, None], props], dim=1)
+                logits, k_new, v_new = model.decode_chunk(
+                    params, toks, k_ctx, v_ctx, lengths)       # (R, S, V)
+                n_acc, nxt = _rejection_sample(logits, props, lengths,
+                                               *sampled)
+                # chunk position i commits iff i <= n_acc (pending always,
+                # then the accepted proposals)
+                keep = ar[None, :] <= n_acc[:, None]
+                wpos = lengths[:, None] + ar[None, :]
+                pidx = torch.where(
+                    keep, tables[rows[:, None],
+                                 torch.clamp(wpos // page, max=mp - 1)],
+                    torch.full_like(wpos, trash))
+                self._scatter(pidx, wpos % page, k_new, v_new)
+                return torch.cat([n_acc[:, None], nxt[:, None], props],
+                                 dim=1)
+
+        return verify_fn
+
+    def _spec_examples(self, k: Optional[int] = None):
+        """Example inputs of the draft round (``k`` None) or of verify at
+        depth ``k``: every table the trash page, so a capture writes only
+        the trash page."""
+        r, trash, v = self._rows, self._pool.trash, int(self._model.vocab)
+        samp = [torch.zeros((r,)), torch.zeros((r,), dtype=torch.int64),
+                torch.ones((r,)), torch.zeros((r,), dtype=torch.int64)]
+        z = torch.zeros((r,), dtype=torch.int64)
+        if k is None:
+            return [z, torch.zeros((r,), dtype=torch.bool), z,
+                    torch.full((r, self._draft_max_pages), trash,
+                               dtype=torch.int64), z, *samp]
+        out = [z, torch.zeros((r, k), dtype=torch.int64),
+               torch.full((r, self._max_pages), trash, dtype=torch.int64), z]
+        return out + [torch.zeros((r, k, v),
+                                  dtype=self._draft_params["emb"].dtype),
+                      *samp]
+
     # -- retire / deliver ----------------------------------------------------
     def _done(self, row: _Row) -> bool:
         req = row.req
@@ -1790,6 +2482,10 @@ class GenerativeEngine:
         if row.pages:
             self._pool.free(row.pages)
             row.pages = []
+        if row.draft_pages:
+            self._pool.free(row.draft_pages)
+            row.draft_pages = []
+            row.draft_cached = 0
 
     def _deliver(self, row: _Row) -> None:
         self._release(row)               # pages free this iteration
@@ -1806,9 +2502,11 @@ class GenerativeEngine:
         """Capture the bounded program set before serving: one prefill per
         bucket of the ``MXNET_SHAPE_BUCKETS`` grid (pow2 spans
         1..``max_len``, default ``model.max_seq``; an explicit grid is
-        taken as it is) and THE decode program. Each capture writes only
-        the trash page. Returns the programs captured (0 = already
-        warm)."""
+        taken as it is) and THE decode program; with a draft, also a draft
+        prefill per bucket (up to the draft's ``max_seq``), the draft-round
+        program and a verify program per k the arbiter can pick (1..4
+        under ``auto``). Each capture writes only the trash page. Returns
+        the programs captured (0 = already warm)."""
         if self._closed:
             raise RuntimeError("GenerativeEngine is closed")
         cap = int(max_len if max_len is not None else self._model.max_seq)
@@ -1822,20 +2520,48 @@ class GenerativeEngine:
             while b <= cap:
                 grid.append(b)
                 b <<= 1
-        specs = [(("prefill", b), lambda b=b: self._prefill_fn(b),
+        plain = (self._programs, self._geom, self._keep)
+        specs = [(plain, ("prefill", b), lambda b=b: self._prefill_fn(b),
                   self._prefill_example(b)) for b in grid]
-        specs.append((("decode",), self._decode_fn, self._decode_example()))
+        specs.append((plain, ("decode",), self._decode_fn,
+                      self._decode_example()))
+        if self._draft is not None:
+            # the spec grid: a draft prefill per bucket, ONE draft round,
+            # and a verify per k the arbiter can pick, so that a spec storm
+            # captures nothing after warm-up, as the plain lane
+            kmax = self._spec_kmax()
+            dcap = min(cap, int(self._draft.max_seq))
+            draft = (self._spec_programs, self._draft_geom, self._spec_keep)
+            verify = (self._spec_programs, self._geom, self._spec_keep)
+            for b in grid:
+                if b <= dcap:
+                    specs.append((draft, ("draft_prefill", b),
+                                  lambda b=b: self._draft_prefill_fn(b),
+                                  [torch.zeros((b,), dtype=torch.int64),
+                                   torch.tensor(b),
+                                   torch.full((self._draft_max_pages,),
+                                              self._pool.trash,
+                                              dtype=torch.int64)]))
+            ks = (range(1, kmax + 1) if self._spec_setting() == "auto"
+                  else [kmax])
+            specs.append((draft, ("draft_round", kmax),
+                          lambda: self._draft_round_fn(kmax),
+                          self._spec_examples()))
+            for kk in ks:
+                specs.append((verify, ("verify", kk),
+                              lambda kk=kk: self._verify_fn(kk),
+                              self._spec_examples(kk)))
         compiled = 0
-        with self._pool.exclusive(self._geom):
-            for key, build, example in specs:
-                if key in self._programs:
-                    continue
-                self._programs.lookup(key)            # counted miss
-                prog = _pstore.Program(_NS, build(), example, self._device,
-                                       keep=self._keep)
+        for (cache, geom, keep), key, build, example in specs:
+            if key in cache:
+                continue
+            cache.lookup(key)                         # counted miss
+            with self._pool.exclusive(geom):
+                prog = _pstore.Program(cache.namespace, build(), example,
+                                       self._device, keep=keep)
                 prog.prepare(*example)
-                self._programs.insert(key, prog)
-                compiled += 1
+            cache.insert(key, prog)
+            compiled += 1
         self._stats.inc("warmup_programs", compiled)
         return compiled
 

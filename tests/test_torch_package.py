@@ -89,6 +89,7 @@ def test_scan_finds_every_port_module():
             "mxnet_tpu_torch/ops/optimizer.py",
             "mxnet_tpu_torch/parallel/mesh.py",
             "mxnet_tpu_torch/parallel/train.py",
+            "mxnet_tpu_torch/parallel/moe.py",
             "mxnet_tpu_torch/random.py",
             "mxnet_tpu_torch/ndarray/__init__.py",
             "mxnet_tpu_torch/ndarray/ndarray.py",
@@ -303,6 +304,45 @@ def test_serving_entry_points_raise_without_cuda(no_cuda):
         serving.ServingEngine(Double())
     eng = sd.GenerativeEngine(model, params=params, pool=pool, device="cpu")
     eng.close()
+
+
+def test_spec_and_moe_entry_points_raise_without_cuda(no_cuda):
+    import dataclasses
+
+    from mxnet_tpu_torch import cpu, models, serving_decode as sd
+    from mxnet_tpu_torch.parallel import MoEBlock
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sd.high_agreement_pair(vocab=16, d_model=8, target_layers=2,
+                               n_heads=2, max_seq=16)
+    target, tp, draft, dp = sd.high_agreement_pair(
+        vocab=16, d_model=8, target_layers=2, n_heads=2, max_seq=16,
+        device="cpu")
+    pool = sd.PagePool(pages=4, page=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sd.GenerativeEngine(target, params=tp, pool=pool, draft=draft,
+                            draft_params=dp)
+    sd.GenerativeEngine(target, params=tp, pool=pool, draft=draft,
+                        draft_params=dp, device="cpu").close()
+    net = MoEBlock(units=8, hidden=16, num_experts=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        net.initialize()
+    net.initialize(ctx=cpu())
+    assert net.collect_params()["gate.weight"].device.type == "cpu"
+    cfg = models.TransformerLMConfig(vocab_size=64, num_layers=1,
+                                     num_heads=2, hidden=16, mlp_hidden=32,
+                                     max_len=16, num_experts=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.init_params(cfg)
+    p = models.init_params(cfg, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.forward(p, toks, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.make_train_step(cfg)
+    with pytest.raises(NotImplementedError, match="ring_attention"):
+        models.forward(p, toks, dataclasses.replace(
+            cfg, use_ring_attention=True), device="cpu")
 
 
 def test_gluon_entry_points_raise_without_cuda(no_cuda):

@@ -204,8 +204,11 @@ def test_init_params_scales_and_seed():
 
 
 @pytest.mark.parametrize("change", [
-    dict(num_experts=4), dict(use_ring_attention=True)])
+    dict(num_experts=4, use_ring_attention=True),
+    dict(use_ring_attention=True)])
 def test_unported_configs_raise(change):
+    # mixture-of-experts layers are ported (tests/test_torch_moe.py); with
+    # ring attention they still refuse
     jcfg, tcfg = _cfgs()
     _, tp = _both_params(jcfg, tcfg)
     bad = dataclasses.replace(tcfg, **change)

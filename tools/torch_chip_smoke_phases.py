@@ -1,0 +1,68 @@
+#!/usr/bin/env python3
+"""Phases 11 (serving), 12 (speculative decoding) and 13 (the
+mixture-of-experts LM) of ``chip_smoke.py`` alone, on one card: a quicker
+look at those paths than the whole script.
+
+    python3 tools/torch_chip_smoke_phases.py [11] [12] [13]
+
+With no argument it runs 12 and 13. It builds the port's kernels first
+(phase 1 of the script: phase 13 runs the flash-attention kernels) and
+exits with the script's failure code at the first failed gate.
+"""
+import json
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                ".."))
+
+import torch  # noqa: E402
+
+import chip_smoke as c  # noqa: E402
+
+
+def main(which) -> int:
+    if not torch.cuda.is_available():
+        print("torch_chip_smoke_phases: no CUDA device available",
+              file=sys.stderr)
+        return 1
+    print(sys.version, torch.__version__, torch.version.cuda, flush=True)
+    models, ck, _build = c.port()
+    mx, config, _resnet, _nn_ops = c.port_gluon()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_line = c.build_phase(_build)
+    _ps, cs = c.port_capture()
+    serving, sd, lat = c.port_serving()
+    for phase in which:
+        t0 = time.perf_counter()
+        ck.reset_launch_counts()
+        if phase == "11":
+            decode, _model, _params = c.decode_storm_phase(sd, lat,
+                                                           card_line)
+            del _model, _params
+            out = {"decode": decode,
+                   "oneshot": c.oneshot_nets_phase(serving, mx, card_line)}
+        elif phase == "12":
+            out = c.spec_phase(sd, lat, ck, card_line)
+        elif phase == "13":
+            counts, traced = {}, {}
+            out = c.moe_phase(models, cs, ck, config, card_line, counts,
+                              traced)
+            print(f"phase 13 launch counts of the MoE runs {counts}, traced "
+                  f"in the replays {traced}")
+        else:
+            print(f"torch_chip_smoke_phases: no phase {phase}",
+                  file=sys.stderr)
+            return 2
+        print(json.dumps({f"phase_{phase}": out}, default=str), flush=True)
+        print(f"phase {phase} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        torch.cuda.empty_cache()
+    print(f"phases {' '.join(which)} ok [{card_line}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:] or ["12", "13"]))

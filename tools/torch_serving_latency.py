@@ -4,7 +4,7 @@
 (``serving_decode.GenerativeEngine``).
 
     python3 tools/torch_serving_latency.py [--serve] [--decode] [--storm]
-        [--shared-prefix] [--device cuda|cpu] [--json]
+        [--shared-prefix] [--speculative] [--device cuda|cpu] [--json]
 
 The port of ``benchmark/serving_latency.py``'s workers, run in this
 process (the functions are also what ``chip_smoke.py`` phase 11 calls):
@@ -31,14 +31,26 @@ process (the functions are also what ``chip_smoke.py`` phase 11 calls):
 - :func:`run_shared_prefix`: USERS copies of one system prompt through the
   prefix cache, warm (cache on) and cold (off): hit rate, prefills, and
   token-exactness against each other and the eager loop.
+- :func:`run_speculative` (the reference's ``--speculative`` worker,
+  ``benchmark/serving_latency.py:600-760``): the same greedy prompt set
+  through ``high_agreement_pair(vocab=128, d_model=64, target_layers=8,
+  draft_layers=1, n_heads=4, max_seq=96)`` at ``max_rows=2`` on a 256 x 8
+  pool, three passes: the baseline (no speculation), a low-agreement
+  draft (an independent 1-layer init, which must auto-disable), and the
+  high-agreement draft at k=4: tokens/s of each, the speedup, the measured
+  acceptance, the counters, and the cost table's draft-round, verify and
+  decode-step times.
 
 :func:`check_bars` holds a result to the lanes' bars (``bench.py``
 :692-790): batching speedup >= 2 at concurrency >= 8 and 0 captures after
 warm-up for decode, programs <= buckets and 0 captures after warm-up for
-the one-shot lane, interference ratio <= 2, prefix hit rate >= 0.9. The
-router, elastic and speculative legs of the reference's workers wait for
-their modules (ROADMAP A8, A5b). Every timed number is measured on this
-process's device; on the card, print it beside
+the one-shot lane, interference ratio <= 2, prefix hit rate >= 0.9, and
+for the speculative lane the reference's: speedup >= 1.5 at acceptance >=
+0.7, every pass token-exact against the eager loop, the low-agreement
+draft auto-disabled and within 5% of the baseline's tokens/s. The router,
+remote and elastic legs of the reference's workers (their speculative legs
+too) wait for their modules (ROADMAP A8). Every timed number is measured
+on this process's device; on the card, print it beside
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 """
 import argparse
@@ -58,7 +70,9 @@ from mxnet_tpu_torch import serving, serving_decode as sd  # noqa: E402
 from mxnet_tpu_torch import program_store, telemetry  # noqa: E402
 
 BARS = {"batching_speedup": 2.0, "min_concurrency": 8,
-        "interference_p99_ratio": 2.0, "prefix_hit_rate": 0.9}
+        "interference_p99_ratio": 2.0, "prefix_hit_rate": 0.9,
+        "spec_speedup": 1.5, "spec_acceptance": 0.7,
+        "spec_low_ratio": 0.95}
 JOIN_S = 600.0
 
 
@@ -476,9 +490,133 @@ def run_shared_prefix(users: int = 16, new_tokens: int = 8, device="cuda"
     }
 
 
-def check_bars(decode=None, serve=None, storm=None, prefix=None) -> list:
+# ---------------------------------------------------------------------------
+# speculative decoding (the reference's --speculative lane)
+# ---------------------------------------------------------------------------
+def _spec_pass(target, tp, prompts, new_tokens, spec_on, draft=None,
+               dparams=None, k=4, label="x", device="cuda"):
+    """One pass of the prompt set from one client thread per request;
+    tokens/s, the outputs and the engine's spec counters and cost table."""
+    prev = os.environ.get("MXNET_SPEC_DECODE")
+    os.environ["MXNET_SPEC_DECODE"] = "1" if spec_on else "0"
+    pool = sd.PagePool(pages=256, page=8)
+    kw = (dict(draft=draft, draft_params=dparams, spec_k=k)
+          if draft is not None else {})
+    # max_rows=2: decode-bound rows, the workload the k-for-1 verify
+    # targets (wide batches amortize the dispatch on their own)
+    eng = sd.GenerativeEngine(target, params=tp, pool=pool, max_rows=2,
+                              name="spec_" + label, device=device, **kw)
+    try:
+        eng.warmup(max_len=16)
+        eng.generate(prompts[0], max_new_tokens=2)
+        t0 = sd.trace_count() + sd.spec_trace_count()
+        wall, tokens, sheds, outs = drive(eng, prompts, len(prompts),
+                                          new_tokens)
+        st = eng.stats()
+        cost = dict(eng._cost)
+        captures = sd.trace_count() + sd.spec_trace_count() - t0
+    finally:
+        eng.close()
+        if prev is None:
+            os.environ.pop("MXNET_SPEC_DECODE", None)
+        else:
+            os.environ["MXNET_SPEC_DECODE"] = prev
+    if sheds or pool.in_use() or pool.audit():
+        raise RuntimeError(f"speculative lane ({label}): {sheds} sheds, "
+                           f"{pool.in_use()} pages leaked, audit "
+                           f"{pool.audit()}")
+
+    def ms(key):
+        return None if key not in cost else cost[key] * 1e3
+
+    return {
+        "outs": outs, "wall_s": wall, "tokens": tokens,
+        "tokens_s": tokens / wall, "captures_after_warm": captures,
+        "rounds": st["spec_rounds"], "proposed": st["spec_proposed"],
+        "accepted": st["spec_accepted"], "fallbacks": st["spec_fallbacks"],
+        "disabled": st["spec_disabled"], "decode_steps": st["decode_steps"],
+        "draft_round_ms": ms(("spec", "draft")),
+        "verify_ms": ms(("spec_verify", k)), "decode_step_ms": ms("decode"),
+    }
+
+
+def run_speculative(requests: int = 12, new_tokens: int = 24, k: int = 4,
+                    device="cuda") -> dict:
+    """The speculative lane: the baseline, the low-agreement leg and the
+    high-agreement leg over one seeded greedy prompt set (prompts of 4-12
+    tokens), each held token-exact against the eager loop. The pair is a
+    deep target whose extra layers are the identity, so that the draft's
+    logits are the target's (acceptance 1.0) while the target pays 8x the
+    draft's per-token compute."""
+    target, tp, draft, dp = sd.high_agreement_pair(
+        vocab=128, d_model=64, target_layers=8, draft_layers=1, n_heads=4,
+        max_seq=96, seed=0, device=device)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, 128, size=rng.randint(4, 13)).tolist()
+               for _ in range(requests)]
+    base = _spec_pass(target, tp, prompts, new_tokens, False, label="base",
+                      device=device)
+    # the low-agreement leg first (an independently drawn draft whose
+    # proposals rarely match): the arbiter must auto-disable it
+    low_draft = sd.TinyCausalLM(vocab=128, d_model=64, n_layers=1,
+                                n_heads=4, max_seq=96)
+    low = _spec_pass(target, tp, prompts, new_tokens, True, low_draft,
+                     low_draft.init_params(99, device=device), k,
+                     label="low", device=device)
+    on = _spec_pass(target, tp, prompts, new_tokens, True, draft, dp, k,
+                    label="on", device=device)
+    oracle = [sd.eager_generate(target, tp, p, new_tokens) for p in prompts]
+    out = {
+        "device": str(torch.device(device)), "requests": requests,
+        "new_tokens": new_tokens, "spec_k": k,
+        "baseline_tokens_s": base["tokens_s"],
+        "spec_tokens_s": on["tokens_s"],
+        "speedup": on["tokens_s"] / max(base["tokens_s"], 1e-9),
+        "acceptance": on["accepted"] / max(on["proposed"], 1),
+        "token_exact": all(r["outs"] == oracle for r in (base, low, on)),
+        "rounds": on["rounds"], "proposed": on["proposed"],
+        "accepted": on["accepted"], "fallback_rounds": on["fallbacks"],
+        "tokens_per_round": on["tokens"] / max(on["rounds"], 1),
+        "target_dispatches_per_token": (on["decode_steps"] + on["rounds"])
+        / max(on["tokens"], 1),
+        "captures_after_warm": base["captures_after_warm"]
+        + low["captures_after_warm"] + on["captures_after_warm"],
+        "draft_round_ms": on["draft_round_ms"], "verify_ms": on["verify_ms"],
+        "baseline_decode_step_ms": base["decode_step_ms"],
+        "low_agreement": {
+            "tokens_s": low["tokens_s"],
+            "ratio_vs_baseline": low["tokens_s"] / max(base["tokens_s"],
+                                                       1e-9),
+            "autodisabled": low["disabled"],
+            "rounds_before_disable": low["rounds"],
+        },
+    }
+    return out
+
+
+def check_bars(decode=None, serve=None, storm=None, prefix=None,
+               spec=None) -> list:
     """The lanes' bars the results miss (empty when all hold)."""
     bad = []
+    if spec is not None:
+        if not spec["token_exact"]:
+            bad.append("speculative lane not token-exact against the "
+                       "eager loop")
+        if spec["acceptance"] < BARS["spec_acceptance"]:
+            bad.append(f"spec acceptance {spec['acceptance']:.3f} < "
+                       f"{BARS['spec_acceptance']}")
+        if spec["speedup"] < BARS["spec_speedup"]:
+            bad.append(f"spec speedup {spec['speedup']:.2f} < "
+                       f"{BARS['spec_speedup']}")
+        low = spec["low_agreement"]
+        if not low["autodisabled"]:
+            bad.append("the low-agreement draft never auto-disabled")
+        if low["ratio_vs_baseline"] < BARS["spec_low_ratio"]:
+            bad.append(f"low-agreement leg at {low['ratio_vs_baseline']:.2f}"
+                       f"x the baseline (< {BARS['spec_low_ratio']})")
+        if spec["captures_after_warm"]:
+            bad.append(f"{spec['captures_after_warm']} captures after "
+                       "warm-up in the speculative lane")
     if decode is not None:
         if decode["concurrency"] >= BARS["min_concurrency"] and \
                 decode["batching_speedup"] < BARS["batching_speedup"]:
@@ -514,12 +652,15 @@ def main() -> int:
     ap.add_argument("--decode", action="store_true")
     ap.add_argument("--storm", action="store_true")
     ap.add_argument("--shared-prefix", action="store_true")
+    ap.add_argument("--speculative", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=None)
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args()
-    if not (args.serve or args.decode or args.storm or args.shared_prefix):
+    if not (args.serve or args.decode or args.storm or args.shared_prefix
+            or args.speculative):
         args.serve = args.decode = args.storm = args.shared_prefix = True
+        args.speculative = True
     out = {}
     if args.serve:
         out["serving"] = run_serving(requests=args.requests or 64,
@@ -532,9 +673,13 @@ def main() -> int:
         out["storm"] = run_storm(args.device)
     if args.shared_prefix:
         out["shared_prefix"] = run_shared_prefix(device=args.device)
+    if args.speculative:
+        out["speculative"] = run_speculative(requests=args.requests or 12,
+                                             device=args.device)
     out["bars_missed"] = check_bars(out.get("decode"), out.get("serving"),
                                     out.get("storm"),
-                                    out.get("shared_prefix"))
+                                    out.get("shared_prefix"),
+                                    out.get("speculative"))
     if torch.device(args.device).type == "cuda":
         import subprocess
 
