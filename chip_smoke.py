@@ -196,8 +196,9 @@ Phases, in order; any failure exits non-zero before the result line:
    decode engine serves ``TinyCausalLM`` at DECODE_WIDTH (the flagship
    config's widths, fp32, weights from numpy seed 0) on the default page
    pool (512 x 16): ``warmup()`` captures exactly the prefill buckets + 1
-   programs; a join/retire storm of STORM_REQUESTS greedy requests
-   (prompts of STORM_PROMPT tokens from numpy seed 0, STORM_NEW new,
+   programs (the decode program in each sampler form); a join/retire
+   storm of STORM_REQUESTS greedy requests (prompts of STORM_PROMPT
+   tokens from numpy seed 0, STORM_NEW new,
    concurrency STORM_CONCURRENCY) beside the lane_decode storm's slow
    model on the same pool: 0 captures after warm-up, one dispatch per
    decode iteration and per prefill, 0 leaked pages after ``drain()``, a
@@ -257,7 +258,27 @@ Phases, in order; any failure exits non-zero before the result line:
    2), their sum over the runs, finite falling losses, no flash
    fallback. Printed: eager against captured wall, device busy and peak
    memory of the step, the capacity-drop share per layer at init and
-   after the steps. A JSON line holds phase 13's numbers.
+   after the steps. A JSON line holds phase 13's numbers. Phase 12 also
+   prints the device operations a replay of each sampler form's decode,
+   draft-round and verify program runs.
+14. The mesh of one (``parallel``): ``init_process_group("nccl")`` with one
+   rank from a file store under the run's temporary directory, one eager
+   all-reduce before any capture (NCCL makes its communicator at the
+   first collective). Every function of ``parallel.collectives`` over the
+   one-rank groups of a (dp, fsdp, tp) mesh, eager and replayed from a
+   CUDA graph capture, equal to its one-rank definition (the one check of
+   NCCL under capture one card can give). ``Trainer(kvstore='nccl').
+   compile_step`` on ResNet-50 v1, bf16, batch RESNET_BATCH, on the conv +
+   BN and the epilogue routes, under ``MXNET_SPMD_MESH`` of each of
+   MESH_SPECS: parameters, optimizer state and running statistics
+   bitwise the same MESH_STEPS steps without a kvstore; the route's
+   launches a step counted and traced, 1 capture, 1 dispatch a step, 0
+   reshards; captured wall with and without the mesh printed. Then
+   ``ShardedTrainer`` with ``fsdp_plan()`` and ``tensor_parallel_plan()``
+   on the same net over the mesh of one (bf16 compute, fp32 masters, the
+   conv + BN route) bitwise the plan-less one. The launches of the path
+   are those of the kvstore and planned runs. Multi-GPU collectives are
+   not run here (one card). A JSON line holds phase 14's numbers.
 10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
@@ -4381,10 +4402,13 @@ def decode_storm_phase(sd, lat, card_line) -> dict:
         t0 = time.perf_counter()
         n = eng.warmup()
         out["warmup_s"] = time.perf_counter() - t0
-        if n != len(grid) + 1 or sd.trace_count() - c0 != n:
+        # the decode program in each sampler form counts once
+        forms = len(sd.FORMS)
+        if n != len(grid) + 1 or sd.trace_count() - c0 != n + forms - 1:
             fail(f"decode warm-up captured {n} programs "
                  f"({sd.trace_count() - c0} traces), want prefill buckets "
-                 f"{grid} + 1 = {len(grid) + 1}")
+                 f"{grid} + 1 = {len(grid) + 1} ({len(grid) + forms} "
+                 "traces: the decode program in each sampler form)")
         slow.warmup(max_len=16)
         print(f"11a: warm-up captured {n} programs (prefill buckets {grid} "
               f"+ decode) in {out['warmup_s']:.1f} s; pool "
@@ -4629,8 +4653,9 @@ def decode_timings(sd, lat, eng, card_line) -> dict:
     trace of the continuous pass: tokens/s, batching speedup, p50/p99,
     the iteration's wall, device busy and idle share, graph launches
     against dispatches."""
-    prog = eng._programs[("decode",)]
-    body = eng._decode_fn()
+    # greedy rows: the decode program's greedy form, as the engine runs them
+    prog = eng._programs[("decode", "greedy")]
+    body = eng._decode_fn("greedy")
     rng = np.random.RandomState(3)
     bufs = [b.clone() for b in eng._decode_host]
     tokens, tables, lengths, temps, top_ks, top_ps, seeds = \
@@ -4938,13 +4963,14 @@ def spec_program_numbers(sd, eng, card_line) -> dict:
             torch.full((r,), SAMPLED["seed"])]
     dtables = torch.full((r, eng._draft_max_pages), trash, dtype=torch.long)
     tables = torch.full((r, eng._max_pages), trash, dtype=torch.long)
-    drec = eng._spec_programs[("draft_round", SPEC_K)]
-    vrec = eng._spec_programs[("verify", SPEC_K)]
+    drec = eng._spec_programs[("draft_round", SPEC_K, "full")]
+    vrec = eng._spec_programs[("verify", SPEC_K, "full")]
     dargs = [toks, torch.zeros(r, dtype=torch.bool), toks, dtables,
              lengths, *samp]
     props, q_dist = drec(*dargs)
     vargs = [toks, props, tables, lengths, q_dist, *samp]
-    out = {}
+    out = {"device_ops_a_call": form_device_ops(
+        sd, eng, toks, lengths, dtables, tables, samp)}
     with eng._pool.exclusive(eng._draft_geom):
         out["draft_round"] = mode_numbers(
             f"12: captured draft round, kmax {SPEC_K}, {r} rows", "captured",
@@ -4953,6 +4979,54 @@ def spec_program_numbers(sd, eng, card_line) -> dict:
         out["verify"] = mode_numbers(
             f"12: captured verify, k {SPEC_K}, {r} rows", "captured",
             lambda: vrec(*vargs), 0, card_line)
+    return out
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels and copies) one call of ``fn`` runs,
+    from a profiler trace of a call after a warm one."""
+    from torch.profiler import ProfilerActivity, profile as trace_
+    fn()
+    torch.cuda.synchronize()
+    with trace_(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_SETTLE_S)
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def form_device_ops(sd, eng, toks, lengths, dtables, tables, samp) -> dict:
+    """The device operations a replay of each sampler form's decode,
+    draft-round and verify program runs (``serving_decode.FORMS``: the
+    greedy form takes no sampling arguments)."""
+    r = toks.shape[0]
+    rows = {"greedy": None, "full": samp}
+    out = {}
+    for form in sd.FORMS:
+        args = rows[form] or []
+        drec = eng._spec_programs[("draft_round", SPEC_K, form)]
+        vrec = eng._spec_programs[("verify", SPEC_K, form)]
+        prec = eng._programs[("decode", form)]
+        dargs = [toks, torch.zeros(r, dtype=torch.bool), toks, dtables,
+                 lengths, *args]
+        drafted = drec(*dargs)
+        vargs = [toks, drafted[0], tables, lengths]
+        if form != "greedy":
+            vargs += [drafted[1], *args]
+        # the decode program takes the sampling arguments in every form
+        pargs = [toks, tables, lengths, *(args or [
+            torch.zeros(r), torch.zeros(r, dtype=torch.long), torch.ones(r),
+            torch.zeros(r, dtype=torch.long)])]
+        with eng._pool.exclusive(eng._draft_geom):
+            d = device_ops(lambda: drec(*dargs))
+        with eng._pool.exclusive(eng._geom):
+            v = device_ops(lambda: vrec(*vargs))
+            p = device_ops(lambda: prec(*pargs))
+        out[form] = {"decode": p, "draft_round": d, "verify": v}
+        print(f"12: device operations a replay, {form} form, {r} rows: "
+              f"decode {p}, draft round (kmax {SPEC_K}) {d}, verify (k "
+              f"{SPEC_K}) {v}")
     return out
 
 
@@ -5152,6 +5226,276 @@ def spec_phase(sd, lat, ck, card_line) -> dict:
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"12: peak memory {out['peak_gib']:.2f} GiB, {out['phase_s']:.1f} s")
+    return out
+
+
+# -- 14. the mesh of one --------------------------------------------------------
+# the MXNET_SPMD_MESH forms of a mesh of one, the routes the kvstore step
+# runs, and the steps of each run
+MESH_SPECS = ("1", "dp=1,fsdp=1,tp=1")
+MESH_ROUTES = ("conv_bn", "epilogue")
+MESH_STEPS = 3
+
+
+def mesh_world():
+    """An NCCL world of this one process from a file store under the
+    run's temporary directory, and one eager all-reduce before any
+    capture. Returns ``torch.distributed``."""
+    import tempfile
+
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        store = os.path.join(tempfile.mkdtemp(prefix="mxt_mesh_"), "store")
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=0, world_size=1)
+    t = torch.full((4,), 3.0, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    if t.tolist() != [3.0] * 4:
+        fail(f"14: the first NCCL all-reduce of one rank gave {t.tolist()}")
+    print(f"14: NCCL world of 1 rank ({dist.get_backend()}), first "
+          f"all-reduce eager  ok")
+    return dist
+
+
+def collectives_phase(par, ps) -> dict:
+    """Every collective over the one-rank groups of a (dp, fsdp, tp) mesh,
+    eager and replayed from a capture (``program_store.capture``: an eager
+    run on the side stream, then the capture; a second call on another
+    input replays it), each bitwise its one-rank definition."""
+    c = par.collectives
+    P = par.PartitionSpec
+    mesh = par.make_mesh({"dp": 1, "fsdp": 1, "tp": 1})
+    if mesh.device_mesh is None or mesh.device.type != "cuda":
+        fail(f"14: the mesh of one is not over the NCCL world: {mesh}")
+    same = (lambda t: t)
+    cases = {
+        "all_reduce_sum": (lambda t: c.all_reduce(t, "dp", mesh=mesh), same),
+        "all_reduce_max": (lambda t: c.all_reduce(t, "fsdp", "max", mesh),
+                           same),
+        "all_reduce_min": (lambda t: c.all_reduce(t, "tp", "min", mesh),
+                           same),
+        "all_reduce_3_axes": (lambda t: c.all_reduce(
+            t, ("dp", "fsdp", "tp"), mesh=mesh), same),
+        "pmean": (lambda t: c.pmean(t, "dp", mesh), same),
+        "all_gather": (lambda t: c.all_gather(t, "tp", axis=1, mesh=mesh),
+                       same),
+        "all_gather_stack": (lambda t: c.all_gather(t, "dp", tiled=False,
+                                                    mesh=mesh),
+                             lambda t: t[None]),
+        "reduce_scatter": (lambda t: c.reduce_scatter(t, "fsdp", 0, mesh),
+                           same),
+        "all_to_all": (lambda t: c.all_to_all(t, "tp", 1, 0, mesh), same),
+        "ppermute": (lambda t: c.ppermute(t, "dp", [(0, 0)], mesh), same),
+        "ring_shift": (lambda t: c.ring_shift(t, "dp", mesh=mesh), same),
+        "broadcast_from": (lambda t: c.broadcast_from(t, "dp", 0, mesh),
+                           same),
+        "run_sharded": (c.run_sharded(
+            lambda t: c.all_reduce(t * 2.0, "dp") + c.axis_index("tp")
+            + c.axis_size("fsdp"), mesh, (P("dp"),), P("dp")),
+            lambda t: t * 2.0 + 1.0),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    a = torch.randn(8, 16, device="cuda", generator=gen)
+    b = torch.randn(8, 16, device="cuda", generator=gen)
+    out = {}
+    for name, (fn, want) in cases.items():
+        eager = fn(a.clone())
+        prog = ps.capture(fn)
+        first = prog(a.clone())         # eager on the side stream, captured
+        replay = prog(b.clone())        # a replay on another input
+        torch.cuda.synchronize()
+        for what, got, x in (("eager", eager, a), ("capture", first, a),
+                             ("replay", replay, b)):
+            w = want(x)
+            if got.shape != w.shape or not torch.equal(got, w):
+                fail(f"14: {name} {what} differs from its definition: "
+                     f"{tuple(got.shape)} vs {tuple(w.shape)}, max "
+                     f"{(got.float() - w.float()).abs().max().item()}")
+        out[name] = "eager, captured and replayed bitwise"
+    print(f"14: collectives over the mesh of one ({len(cases)} cases), "
+          f"eager and replayed from a capture, bitwise their definitions  ok")
+    return out
+
+
+def mesh_step_phase(mx, par, cs, ck, resnet, config, card_line, counts,
+                    traced_total) -> dict:
+    """``Trainer(kvstore='nccl').compile_step`` on the bf16 ResNet-50 at
+    batch RESNET_BATCH on each of MESH_ROUTES, MESH_STEPS captured steps
+    under each of MESH_SPECS, held bitwise to the same steps without a
+    kvstore (losses, parameters with the running statistics, momenta);
+    launches a step and sites as the route's, 1 capture and 1 dispatch a
+    step, 0 reshards; the captured step's device span with the mesh and
+    without. The kvstore runs' launches add into ``counts`` and their
+    traced replays into ``traced_total``."""
+    spmd = par.spmd
+    x, y = image_batch(RESNET_BATCH, torch.bfloat16)
+    net = resnet50(mx, x[:2].float())
+    net.cast("bfloat16")
+    net.hybridize()
+    init = {k: p.data().clone() for k, p in net.collect_params().items()}
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(n, a, b):
+        return ce(n(a), b)
+
+    def counters():
+        return cs.trace_count(), cs.dispatch_count()
+
+    set_compiled(config, True)
+    numbers = {}
+    prev = os.environ.get("MXNET_SPMD_MESH")
+    try:
+        for name in MESH_ROUTES:
+            route = capture_route(config, name)
+            want_launches, want_sites = route_gates(route)
+            runs = {}
+            for spec in (None,) + MESH_SPECS:
+                what = (f"14: ResNet-50 bf16 b{RESNET_BATCH} compile_step, "
+                        f"{name}, " + (f"kvstore='nccl', MXNET_SPMD_MESH="
+                                       f"{spec}" if spec else "no kvstore"))
+                os.environ["MXNET_SPMD_MESH"] = spec or "off"
+                net.load_dict(init)
+                net.zero_grad()
+                trainer = mx.gluon.Trainer(
+                    net.collect_params(), "sgd", dict(RESNET_OPT),
+                    kvstore="nccl" if spec else "device")
+                step = trainer.compile_step(net, loss_fn)
+                spmd.reset_counters()
+                c0 = ck.launch_counts()
+                losses, counted, traced, _kept = run_traced_steps(
+                    ck, resnet, what, lambda: step(x, y), MESH_STEPS, True,
+                    want_sites, traced_total if spec else None, counters)
+                check_step_launches(what, counted, traced, want_launches,
+                                    True)
+                if spec:
+                    c1 = ck.launch_counts()
+                    for k in c1:
+                        counts[k] = counts.get(k, 0) + c1[k] - c0[k]
+                    mesh = step.mesh
+                    if mesh is None or mesh.size != 1 or \
+                            mesh.device_mesh is None:
+                        fail(f"{what}: mesh {mesh}")
+                    if spmd.reshard_count():
+                        fail(f"{what}: {spmd.reshard_count()} reshards")
+                state = [p.data().clone()
+                         for p in net.collect_params().values()]
+                state += [s.clone() for s in trainer._init_states()]
+                wall = event_ms(lambda: step(x, y))
+                runs[spec] = (losses, state, wall)
+                del trainer, step
+                torch.cuda.empty_cache()
+            la, sa, wa = runs[None]
+            for spec in MESH_SPECS:
+                lb, sb, wb = runs[spec]
+                if not all(torch.equal(u, v) for u, v in zip(la, lb)) or \
+                        not all(torch.equal(u, v) for u, v in zip(sa, sb)):
+                    fail(f"14: {name}, MXNET_SPMD_MESH={spec}: losses or "
+                         f"state after {MESH_STEPS} steps differ from the "
+                         "steps without a kvstore")
+            numbers[name] = {
+                "captured_step_ms_no_kvstore": wa,
+                **{f"captured_step_ms_mesh_{spec}": runs[spec][2]
+                   for spec in MESH_SPECS},
+                "losses": [v.item() for v in la]}
+            print(f"14: ResNet-50 bf16 b{RESNET_BATCH} compile_step, {name}: "
+                  f"kvstore='nccl' on {', '.join(MESH_SPECS)} bitwise the "
+                  f"steps without a kvstore over {MESH_STEPS} steps "
+                  f"(losses, parameters and running statistics, momenta); "
+                  f"launches a step {want_launches}, 1 capture, 1 dispatch "
+                  f"a step, 0 reshards; captured step (event span) "
+                  f"{wa:.3f} ms without, " + ", ".join(
+                      f"{runs[sp][2]:.3f} ms on {sp}" for sp in MESH_SPECS)
+                  + f" [{card_line}]  ok")
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_SPMD_MESH", None)
+        else:
+            os.environ["MXNET_SPMD_MESH"] = prev
+        capture_route(config, "unfused")
+    return numbers
+
+
+def mesh_plan_phase(mx, par, ps, ck, resnet, config, card_line, counts,
+                    traced_total) -> dict:
+    """``ShardedTrainer`` with ``fsdp_plan()`` and
+    ``tensor_parallel_plan()`` over the mesh of one, bf16 compute and fp32
+    masters, the conv + BN route, MESH_STEPS captured steps: bitwise the
+    plan-less ShardedTrainer on the same mesh; launches a step as the
+    route's, 1 capture and 1 dispatch a step."""
+    ns = ps.namespace("sharded_step")
+    x, y = image_batch(RESNET_BATCH, torch.float32)
+    y = y.to(torch.int32)
+    net = resnet50(mx, x[:2])
+    init = {k: p.data().clone() for k, p in net.collect_params().items()}
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    mesh = par.make_mesh({"dp": 1, "fsdp": 1, "tp": 1})
+    route = capture_route(config, "conv_bn")
+    want_launches, want_sites = route_gates(route)
+    set_compiled(config, True)
+    runs = {}
+    for name, plan in (("none", None), ("fsdp_plan", par.fsdp_plan()),
+                       ("tensor_parallel_plan",
+                        par.tensor_parallel_plan())):
+        what = f"14: ResNet-50 ShardedTrainer over the mesh of one, {name}"
+        net.load_dict(init)
+        tr = par.ShardedTrainer(
+            net, lambda o, lab: ce(o, lab).mean(), mesh, plan=plan,
+            optimizer="sgd",
+            optimizer_params={"lr": RESNET_LR, "momentum": 0.9, "wd": 1e-4},
+            compute_dtype=torch.bfloat16)
+        c0 = ck.launch_counts()
+        losses, counted, traced, _ = run_traced_steps(
+            ck, resnet, what, lambda: tr.step(x, y, sync=False), MESH_STEPS,
+            True, want_sites, traced_total if plan else None,
+            lambda: (ns.traces, ns.dispatches))
+        check_step_launches(what, counted, traced, want_launches, True)
+        if plan is not None:
+            c1 = ck.launch_counts()
+            for k in c1:
+                counts[k] = counts.get(k, 0) + c1[k] - c0[k]
+        state = list(tr.full_params().values()) + \
+            [s for st in tr.full_opt_state().values() for s in st]
+        runs[name] = (losses, state)
+        del tr
+        torch.cuda.empty_cache()
+    la, sa = runs["none"]
+    for name in ("fsdp_plan", "tensor_parallel_plan"):
+        lb, sb = runs[name]
+        if not all(torch.equal(u, v) for u, v in zip(la, lb)) or \
+                not all(torch.equal(u, v) for u, v in zip(sa, sb)):
+            fail(f"14: ShardedTrainer {name} over the mesh of one differs "
+                 "from the plan-less one")
+    capture_route(config, "unfused")
+    print(f"14: ResNet-50 ShardedTrainer bf16 compute over the mesh of one, "
+          f"conv_bn: fsdp_plan() and tensor_parallel_plan() bitwise the "
+          f"plan-less trainer over {MESH_STEPS} steps (losses, masters with "
+          f"the running statistics, momenta); launches a step "
+          f"{want_launches}, 1 capture, 1 dispatch a step [{card_line}]  ok")
+    return {"losses": [v.item() for v in la],
+            "plans": ["fsdp_plan", "tensor_parallel_plan"]}
+
+
+def mesh_phase(mx, ps, cs, ck, resnet, config, card_line, counts,
+               traced_total) -> dict:
+    """Phase 14 (see the module docstring)."""
+    t0 = time.perf_counter()
+    par = port_parallel()
+    dist = mesh_world()
+    try:
+        out = {"collectives": collectives_phase(par, ps),
+               "kvstore_step": mesh_step_phase(
+                   mx, par, cs, ck, resnet, config, card_line, counts,
+                   traced_total),
+               "sharded_trainer_plans": mesh_plan_phase(
+                   mx, par, ps, ck, resnet, config, card_line, counts,
+                   traced_total)}
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    out["multi_gpu"] = "not run: one card"
+    print(f"14: the mesh of one took {out['phase_s']:.1f} s")
     return out
 
 
@@ -5539,20 +5883,33 @@ def main() -> int:
     print(json.dumps({"moe": {"card": card_line, **moe}}, default=str))
     torch.cuda.empty_cache()
 
+    # -- 14. the mesh of one ----------------------------------------------------
+    mesh_counts, mesh_traced = {}, {}
+    mesh = mesh_phase(mx, ps, cs, ck, resnet, config, card_line, mesh_counts,
+                      mesh_traced)
+    if not all(mesh_counts.get(k) for k in CONV_BN_KERNELS + EPI_KERNELS):
+        fail(f"14: a kernel of the conv + BN or epilogue route never "
+             f"launched on the mesh path: {mesh_counts}")
+    print(f"phase 14 launch counts of the kvstore and planned runs: counted "
+          f"by the wrappers {mesh_counts}; traced on the device in the "
+          f"replays {mesh_traced}")
+    print(json.dumps({"mesh": {"card": card_line, **mesh}}, default=str))
+    torch.cuda.empty_cache()
+
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
              "capture": capture_counts, "compiled_steps": steps_counts,
              "nd": nd_counts, "int8": int8_counts,
              "serving": serving_counts, "speculative": spec_counts,
-             "moe": moe_counts}
+             "moe": moe_counts, "mesh": mesh_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were
     # checked (the captured runs of the train and capture phases)
     traced_paths = {"train": train_traced, "capture": capture_traced,
                     "compiled_steps": steps_traced, "nd": nd_traced,
-                    "moe": moe_traced}
+                    "moe": moe_traced, "mesh": mesh_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

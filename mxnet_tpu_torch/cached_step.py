@@ -59,6 +59,32 @@ against the unpadded one bitwise, with the parameters and running
 statistics restored after; a mismatch refuses bucketing for good
 (``bucket_refused``). ``padded_steps`` counts the padded calls.
 
+Under a mesh (``Trainer(kvstore='tpu' | 'nccl')``, the mesh of
+``parallel.spmd.mesh_for_store``; reference ``cached_step.py:244-264,
+:486-488, :581-638, :662-679, :819-831, :928-933, :1025-1034,
+:1114-1116``) the step is still one program a call on each rank of the
+world, keyed on ``spmd.mesh_key``, with the collectives inside it by
+``parallel.spmd``'s rules. The call takes the global batch. The net that
+``loss_fn`` is handed runs on this rank's rows of the batch over ``dp``
+(tensor arguments of the net call with the batch's rows; an indivisible
+batch stays whole on every rank, loudly) and returns the outputs gathered
+over ``dp``, so ``loss_fn`` sees the global outputs beside the global
+labels and every rank computes the global loss, seeded ``1/dp``. Batch
+norm inside that call takes the global batch's moments. At the first call
+on the mesh, parameters and optimizer state are placed once as this
+rank's block of ``spmd.param_spec`` (the ``fsdp`` rule; ``p.data()`` is
+then the block, :meth:`TrainStep.full_params` gathers them); the program
+gathers the blocks before the forward and reduces the gradients to the
+blocks (``spmd.reduce_grad``). ``spmd.reshard_count`` counts the
+placements and stays flat after it. With ``MXNET_COMPILED_STEP=0`` the
+same body runs without a program. A ``tp`` axis above 1 reaches the model
+through ``sharding.constraint``. Under a mesh, bucketing with the
+parameters split, the MoE aux fold over a split batch (ROADMAP A6b-2) and
+``grad_req='add'`` raise. On a mesh of more than one rank no call takes
+the eager tape, which would update each rank's own values over the whole
+batch: a pending deferred initialization is finished by a forward that
+records nothing, and the first step then places the first rank's values.
+
 Setups the reference also runs eagerly (``_eligibility``,
 ``cached_step.py:431-460``) take the eager tape and name their reason in
 ``last_fallback_reason``: ``MXNET_COMPILED_STEP=0``, a parameter with
@@ -70,6 +96,7 @@ capture bug never hides behind a slower step.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
@@ -167,6 +194,28 @@ class TrainStep:
         # the positions of the call's NDArray arguments and their contexts:
         # the compiled path runs on their tensors and hands loss_fn NDArrays
         self._nd: Dict[int, object] = {}
+        # the mesh of the trainer's kvstore (resolved at the first call),
+        # each parameter's spec on it once placed, and this call's batch
+        # axes and rows
+        self._mesh_resolved = False
+        self._mesh = None
+        self._specs: Optional[Dict[int, tuple]] = None
+        self._batch_axes: tuple = ()
+        self._rows: Optional[int] = None
+
+    @property
+    def mesh(self):
+        """The mesh this step runs over (None: one device)."""
+        return self._resolve_mesh()
+
+    def _resolve_mesh(self):
+        if not self._mesh_resolved:
+            from .parallel import spmd as _spmd
+
+            self._mesh = _spmd.mesh_for_store(
+                getattr(self._trainer, "_kv_type", None))
+            self._mesh_resolved = True
+        return self._mesh
 
     @property
     def last_step_compiled(self) -> bool:
@@ -176,9 +225,13 @@ class TrainStep:
         if batch_size is None:
             batch_size = int(args[0].shape[0]) \
                 if args and getattr(args[0], "shape", ()) else 1
+        mesh = self._resolve_mesh()
+        if mesh is not None and mesh.size > 1 and self._specs is None:
+            self._finish_init(args)
         reason = self._eligibility()
         self.last_fallback_reason = reason
-        if reason is not None:
+        if reason is not None and (mesh is None or self._specs is None
+                                   and reason != "MXNET_COMPILED_STEP=0"):
             return self._eager_step(args, batch_size)
         # NDArray arguments (the reference's tests feed mx.nd.array): the
         # program takes their tensors, loss_fn gets them rewrapped, and the
@@ -186,6 +239,9 @@ class TrainStep:
         self._nd = {i: a.ctx for i, a in enumerate(args)
                     if isinstance(a, NDArray)}
         args = tuple(map(_tensor, args))
+        if mesh is not None:
+            self._place(mesh)
+            self._split_batch(mesh, args)
         pargs = self._maybe_pad(args)
         if self._accum_steps > 1:
             loss = self._accum_step(pargs, batch_size)
@@ -209,12 +265,34 @@ class TrainStep:
             return "MXNET_COMPILED_STEP=0"
         for p in self._trainer._params:
             if p.grad_req == "add":
+                if self._resolve_mesh() is not None:
+                    raise MXNetError(
+                        f"parameter '{p.name}' has grad_req='add', which "
+                        "the step on a mesh does not take")
                 return f"parameter '{p.name}' has grad_req='add'"
         for p in self._net.collect_params().values():
             if p._data is None:
                 return ("deferred parameter init pending (first call runs "
                         "eagerly, like hybridize)")
         return None
+
+    def _finish_init(self, args) -> None:
+        """On a mesh of more than one rank, parameters still to be inferred
+        are made by a forward that records nothing, so that the first
+        step places the first rank's values on every rank: the eager
+        tape's first step would update each rank's own values over the
+        whole batch, with no reduction."""
+        params = self._net.collect_params().values()
+        if all(p._data is not None for p in params):
+            return
+        with autograd.pause(), _moe.aux_scope():
+            self._loss_fn(self._net, *args)
+        for p in params:
+            if p._data is None:
+                raise MXNetError(
+                    f"parameter '{p.name}' is still uninitialized after a "
+                    "forward; the step on a mesh of more than one rank "
+                    "takes no eager first step")
 
     def _eager_step(self, args, batch_size):
         """The eager tape: record, backward with ones, ``trainer.step``.
@@ -244,6 +322,10 @@ class TrainStep:
         applied."""
         if not self._bucket or self.bucket_refused is not None:
             return args
+        if self._specs is not None and any(self._specs.values()):
+            raise NotImplementedError(
+                "bucket=True with parameters split over the mesh: the pad "
+                "check runs the net outside the step")
         policy = _serving.BucketPolicy()
         leaves = [a for a in args if isinstance(a, torch.Tensor)]
         if not policy.enabled or not leaves or \
@@ -318,7 +400,8 @@ class TrainStep:
         tensors, others = self._call_parts(args)
         key = (_pstore.tensor_key(tensors), others, tuple(self._nd),
                _pstore.knob_key(), type(opt).__name__, opt.fixed_signature(),
-               tuple(map(id, trainable)), _pstore.storage_key(held))
+               tuple(map(id, trainable)), _pstore.storage_key(held),
+               self._mesh_key())
 
         def build():
             fb = self._forward_backward(args)
@@ -329,8 +412,116 @@ class TrainStep:
                 return loss
             return body
 
+        if self._mesh is not None and not enabled():
+            return build()(*tensors)       # the mesh body, no program
         return _pstore.run(self._programs, key, build, tensors,
                            device=held[0].device, keep=held)
+
+    # -- the step on a mesh -------------------------------------------------
+    def _mesh_key(self):
+        if self._mesh is None:
+            return None
+        from .parallel import spmd as _spmd
+
+        return (_spmd.mesh_key(self._mesh), self._batch_axes, self._rows)
+
+    def _place(self, mesh) -> None:
+        """Place every parameter and optimizer state once as this rank's
+        block of its ``spmd.param_spec`` (replicated leaves stay as they
+        are), after the first rank's values are broadcast to every rank,
+        and record the layout's bytes."""
+        if self._specs is not None:
+            return
+        from .parallel import spmd as _spmd
+        from .parallel.sharding import NamedSharding
+
+        split = _spmd.model_axes_active(mesh)
+        params = self._net.collect_params()
+        for p in self._trainer._params:
+            if all(p is not q for q in params.values()):
+                params[p.name] = p
+        states = self._trainer._states
+        index = {id(p): i for i, p in enumerate(self._trainer._params)}
+        # the first rank's values everywhere, as the KVStore's init
+        _spmd.broadcast_([p._check() for p in params.values()] + [
+            t for s in states.values()
+            for t in (s if isinstance(s, (list, tuple)) else [s])], mesh)
+        specs = {}
+        for name, p in params.items():
+            w = p._check()
+            shape = tuple(w.shape)
+            spec = tuple(_spmd.param_spec(shape, mesh, name=name)) \
+                if split else ()
+            specs[id(p)] = spec
+            if not spec:
+                continue
+            sh = NamedSharding(mesh, spec)
+            p._set_leaf(_spmd.ensure_placed(w.detach(), sh))
+            i = index.get(id(p))
+            if i is not None and i in states:
+                states[i] = self._place_state(states[i], shape, sh)
+        self._specs = specs
+        st = self._trainer._init_states()
+        _spmd.record_layout(
+            [p._data for p in params.values()],
+            [t for s in st for t in (s if isinstance(s, (list, tuple))
+                                     else [s])])
+
+    @staticmethod
+    def _place_state(state, wshape, sharding):
+        """An optimizer state made before placement: the leaves shaped like
+        their weight take its block (the ZeRO part of FSDP)."""
+        from .parallel import spmd as _spmd
+
+        if isinstance(state, torch.Tensor):
+            if tuple(state.shape) == tuple(wshape):
+                return _spmd.ensure_placed(state, sharding)
+            return state
+        if isinstance(state, (list, tuple)):
+            return type(state)(TrainStep._place_state(s, wshape, sharding)
+                               for s in state)
+        return state
+
+    def _split_batch(self, mesh, args) -> None:
+        """This call's batch axes: ``dp`` where its size divides the rows of
+        every batch leaf, none where one does not (replicated loudly, as
+        ``spmd.put_batch`` counts it)."""
+        from .parallel import spmd as _spmd
+
+        leaves = [a for a in args if isinstance(a, torch.Tensor)
+                  and a.dim() >= 1]
+        self._rows = int(leaves[0].shape[0]) if leaves else None
+        specs = [_spmd.batch_spec_for(tuple(a.shape), mesh) for a in leaves]
+        self._batch_axes = ("dp",) if specs and all(
+            tuple(s) == ("dp",) for s in specs) else ()
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """A copy of every parameter whole, by name (gathered from the
+        ranks' blocks on a mesh that splits them: a collective each rank
+        calls)."""
+        from .parallel import spmd as _spmd
+
+        specs = self._specs or {}
+        return {name: _spmd.gather_full(p._check().detach(),
+                                        specs.get(id(p), ()),
+                                        self._mesh).clone()
+                for name, p in self._net.collect_params().items()}
+
+    def full_state(self, param) -> list:
+        """Copies of the optimizer state leaves of ``param`` whole
+        (gathered like the parameter where they are shaped like its
+        block)."""
+        from .parallel import spmd as _spmd
+
+        tr = self._trainer
+        i = next(j for j, q in enumerate(tr._params) if q is param)
+        st = tr._states[i]
+        leaves = st if isinstance(st, (list, tuple)) else [st]
+        spec = (self._specs or {}).get(id(param), ())
+        w = param._check()
+        return [(_spmd.gather_full(t.detach(), spec, self._mesh)
+                 if spec and t.shape == w.shape else t.detach()).clone()
+                for t in leaves if isinstance(t, torch.Tensor)]
 
     def _forward_backward(self, args):
         """The body's forward and backward over its static inputs: the
@@ -344,6 +535,19 @@ class TrainStep:
         slots = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
         consts = [None if i in slots else a for i, a in enumerate(args)]
         nd = dict(self._nd)
+        mesh, specs = self._mesh, self._specs or {}
+        axes, rows = self._batch_axes, self._rows
+        if mesh is not None:
+            from .parallel import collectives as _coll
+            from .parallel import spmd as _spmd
+
+            seed = _spmd.cotangent_scale(mesh, axes)
+            call_net = _MeshNet(net, mesh, axes, rows)
+            frozen = [p for p in net.collect_params().values()
+                      if specs.get(id(p)) and
+                      all(p is not q for q in trainable)]
+        else:
+            call_net, frozen = net, []
 
         def fb(*inputs):
             call_args = list(consts)
@@ -351,24 +555,50 @@ class TrainStep:
                 call_args[i] = t
             call_args = self._user_args(call_args, nd)
             weights = [p._data for p in trainable]
-            leaves = [w.detach().requires_grad_() for w in weights]
+            held = [p._data for p in frozen]
+            if mesh is None:
+                leaves = [w.detach().requires_grad_() for w in weights]
+            else:
+                # the blocks gathered whole for the forward; frozen ones
+                # (running statistics) as copies, written back after
+                leaves = [_spmd.gather_full(w.detach(), specs.get(id(p), ()),
+                                            mesh).requires_grad_()
+                          for p, w in zip(trainable, weights)]
+                for p, h in zip(frozen, held):
+                    p._data = _spmd.gather_full(h, specs[id(p)], mesh)
             try:
                 for p, leaf in zip(trainable, leaves):
                     p._data = leaf
-                with traced_call():
+                with traced_call(), _tensor_ops(mesh):
                     with autograd.record():
                         with _moe.aux_scope() as auxes:
-                            loss = loss_fn(net, *call_args)
+                            loss = loss_fn(call_net, *call_args)
+                        if auxes and axes:
+                            raise NotImplementedError(
+                                "the MoE aux fold over a batch split on a "
+                                "mesh is ROADMAP A6b-2")
                         heads = _fold_aux(auxes, [_tensor(h) for h in
                                                   _heads(loss)])
                     grads = torch.autograd.grad(
-                        heads, leaves, [torch.ones_like(h) for h in heads],
+                        heads, leaves,
+                        [torch.ones_like(h) if mesh is None
+                         else torch.full_like(h, seed) for h in heads],
                         allow_unused=True)
             finally:
                 for p, w in zip(trainable, weights):
                     p._data = w
+                for p, h in zip(frozen, held):
+                    full, p._data = p._data, h
+                    if full is not h:
+                        with torch.no_grad():
+                            h.copy_(_coll.local_block(full, specs[id(p)],
+                                                      mesh))
             grads = [torch.zeros_like(w) if g is None else g
-                     for g, w in zip(grads, weights)]
+                     for g, w in zip(grads, leaves)]
+            if mesh is not None:
+                grads = [_spmd.reduce_grad(_spmd.full_tensors(g),
+                                           specs.get(id(p), ()), mesh, axes)
+                         for g, p in zip(grads, trainable)]
             if isinstance(loss, (list, tuple)):
                 loss = type(loss)(_tensor(h).detach() for h in loss)
             else:
@@ -402,7 +632,7 @@ class TrainStep:
         tensors, others = self._call_parts(args)
         key = ("accum_grad", _pstore.tensor_key(tensors), others,
                tuple(self._nd), _pstore.knob_key(), tuple(map(id, trainable)),
-               _pstore.storage_key(held))
+               _pstore.storage_key(held), self._mesh_key())
 
         def build_grad():
             fb = self._forward_backward(args)
@@ -414,8 +644,11 @@ class TrainStep:
                 return loss
             return body
 
-        loss = _pstore.run(self._programs, key, build_grad, tensors,
-                           device=held[0].device, keep=held)
+        if self._mesh is not None and not enabled():
+            loss = build_grad()(*tensors)
+        else:
+            loss = _pstore.run(self._programs, key, build_grad, tensors,
+                               device=held[0].device, keep=held)
         self._accum_i += 1
         if self._accum_i < self._accum_steps:
             return loss
@@ -433,6 +666,62 @@ class TrainStep:
                 torch._foreach_zero_(accs)
             return ()
 
-        _pstore.run(self._update_programs, ukey, lambda: update, [],
-                    device=weights[0].device, keep=uheld)
+        if self._mesh is not None and not enabled():
+            update()
+        else:
+            _pstore.run(self._update_programs, ukey, lambda: update, [],
+                        device=weights[0].device, keep=uheld)
         return loss
+
+
+def _tensor_ops(mesh):
+    if mesh is None:
+        return contextlib.nullcontext()
+    from .parallel import spmd as _spmd
+
+    return _spmd.tensor_ops(mesh)
+
+
+class _MeshNet:
+    """The net as ``loss_fn`` sees it in a step on a mesh: a call runs the
+    net on this rank's rows of the batch over ``axes`` (the tensor
+    arguments with the batch's ``rows``), inside ``spmd.data_parallel``,
+    and returns its outputs whole (a DTensor made by a constraint turned
+    back into a local tensor) and gathered over ``axes``. Every other
+    attribute is the net's."""
+
+    def __init__(self, net, mesh, axes, rows):
+        self.__dict__.update(_net=net, _mesh=mesh, _axes=axes, _rows=rows)
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["_net"], name)
+
+    def _rows_of(self, a):
+        from .parallel import spmd as _spmd
+
+        t = _tensor(a)
+        if not self._axes or not isinstance(t, torch.Tensor) or \
+                t.dim() < 1 or int(t.shape[0]) != self._rows:
+            return a
+        local = _spmd.local_rows(t, self._mesh, self._axes)
+        return _wrap(local, a.ctx) if isinstance(a, NDArray) else local
+
+    def _whole(self, out):
+        from .parallel import collectives as _coll
+        from .parallel import spmd as _spmd
+
+        if isinstance(out, (list, tuple)):
+            return type(out)(self._whole(o) for o in out)
+        t = _spmd.full_tensors(_tensor(out))
+        if isinstance(t, torch.Tensor):
+            t = _coll.gather_rows(t, self._mesh, self._axes)
+        return _wrap(t, out.ctx) if isinstance(out, NDArray) else t
+
+    def __call__(self, *args, **kwargs):
+        from .parallel import spmd as _spmd
+
+        args = [self._rows_of(a) for a in args]
+        kwargs = {k: self._rows_of(v) for k, v in kwargs.items()}
+        with _spmd.data_parallel(self._mesh, self._axes):
+            out = self._net(*args, **kwargs)
+        return self._whole(out)

@@ -167,6 +167,21 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "acceptance EMA and draft/verify EMAs) over 1..4, the draft "
            "round's captured depth.", cached=False,
            validator=lambda v: v == "auto" or (v.isdigit() and int(v) >= 1)),
+    EnvVar("MXNET_SPMD_MESH", str, "auto",
+           "SPMD mesh for kvstore='tpu'/'nccl' (parallel.spmd.resolve_mesh; "
+           "cached_step.TrainStep runs its one program a step on each rank "
+           "of the torch.distributed world over it). 'auto' = every rank "
+           "on 'dp' (a world of one stays on the plain single-device "
+           "path); an integer = that many ranks on 'dp' (1 gives a mesh of "
+           "one); '0'/'off' disables; 'dp=4,fsdp=2' axis specs go through "
+           "parallel.mesh.make_mesh: the batch shards over 'dp' only, an "
+           "'fsdp' axis shards parameters and optimizer state "
+           "(spmd.param_spec), and a 'tp' axis carries model-code "
+           "sharding.constraint annotations.", cached=False),
+    EnvVar("MXNET_FSDP_MIN_SIZE", int, 1024,
+           "FSDP sharding floor (spmd.param_spec): parameter and optimizer-"
+           "state leaves with fewer elements stay replicated on an 'fsdp' "
+           "mesh axis.", cached=False, validator=lambda v: v >= 0),
     EnvVar("MXNET_MOE_AUX_WEIGHT", float, 0.01,
            "Weight on the MoE load-balance auxiliary loss "
            "(parallel.moe.MoEBlock records the Shazeer balance penalty into "

@@ -1,12 +1,20 @@
-"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``, one device).
+"""Gluon Trainer (counterpart of ``mxnet_tpu/gluon/trainer.py``).
 
 Applies an optimizer to a set of parameters: ``step(batch_size)`` sets
 ``rescale_grad = 1 / batch_size`` and updates every parameter that has a
 gradient request, in place (``trainer.py:240-292``). A parameter that the
 last backward did not reach updates with a zero gradient (weight decay and
 momentum still act), as in the reference. ``compile_step`` returns the
-compiled whole step (``cached_step.TrainStep``). There is no kvstore or AMP
-in the port yet.
+compiled whole step (``cached_step.TrainStep``).
+
+``kvstore`` (reference ``trainer.py:29``, ``:63-69``): ``'device'`` (the
+default), ``'local'`` or None keep one device; ``'tpu'`` and ``'nccl'``
+give ``compile_step`` the mesh of ``parallel.spmd.mesh_for_store``
+(``MXNET_SPMD_MESH`` over the ranks of the ``torch.distributed`` world),
+on which the step reduces the gradients inside its program. ``step()``,
+the eager update, applies this rank's gradients as they are. The
+``dist_*`` stores (parameter servers) are the port's ``kvstore/``, ROADMAP
+A9, and raise. There is no AMP in the port yet.
 """
 from __future__ import annotations
 
@@ -21,8 +29,22 @@ from .parameter import Parameter
 __all__ = ["Trainer"]
 
 
+_LOCAL_STORES = (None, "device", "local")
+_MESH_STORES = ("tpu", "nccl")
+
+
 class Trainer:
-    def __init__(self, params, optimizer, optimizer_params=None):
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device"):
+        kv = kvstore.lower() if isinstance(kvstore, str) else kvstore
+        if isinstance(kv, str) and kv.startswith("dist"):
+            raise NotImplementedError(
+                f"kvstore={kvstore!r}: the distributed stores are the "
+                "port's kvstore/ module, not ported yet (ROADMAP A9)")
+        if kv not in _LOCAL_STORES + _MESH_STORES:
+            raise ValueError(f"unknown kvstore {kvstore!r}; the port takes "
+                             f"{_LOCAL_STORES + _MESH_STORES}")
+        self._kv_type = kv
         if isinstance(params, dict):
             params = [params[k] for k in sorted(params)]
         elif not isinstance(params, (list, tuple)):

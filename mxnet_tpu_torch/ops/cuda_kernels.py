@@ -27,6 +27,10 @@ launches its kernel, and nowhere else: under stream capture that is the
 launch the graph records, so a replayed graph, which runs no Python, moves
 no count. :func:`kernel_of` names the wrapper of a kernel in a profiler
 trace, where a replay's kernels appear one by one.
+
+A wrapper takes local tensors only: given a ``DTensor`` (what
+``parallel.sharding.constraint`` makes on a mesh axis above 1) it raises,
+and never gathers it quietly.
 """
 from __future__ import annotations
 
@@ -381,6 +385,7 @@ def flash_attention(q, k, v, causal: bool = True,
     backward launches the dq and dk/dv kernels. Otherwise only the forward
     runs and nothing is saved.
     """
+    _local_only("flash_attention", q, k, v)
     orig_shape = q.shape
     *lead, s, d = q.shape
     if sm_scale is None:
@@ -443,7 +448,17 @@ def matmul_epilogue_reference(x, w, scale, shift, residual=None,
     return out.to(x.dtype)
 
 
+def _local_only(what: str, *tensors) -> None:
+    """Raise for a ``DTensor`` operand: the kernels take local tensors."""
+    for t in tensors:
+        if t is not None and type(t).__name__ == "DTensor":
+            raise TypeError(f"{what} takes local tensors, got a DTensor "
+                            f"({t.placements}); pass its local shard or "
+                            "its full_tensor()")
+
+
 def _check_mm(what: str, x, w, **vectors) -> None:
+    _local_only(what, x, w, *vectors.values())
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"{what}: x (M, K) and w (K, N) expected, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -605,6 +620,13 @@ def matmul_epilogue(x, w, scale, shift, residual=None,
     return matmul_epilogue_reference(x, w, scale, shift, residual, relu)
 
 
+def _batch_sync():
+    # parallel imports the ops, so the step's scope is looked up late
+    from ..parallel.spmd import batch_sync
+
+    return batch_sync()
+
+
 class _Conv1x1BnAct(torch.autograd.Function):
     """1x1 NHWC conv + train-mode batch norm + optional residual + optional
     ReLU, in place of the JAX package's ``_c1x1_act_train_for`` custom VJP.
@@ -623,6 +645,13 @@ class _Conv1x1BnAct(torch.autograd.Function):
         s, ss = matmul_stats(x2, w2)
         mean = s / m
         var = torch.clamp_min(ss / m - mean * mean, 0.0)
+        # inside a data-parallel step, the moments of the global batch
+        ctx.sync = _batch_sync()
+        ctx.rows = m
+        if ctx.sync is not None:
+            from ..parallel.spmd import global_moments
+
+            mean, var, ctx.rows = global_moments(mean, var, m)
         inv = torch.rsqrt(var + eps)
         g = torch.ones_like(inv) if fix_gamma else gamma.float()
         sc = inv * g
@@ -667,8 +696,17 @@ class _Conv1x1BnAct(torch.autograd.Function):
         #        + gmean/m + gvar 2 (z - mean)/m            (direct cotangents)
         # regrouped per column, with z - mean = xhat / inv, so that the
         # (m, cout) operands take two passes: dz = ga sc + c0 + xhat c1
-        c0 = (gmean.float() - sc * dbeta_f) / m
-        c1 = (2.0 * gvar.float() / inv - sc * dgamma_f) / m
+        # over a data-parallel batch the statistics are the global batch's:
+        # their cotangents and the row sums in them are summed over it
+        gm, gv, db, dg = gmean.float(), gvar.float(), dbeta_f, dgamma_f
+        if ctx.sync is not None:
+            from ..parallel.collectives import all_reduce
+
+            mesh, axes = ctx.sync
+            gm, gv, db, dg = all_reduce(torch.stack([gm, gv, db, dg]), axes,
+                                        mesh=mesh).unbind(0)
+        c0 = (gm - sc * db) / ctx.rows
+        c1 = (2.0 * gv / inv - sc * dg) / ctx.rows
         dz = torch.addcmul(c0, ga, sc).addcmul_(xhat, c1)
         del xhat
         dz = dz.to(x.dtype)
@@ -950,6 +988,7 @@ def convkxk_bn_stats(x, w, pad=(1, 1)
     H, W, Cin), w (Cout, kh, kw, Cin) OHWI -> (z (N, Ho, Wo, Cout) in x's
     dtype, mean, var (Cout,) fp32 from the fp32 sums). CUDA tensors launch
     the kernel; CPU tensors run :func:`convkxk_bn_stats_reference`."""
+    _local_only("convkxk_bn_stats", x, w)
     pad = (int(pad[0]), int(pad[1]))
     if x.dim() != 4 or w.dim() != 4 or w.shape[3] != x.shape[3]:
         raise ValueError(f"convkxk_bn_stats: x (N, H, W, Cin) and w (Cout, "
@@ -1083,6 +1122,7 @@ def int8_matmul(x, w, scale, relu: bool = False, out_scale=None
     fp32, or s8 with ``out_scale``. CUDA tensors launch the kernel; CPU
     tensors run :func:`int8_matmul_reference`. Raises ``ValueError`` for a
     shape that :func:`int8_fits` refuses."""
+    _local_only("int8_matmul", x, w)
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"int8_matmul: x (M, K) and w (K, N) expected, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")

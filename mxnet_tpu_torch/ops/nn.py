@@ -36,6 +36,13 @@ from .. import random as _rng
 from . import cuda_kernels
 from .registry import get_op, register
 
+
+def _global_moments(mean, var, count):
+    # parallel imports the ops, so the step's scope is looked up late
+    from ..parallel.spmd import global_moments
+
+    return global_moments(mean, var, count)
+
 __all__ = ["activation", "fully_connected", "convolution", "deconvolution",
            "pooling", "batch_norm", "log_softmax", "fused_conv1x1_bn_act",
            "fused_conv1x1_bn", "fused_convkxk_bn"]
@@ -362,9 +369,12 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                training=False):
     """Reference ``BatchNorm`` (``ops/nn.py:393-442``). Training: single-pass
     fp32 batch statistics ``E[x]`` and ``max(E[x²] - E[x]², 0)`` (two-pass
-    under ``MXNET_BN_TWO_PASS_VAR``); the affine is folded into per-channel
-    fp32 scale and shift, applied in data's dtype. Returns ``(out,)``, or
-    ``(out, mean, var)`` in the running stats' dtype when training."""
+    under ``MXNET_BN_TWO_PASS_VAR``); inside a data-parallel step the
+    moments of the global batch (``parallel.spmd.global_moments``, as XLA's
+    partitioner reduces them in the reference); the affine is folded into
+    per-channel fp32 scale and shift, applied in data's dtype. Returns
+    ``(out,)``, or ``(out, mean, var)`` in the running stats' dtype when
+    training."""
     axis = axis % data.dim()
     red = tuple(i for i in range(data.dim()) if i != axis)
     shape = [1] * data.dim()
@@ -378,6 +388,9 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         else:
             var = torch.clamp_min((x32 * x32).mean(dim=red) - mean * mean,
                                   0.0)
+        # inside a data-parallel step, the moments of the global batch
+        mean, var, _n = _global_moments(mean, var,
+                                             data.numel() // mean.numel())
     else:
         mean, var = moving_mean, moving_var
     inv = torch.rsqrt(var.float() + eps)
@@ -424,7 +437,10 @@ def fused_conv1x1_bn_act(x, w, bias, residual, gamma, beta, stride=(1, 1),
 
 def _fused_bn_epilogue(z, mean, var, gamma, beta, bias, eps, fix_gamma):
     """The normalisation shared by the fused conv + batch-norm ops
-    (reference ``ops/nn.py:445-461``), in plain torch: ``z · sc + bi`` in
+    (reference ``ops/nn.py:445-461``), in plain torch, from the kernels'
+    moments (of the global batch inside a data-parallel step, combined by
+    ``parallel.spmd.global_moments`` between the kernel and here):
+    ``z · sc + bi`` in
     z's dtype, with ``sc = rsqrt(var + eps) · gamma`` and ``bi = beta -
     mean · sc`` per channel in fp32. z and mean are the bias-free conv's
     (the bias cancels in (z + b) - (mean + b), and the statistics of the
@@ -454,6 +470,7 @@ def fused_conv1x1_bn(x, w, bias, gamma, beta, stride=(1, 1), eps=1e-5,
         x = x[:, ::sh, ::sw, :]
     z, mean, var = cuda_kernels.conv1x1_bn_stats_train(x.contiguous(), w,
                                                        bias=bias)
+    mean, var, _n = _global_moments(mean, var, z.numel() // mean.numel())
     return _fused_bn_epilogue(z, mean, var, gamma, beta, bias, eps,
                               fix_gamma)
 
@@ -468,6 +485,7 @@ def fused_convkxk_bn(x, w, bias, gamma, beta, pad=(1, 1), eps=1e-5,
     batch_mean, batch_var)``."""
     z, mean, var = cuda_kernels.convkxk_bn_stats_train(x, w, _pair(pad),
                                                        bias=bias)
+    mean, var, _n = _global_moments(mean, var, z.numel() // mean.numel())
     return _fused_bn_epilogue(z, mean, var, gamma, beta, bias, eps,
                               fix_gamma)
 

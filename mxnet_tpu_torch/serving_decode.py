@@ -5,7 +5,7 @@ admission, and seeded sampling.
 Counterpart of ``mxnet_tpu/serving_decode.py``:
 
 1. **A bounded program set.** Per-token work is ONE captured decode
-   program (``GenerativeEngine._build_decode``): the page-table gather of
+   program (``GenerativeEngine._decode_fn``): the page-table gather of
    the KV context, the attention, the sampler for every row and the KV
    scatter (dead rows into the trash page) are one CUDA graph over static
    input buffers (tokens, tables, lengths, sampling arguments) at a fixed
@@ -45,7 +45,14 @@ Counterpart of ``mxnet_tpu/serving_decode.py``:
    ``gumbel``'s uniform-to-Gumbel map) in int64 tensors masked to 32 bits,
    so a sampled request replays the reference seed for seed and stays a
    pure function of (seed, position): safe inside a CUDA graph and across
-   a preemption. Temperature 0 is the plain argmax, bitwise.
+   a preemption. Temperature 0 is the plain argmax, bitwise. The decode,
+   draft-round and verify programs each come in two sampler forms
+   (:data:`FORMS`), picked per step from what the host knows of the live
+   rows: ``greedy`` (every row greedy: no sampler) and ``full``. Each
+   form gives its rows the full sampler's tokens bitwise;
+   the reference traces the full sampler into every program, where XLA
+   fuses it, while here each of its ops is a launch (or, on the CPU, a
+   dispatch).
 
 6. **Speculative decoding** (``MXNET_SPEC_DECODE``, ``MXNET_SPEC_K``;
    reference :1141-1170, :2060-2620): an engine built with a ``draft``
@@ -101,7 +108,8 @@ __all__ = ["PagePool", "PagePoolExhausted", "ShedError", "DecodeModel",
            "sample_scores",
            "token_key", "prng_key", "fold_in", "threefry_2x32",
            "random_bits", "gumbel", "uniform", "spec_trace_count",
-           "spec_dispatch_count", "high_agreement_pair"]
+           "spec_dispatch_count", "high_agreement_pair", "FORMS",
+           "sampling_form"]
 
 _NS = _pstore.namespace("serving_decode")
 # the speculative programs (draft prefill, draft round, verify) in their own
@@ -989,20 +997,32 @@ def _keep_mask(scaled, top_k, top_p):
     return keep_k & keep_p
 
 
-def sample_scores(logits, temperature, top_k, top_p, key):
-    """``(scaled, scores)`` of the sampler: the temperature-scaled logits,
-    and ``scaled`` masked by top-k / top-p plus the Gumbel noise of ``key``
-    ``(..., 2)``, whose argmax is the sampled token. The sampling arguments
-    are tensors of shape ``(...)`` (or scalars)."""
+def _scaled(logits, temperature, top_k, top_p):
+    """``(temperature, scaled, masked)``: the temperature over the rows of
+    ``logits`` ``(..., V)``, the temperature-scaled logits, and those
+    masked by top-k / top-p. The sampling arguments are tensors of shape
+    ``(...)`` (or scalars)."""
     dev = logits.device
     temperature = torch.as_tensor(temperature, dtype=torch.float32,
-                                  device=dev)
+                                  device=dev).expand(logits.shape[:-1])
     top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev)
     top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
     scaled = logits / torch.clamp(temperature, min=1e-6)[..., None]
     keep = _keep_mask(scaled, top_k.expand(scaled.shape[:-1]),
                       top_p.expand(scaled.shape[:-1]))
-    masked = scaled.masked_fill(~keep, float("-inf"))
+    return temperature, scaled, scaled.masked_fill(~keep, float("-inf"))
+
+
+def _one_hot(ids, v: int, dtype):
+    return (ids[..., None] == torch.arange(v, device=ids.device)).to(dtype)
+
+
+def sample_scores(logits, temperature, top_k, top_p, key):
+    """``(scaled, scores)`` of the sampler: the temperature-scaled logits,
+    and ``scaled`` masked by top-k / top-p plus the Gumbel noise of ``key``
+    ``(..., 2)``, whose argmax is the sampled token. The sampling arguments
+    are tensors of shape ``(...)`` (or scalars)."""
+    _t, scaled, masked = _scaled(logits, temperature, top_k, top_p)
     return scaled, masked + gumbel(key, logits.shape[-1])
 
 
@@ -1012,50 +1032,83 @@ def sample_token(logits, temperature, top_k, top_p, key):
     (:func:`sample_scores`). Where the temperature is 0 the result is the
     plain argmax, bitwise. No host read: it runs inside the captured
     programs and in the eager oracle alike."""
-    temperature = torch.as_tensor(temperature, dtype=torch.float32,
-                                  device=logits.device)
+    return _sample(logits, temperature, top_k, top_p, key)[0]
+
+
+#: the sampler's program forms: every row greedy (no sampler at all), and
+#: the full sampler
+FORMS = ("greedy", "full")
+
+
+def sampling_form(specs: Sequence[Optional[SamplingSpec]]) -> str:
+    """The form that gives the rows of ``specs`` (None is greedy) their
+    full sampler's results bitwise at the least cost: ``greedy`` when every
+    row is greedy, else ``full``."""
+    if all(s is None or s.greedy for s in specs):
+        return "greedy"
+    return "full"
+
+
+def _sample(logits, temperature, top_k, top_p, key, form: str = "full",
+            dist: bool = False):
+    """``(tokens, dist)``: :func:`sample_token`'s tokens and, with
+    ``dist``, :func:`_sample_dist`'s distribution, from one scaling and one
+    keep mask. The ``greedy`` form (:data:`FORMS`) runs no sampler; it
+    equals the full one bitwise on the rows it is chosen for
+    (:func:`sampling_form`). ``key`` may be None under ``greedy``."""
     greedy = torch.argmax(logits, dim=-1)
-    _scaled, scores = sample_scores(logits, temperature, top_k, top_p, key)
-    sampled = torch.argmax(scores, dim=-1)
-    return torch.where(temperature > 0.0, sampled, greedy).to(torch.int32)
+    one_hot = _one_hot(greedy, logits.shape[-1], logits.dtype) \
+        if dist else None
+    if form == "greedy":
+        return greedy.to(torch.int32), one_hot
+    temperature, _s, masked = _scaled(logits, temperature, top_k, top_p)
+    hot = temperature > 0.0
+    sampled = torch.argmax(masked + gumbel(key, logits.shape[-1]), dim=-1)
+    tokens = torch.where(hot, sampled, greedy).to(torch.int32)
+    if not dist:
+        return tokens, None
+    return tokens, torch.where(hot[..., None],
+                               torch.softmax(masked, dim=-1), one_hot)
 
 
-def _sample_dist(logits, temperature, top_k, top_p):
+def _sample_dist(logits, temperature, top_k, top_p, form: str = "full"):
     """The sampling distribution ``(..., V)`` a request decodes under (the
     masked, normalized one :func:`sample_token` draws from; one-hot at the
     argmax where the temperature is 0): the ``p`` and ``q`` both sides of
     speculative rejection sampling score (reference
     ``serving_decode.py:979``). The sampling arguments are tensors of shape
     ``(...)`` (or scalars)."""
-    dev = logits.device
-    temperature = torch.as_tensor(temperature, dtype=torch.float32,
-                                  device=dev).expand(logits.shape[:-1])
-    top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev)
-    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
-    v = logits.shape[-1]
-    one_hot = (torch.argmax(logits, dim=-1, keepdim=True)
-               == torch.arange(v, device=dev)).to(logits.dtype)
-    scaled = logits / torch.clamp(temperature, min=1e-6)[..., None]
-    keep = _keep_mask(scaled, top_k.expand(scaled.shape[:-1]),
-                      top_p.expand(scaled.shape[:-1]))
-    probs = torch.softmax(scaled.masked_fill(~keep, float("-inf")), dim=-1)
-    return torch.where(temperature[..., None] > 0.0, probs, one_hot)
+    one_hot = _one_hot(torch.argmax(logits, dim=-1), logits.shape[-1],
+                       logits.dtype)
+    if form == "greedy":
+        return one_hot
+    temperature, _s, masked = _scaled(logits, temperature, top_k, top_p)
+    return torch.where(temperature[..., None] > 0.0,
+                       torch.softmax(masked, dim=-1), one_hot)
 
 
 def _rejection_sample(logits, props, lengths, q_dist, temps, top_ks,
-                      top_ps, seeds):
+                      top_ps, seeds, form: str = "full"):
     """``(n_acc, next token)`` of verify's rejection sampling (see
     ``GenerativeEngine._verify_fn``) from the target's logits ``(R, k+1,
     V)``, the proposals and their distributions ``q_dist`` ``(R, k, V)``,
-    and the rows' sampling arguments."""
+    and the rows' sampling arguments. Under the ``greedy`` form ``q_dist``
+    is unused (None): with one-hot ``p`` and ``q`` the test accepts a
+    proposal iff it is the target's argmax, and the resample at the first
+    rejection (or the bonus) is the target's argmax there."""
     r, s, _v = logits.shape
     k = s - 1
     rows = torch.arange(r, device=logits.device)
     ar = torch.arange(s, device=logits.device)
+    if form == "greedy":
+        best = torch.argmax(logits, dim=-1)                    # (R, S)
+        n_acc = torch.cumprod((best[:, :k] == props).long(),
+                              dim=1).sum(dim=1)
+        return n_acc, best[rows, n_acc]
     # the target's own sampling distribution at every position
     p = _sample_dist(logits, temps[:, None].expand(r, s),
                      top_ks[:, None].expand(r, s),
-                     top_ps[:, None].expand(r, s))
+                     top_ps[:, None].expand(r, s), form)
     # accept d_j iff u_j q_j(d_j) < p_j(d_j) (strict, so a proposal p gives
     # no mass never survives); n_acc is the length of the accepted prefix
     jpos = lengths[:, None] + 1 + ar[None, :k]
@@ -1076,6 +1129,11 @@ def _rejection_sample(logits, props, lengths, q_dist, temps, top_ks,
                  logits.shape[-1])
     cand = torch.argmax(torch.log(dist) + gum, dim=-1)       # (R, S)
     return n_acc, cand[rows, n_acc]
+
+
+def _signature(key: tuple) -> tuple:
+    """A program key without its sampler form (:data:`FORMS`)."""
+    return key[:-1] if key and key[-1] in FORMS else key
 
 
 def _sampling_args(sampling: Optional[SamplingSpec]):
@@ -1423,8 +1481,12 @@ class GenerativeEngine:
         """Per-model counters and request-latency percentiles."""
         out = dict(self._stats)
         out["model"] = self.name
-        out["programs"] = len(self._programs)
-        out["spec_programs"] = len(self._spec_programs)
+        # a signature's sampler forms count as one program
+        out["programs"] = len({_signature(k) for k in self._programs})
+        out["spec_programs"] = len({_signature(k)
+                                    for k in self._spec_programs})
+        out["program_forms"] = len(self._programs) + len(
+            self._spec_programs)
         out["spec_disabled"] = self._spec_disabled
         out["queue_depth"] = len(self._queue)
         out["live_rows"] = len(self._live)
@@ -1885,7 +1947,9 @@ class GenerativeEngine:
 
         return prefill_chunk_fn
 
-    def _decode_fn(self):
+    def _decode_fn(self, form: str = "full"):
+        """The decode program; ``form`` (:data:`FORMS`) is the sampler's,
+        chosen from the live rows' specs at each step."""
         model, params, page = self._model, self._params, self._pool.page
 
         def decode_fn(tokens, tables, lengths, temps, top_ks, top_ps,
@@ -1900,8 +1964,10 @@ class GenerativeEngine:
                 self._scatter(tables[rows, lengths // page], lengths % page,
                               k_new, v_new)
                 # the sampled token lands at absolute position lengths+1
-                return sample_token(logits, temps, top_ks, top_ps,
-                                    token_key(seeds, lengths + 1))
+                keys = (None if form == "greedy"
+                        else token_key(seeds, lengths + 1))
+                return _sample(logits, temps, top_ks, top_ps, keys,
+                               form)[0]
 
         return decode_fn
 
@@ -1964,12 +2030,14 @@ class GenerativeEngine:
                   if row.req.trace_id is not None]
         if traces:
             step_args["trace_ids"] = traces
+        form = sampling_form([row.req.sampling for row in self._live])
         with _telemetry.span("decode.step", cat="decode",
                              args=step_args):
             self._pool.gate.acquire(self._priority)
             try:
                 with self._pool.exclusive(self._geom):
-                    nxt = self._call(("decode",), self._decode_fn, bufs)
+                    nxt = self._call(("decode", form),
+                                     lambda: self._decode_fn(form), bufs)
                     # THE one host read per decode iteration
                     nxt = nxt.tolist()
             finally:
@@ -2263,7 +2331,9 @@ class GenerativeEngine:
             (h["temps"][i], h["top_ks"][i], h["top_ps"][i],
              h["seeds"][i]) = _sampling_args(row.req.sampling)
         b = self._spec_host
-        samp = [b["temps"], b["top_ks"], b["top_ps"], b["seeds"]]
+        form = sampling_form([row.req.sampling for row in live])
+        samp = ([] if form == "greedy"
+                else [b["temps"], b["top_ks"], b["top_ps"], b["seeds"]])
         dargs = [b["catch"], b["catch_on"], b["pending"], b["dtables"],
                  b["dlengths"], *samp]
         step_args: Dict[str, Any] = {"model": self.name, "rows": len(live),
@@ -2278,19 +2348,22 @@ class GenerativeEngine:
             self._pool.gate.acquire(self._priority)
             try:
                 with self._pool.exclusive(self._draft_geom):
-                    props, q_dist = self._spec_call(
-                        ("draft_round", kmax),
-                        lambda: self._draft_round_fn(kmax), dargs)
+                    drafted = self._spec_call(
+                        ("draft_round", kmax, form),
+                        lambda: self._draft_round_fn(kmax, form), dargs)
             finally:
                 self._pool.gate.release()
             t1 = time.perf_counter()
-            vargs = [b["pending"], props[:, :k], b["tables"], b["lengths"],
-                     q_dist[:, :k], *samp]
+            vargs = [b["pending"], drafted[0][:, :k], b["tables"],
+                     b["lengths"]]
+            if form != "greedy":
+                vargs += [drafted[1][:, :k], *samp]
             self._pool.gate.acquire(self._priority)
             try:
                 with self._pool.exclusive(self._geom):
                     res = self._spec_call(
-                        ("verify", k), lambda: self._verify_fn(k), vargs)
+                        ("verify", k, form),
+                        lambda: self._verify_fn(k, form), vargs)
                     # THE one host read per round: accepted counts, next
                     # tokens and proposals feed the host commit
                     res = res.tolist()
@@ -2353,20 +2426,23 @@ class GenerativeEngine:
 
         return draft_prefill_fn
 
-    def _draft_round_fn(self, kmax: int):
+    def _draft_round_fn(self, kmax: int, form: str = "full"):
         """The whole draft phase of a round as one program: a masked
         catch-up step, then the pending token, then kmax-1 proposal feeds
         (kmax+1 draft decode steps), so a round costs two dispatches
         however deep it drafts. Returns the proposals ``(R, kmax)`` and
         their sampling distributions ``(R, kmax, V)``, which stay on the
-        device into verify."""
+        device into verify; under the ``greedy`` form the proposals alone
+        (the argmax; verify needs no distribution) and no sampling
+        arguments are taken."""
         draft, dparams = self._draft, self._draft_params
         page, trash = self._pool.page, self._pool.trash
         dmp = self._draft_max_pages
         dgeom = self._draft_geom
 
         def draft_round_fn(catch, catch_on, pending, tables, lengths,
-                           temps, top_ks, top_ps, seeds):
+                           temps=None, top_ks=None, top_ps=None,
+                           seeds=None):
             rows = torch.arange(tables.shape[0], device=tables.device)
 
             def step(tok, pos, write):
@@ -2394,20 +2470,28 @@ class GenerativeEngine:
                 for j in range(1, kmax + 1):
                     logits = step(tok, cur + (j - 1),
                                   torch.ones_like(catch_on))
-                    # proposal j sits at position cur + j; salt 3 keeps
-                    # the draft's noise apart from verify's accept (1) and
-                    # resample (2) streams on the same counter
-                    keys = fold_in(token_key(seeds, cur + j), 3)
-                    d = sample_token(logits, temps, top_ks, top_ps,
-                                     keys).long()
-                    qs.append(_sample_dist(logits, temps, top_ks, top_ps))
+                    if form == "greedy":
+                        d = torch.argmax(logits, dim=-1)
+                    else:
+                        # proposal j sits at position cur + j; salt 3
+                        # keeps the draft's noise apart from verify's
+                        # accept (1) and resample (2) streams on the same
+                        # counter. One scaling and keep mask give both the
+                        # token and its distribution q.
+                        keys = fold_in(token_key(seeds, cur + j), 3)
+                        d, q = _sample(logits, temps, top_ks, top_ps, keys,
+                                       form, dist=True)
+                        d = d.long()
+                        qs.append(q)
                     props.append(d)
                     tok = d
+                if form == "greedy":
+                    return (torch.stack(props, dim=1),)
                 return torch.stack(props, dim=1), torch.stack(qs, dim=1)
 
         return draft_round_fn
 
-    def _verify_fn(self, k: int):
+    def _verify_fn(self, k: int, form: str = "full"):
         """The verify program of depth k: one target ``decode_chunk`` over
         the k+1 positions (pending and k proposals), standard rejection
         sampling against the draft's distributions (accept ``d_j`` iff
@@ -2416,7 +2500,8 @@ class GenerativeEngine:
         the residual with ``q := 0``; ``p`` where the residual is all
         zero), and the KV scatter of the accepted prefix only (rejected
         positions write the trash page). Returns ``(R, 2 + k)``: ``n_acc``,
-        the next token, and the proposals."""
+        the next token, and the proposals. The ``greedy`` form takes no
+        distributions and no sampling arguments."""
         model, params = self._model, self._params
         page, trash = self._pool.page, self._pool.trash
         mp = self._max_pages
@@ -2432,8 +2517,10 @@ class GenerativeEngine:
                 toks = torch.cat([pending[:, None], props], dim=1)
                 logits, k_new, v_new = model.decode_chunk(
                     params, toks, k_ctx, v_ctx, lengths)       # (R, S, V)
+                if form == "greedy":
+                    sampled = (None,) * 5
                 n_acc, nxt = _rejection_sample(logits, props, lengths,
-                                               *sampled)
+                                               *sampled, form=form)
                 # chunk position i commits iff i <= n_acc (pending always,
                 # then the accepted proposals)
                 keep = ar[None, :] <= n_acc[:, None]
@@ -2448,13 +2535,14 @@ class GenerativeEngine:
 
         return verify_fn
 
-    def _spec_examples(self, k: Optional[int] = None):
+    def _spec_examples(self, k: Optional[int] = None, form: str = "full"):
         """Example inputs of the draft round (``k`` None) or of verify at
-        depth ``k``: every table the trash page, so a capture writes only
-        the trash page."""
+        depth ``k`` in ``form``: every table the trash page, so a capture
+        writes only the trash page."""
         r, trash, v = self._rows, self._pool.trash, int(self._model.vocab)
-        samp = [torch.zeros((r,)), torch.zeros((r,), dtype=torch.int64),
-                torch.ones((r,)), torch.zeros((r,), dtype=torch.int64)]
+        samp = ([] if form == "greedy" else
+                [torch.zeros((r,)), torch.zeros((r,), dtype=torch.int64),
+                 torch.ones((r,)), torch.zeros((r,), dtype=torch.int64)])
         z = torch.zeros((r,), dtype=torch.int64)
         if k is None:
             return [z, torch.zeros((r,), dtype=torch.bool), z,
@@ -2462,6 +2550,8 @@ class GenerativeEngine:
                                dtype=torch.int64), z, *samp]
         out = [z, torch.zeros((r, k), dtype=torch.int64),
                torch.full((r, self._max_pages), trash, dtype=torch.int64), z]
+        if form == "greedy":
+            return out
         return out + [torch.zeros((r, k, v),
                                   dtype=self._draft_params["emb"].dtype),
                       *samp]
@@ -2505,8 +2595,11 @@ class GenerativeEngine:
         taken as it is) and THE decode program; with a draft, also a draft
         prefill per bucket (up to the draft's ``max_seq``), the draft-round
         program and a verify program per k the arbiter can pick (1..4
-        under ``auto``). Each capture writes only the trash page. Returns
-        the programs captured (0 = already warm)."""
+        under ``auto``). The decode, draft-round and verify programs are
+        captured in each sampler form (:data:`FORMS`), so that no mix of
+        requests captures after warm-up. Each capture writes only the trash
+        page. Returns the program signatures captured, a signature's forms
+        counting once (0 = already warm)."""
         if self._closed:
             raise RuntimeError("GenerativeEngine is closed")
         cap = int(max_len if max_len is not None else self._model.max_seq)
@@ -2523,8 +2616,10 @@ class GenerativeEngine:
         plain = (self._programs, self._geom, self._keep)
         specs = [(plain, ("prefill", b), lambda b=b: self._prefill_fn(b),
                   self._prefill_example(b)) for b in grid]
-        specs.append((plain, ("decode",), self._decode_fn,
-                      self._decode_example()))
+        for form in FORMS:
+            specs.append((plain, ("decode", form),
+                          lambda form=form: self._decode_fn(form),
+                          self._decode_example()))
         if self._draft is not None:
             # the spec grid: a draft prefill per bucket, ONE draft round,
             # and a verify per k the arbiter can pick, so that a spec storm
@@ -2544,14 +2639,17 @@ class GenerativeEngine:
                                               dtype=torch.int64)]))
             ks = (range(1, kmax + 1) if self._spec_setting() == "auto"
                   else [kmax])
-            specs.append((draft, ("draft_round", kmax),
-                          lambda: self._draft_round_fn(kmax),
-                          self._spec_examples()))
-            for kk in ks:
-                specs.append((verify, ("verify", kk),
-                              lambda kk=kk: self._verify_fn(kk),
-                              self._spec_examples(kk)))
-        compiled = 0
+            for form in FORMS:
+                specs.append((draft, ("draft_round", kmax, form),
+                              lambda form=form: self._draft_round_fn(
+                                  kmax, form),
+                              self._spec_examples(form=form)))
+                for kk in ks:
+                    specs.append((verify, ("verify", kk, form),
+                                  lambda kk=kk, form=form: self._verify_fn(
+                                      kk, form),
+                                  self._spec_examples(kk, form)))
+        compiled = set()
         for (cache, geom, keep), key, build, example in specs:
             if key in cache:
                 continue
@@ -2561,7 +2659,8 @@ class GenerativeEngine:
                                        self._device, keep=keep)
                 prog.prepare(*example)
             cache.insert(key, prog)
-            compiled += 1
+            compiled.add((cache.namespace.name, _signature(key)))
+        compiled = len(compiled)
         self._stats.inc("warmup_programs", compiled)
         return compiled
 

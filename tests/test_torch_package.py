@@ -90,6 +90,9 @@ def test_scan_finds_every_port_module():
             "mxnet_tpu_torch/parallel/mesh.py",
             "mxnet_tpu_torch/parallel/train.py",
             "mxnet_tpu_torch/parallel/moe.py",
+            "mxnet_tpu_torch/parallel/sharding.py",
+            "mxnet_tpu_torch/parallel/collectives.py",
+            "mxnet_tpu_torch/parallel/spmd.py",
             "mxnet_tpu_torch/random.py",
             "mxnet_tpu_torch/ndarray/__init__.py",
             "mxnet_tpu_torch/ndarray/ndarray.py",
@@ -111,6 +114,32 @@ def test_scan_finds_every_port_module():
             "mxnet_tpu_torch/convert.py",
             "tools/torch_serving_latency.py",
             "chip_smoke.py"} <= names
+
+
+_MESH_WITHOUT_A_WORLD = r"""
+import torch
+import torch.distributed as dist
+import mxnet_tpu_torch.parallel as par
+from mxnet_tpu_torch.parallel import collectives, mesh, sharding, spmd
+assert not (dist.is_available() and dist.is_initialized())
+m = par.make_mesh({"dp": 1}, devices=[torch.device("cpu")])
+assert m.shape == {"dp": 1} and m.device_mesh is None and m.size == 1
+assert spmd.resolve_mesh("1").shape == {"dp": 1}
+assert spmd.resolve_mesh("auto") is None
+print("ok")
+"""
+
+
+def test_new_mesh_modules_import_and_mesh_of_one_needs_no_world():
+    """The mesh modules import, and ``make_mesh({'dp': 1})`` works, without
+    an initialized process group (a fresh interpreter, on the CPU)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", "import mxnet_tpu_torch as mx\n"
+         "with mx.cpu():\n    exec(" + repr(_MESH_WITHOUT_A_WORLD) + ")"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", \
+        (out.stdout + out.stderr)[-3000:]
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

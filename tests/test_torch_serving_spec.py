@@ -488,7 +488,7 @@ def test_spec_dispatch_error_reaches_the_requests(spec_on, engines):
     target, tp, draft, dp = _pair()
     eng = engines(target, tp, draft, dp, warm=0, spec_k=2)
 
-    def broken(kmax):
+    def broken(kmax, form="full"):
         def fn(*args):
             raise RuntimeError("draft round failed")
         return fn

@@ -270,9 +270,11 @@ def test_step_after_a_new_signature_continues_the_trajectory():
 
 
 def test_mesh_axes_above_one_raise_and_cuda_is_the_default():
-    with pytest.raises(NotImplementedError, match="A6"):
+    # a mesh needs as many ranks as its size; this process is a world of
+    # one (tests/test_torch_spmd.py runs the larger meshes in gloo worlds)
+    with pytest.raises(ValueError, match="needs 2 devices"):
         tpar.make_mesh({"dp": 2})
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="needs 4 devices"):
         tpar.make_mesh({"dp": 1, "tp": 4}, devices=[CPU])
     mesh = tpar.make_mesh({"tp": 1, "dp": 1, "fsdp": 1}, devices=[CPU])
     assert mesh.axis_names == ("dp", "fsdp", "tp")
@@ -289,7 +291,7 @@ def test_refusals():
                             optimizer_params={"lr": 0.1, "gamma": 2})
     with pytest.raises(ValueError, match="unsupported sharded optimizer"):
         tpar.ShardedTrainer(tnet, _mse, _mesh(), optimizer="rmsprop")
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(TypeError, match="ShardingPlan"):
         tpar.ShardedTrainer(tnet, _mse, _mesh(), plan=object())
     fresh = _mlp(tmx)
     fresh.initialize(ctx=tmx.cpu())

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Phases 11 (serving), 12 (speculative decoding) and 13 (the
-mixture-of-experts LM) of ``chip_smoke.py`` alone, on one card: a quicker
-look at those paths than the whole script.
+"""Phases 11 (serving), 12 (speculative decoding), 13 (the
+mixture-of-experts LM) and 14 (the mesh of one) of ``chip_smoke.py``
+alone, on one card: a quicker look at those paths than the whole script.
 
-    python3 tools/torch_chip_smoke_phases.py [11] [12] [13]
+    python3 tools/torch_chip_smoke_phases.py [11] [12] [13] [14]
 
-With no argument it runs 12 and 13. It builds the port's kernels first
-(phase 1 of the script: phase 13 runs the flash-attention kernels) and
-exits with the script's failure code at the first failed gate.
+With no argument it runs 12, 13 and 14. It builds the port's kernels first
+(phase 1 of the script: phase 13 runs the flash-attention kernels, phase
+14 the conv + batch-norm and epilogue kernels) and exits with the
+script's failure code at the first failed gate.
 """
 import json
 import os
@@ -33,7 +34,7 @@ def main(which) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card_line = c.build_phase(_build)
-    _ps, cs = c.port_capture()
+    ps, cs = c.port_capture()
     serving, sd, lat = c.port_serving()
     for phase in which:
         t0 = time.perf_counter()
@@ -52,6 +53,12 @@ def main(which) -> int:
                               traced)
             print(f"phase 13 launch counts of the MoE runs {counts}, traced "
                   f"in the replays {traced}")
+        elif phase == "14":
+            counts, traced = {}, {}
+            out = c.mesh_phase(mx, ps, cs, ck, _resnet, config, card_line,
+                               counts, traced)
+            print(f"phase 14 launch counts of the kvstore and planned runs "
+                  f"{counts}, traced in the replays {traced}")
         else:
             print(f"torch_chip_smoke_phases: no phase {phase}",
                   file=sys.stderr)
@@ -65,4 +72,4 @@ def main(which) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["12", "13"]))
+    sys.exit(main(sys.argv[1:] or ["12", "13", "14"]))
