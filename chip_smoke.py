@@ -279,6 +279,25 @@ Phases, in order; any failure exits non-zero before the result line:
    conv + BN route) bitwise the plan-less one. The launches of the path
    are those of the kvstore and planned runs. Multi-GPU collectives are
    not run here (one card). A JSON line holds phase 14's numbers.
+15. The LM on a mesh (``sharding_plan``, ``make_train_step(cfg, mesh)``,
+   ``make_pp_pipeline``), at the BERT-base width in bf16 on tokens
+   TRAIN_TOKENS, in an NCCL world of one rank (as phase 14): the dense and
+   the MoE (MOE_EXPERTS experts, top MOE_TOP_K) steps, Adam and LAMB, on
+   the mesh of one MESH_LM_AXES with their params and moments placed by
+   the plan, MESH_LM_STEPS captured steps gated bitwise the plain
+   captured step's (losses, params, moments); the pipeline at pp=1
+   (PP_AXES) with each of PP_MICRO micro-batches through
+   ``make_pp_train_step``, PP_STEPS captured Adam steps held to the same
+   arithmetic unpipelined on fp32 master weights and, within the
+   fp32-packing bound, to the plain step (see ``pp_runs``); every run 1 capture and 1 dispatch a step, B1-B3's
+   launches each step counted by the wrappers at the first call and
+   traced by kernel name in each replay (12 a step on the mesh steps,
+   12 x the micro-batches on the pipeline), no flash fallback; ring
+   attention at sp=1 against dense attention (a smoke check: a ring of
+   more than one member needs more than one card). Printed: each path's
+   eager and captured wall, device busy, host ms, idle share and peak
+   memory. The path's launches are those of the mesh and pp runs. A JSON
+   line holds phase 15's numbers.
 10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
@@ -5237,7 +5256,7 @@ MESH_ROUTES = ("conv_bn", "epilogue")
 MESH_STEPS = 3
 
 
-def mesh_world():
+def mesh_world(phase="14"):
     """An NCCL world of this one process from a file store under the
     run's temporary directory, and one eager all-reduce before any
     capture. Returns ``torch.distributed``."""
@@ -5252,8 +5271,9 @@ def mesh_world():
     dist.all_reduce(t)
     torch.cuda.synchronize()
     if t.tolist() != [3.0] * 4:
-        fail(f"14: the first NCCL all-reduce of one rank gave {t.tolist()}")
-    print(f"14: NCCL world of 1 rank ({dist.get_backend()}), first "
+        fail(f"{phase}: the first NCCL all-reduce of one rank gave "
+             f"{t.tolist()}")
+    print(f"{phase}: NCCL world of 1 rank ({dist.get_backend()}), first "
           f"all-reduce eager  ok")
     return dist
 
@@ -5695,6 +5715,328 @@ def moe_phase(models, cs, ck, config, card_line, counts,
     return out
 
 
+# -- 15. the LM on a mesh --------------------------------------------------
+MESH_LM_AXES = {"dp": 1, "fsdp": 1, "tp": 1, "sp": 1, "ep": 1}
+MESH_LM_STEPS = 3          # steps of each plain and mesh run, captured
+PP_AXES = {"pp": 1, "dp": 1}
+PP_MICRO = (2, 4)          # micro-batches of the pp runs
+PP_STEPS = 4               # pp steps against the plain step
+
+
+def mesh_lm_runs(models, cs, ck, cfg, opt, mesh, tokens, labels, counts,
+                 traced_total) -> dict:
+    """The plain captured step and the captured step on ``mesh`` (its
+    params and moments placed by ``sharding_plan``), MESH_LM_STEPS steps
+    each from the same init, gated bitwise equal (losses, params,
+    moments), 1 capture and 1 dispatch a step each, the mesh run's flash
+    launches counted and traced (``check_step_launches``) and added into
+    ``counts`` and ``traced_total``. The plain run is the yardstick, not
+    the path: it is not traced."""
+    L = cfg.num_layers
+    plan = models.sharding_plan(cfg)
+    runs = {}
+    for which in ("plain", "mesh"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = models.init_params(cfg, gen, device="cuda")
+        on = mesh if which == "mesh" else None
+        if on is not None:
+            p = plan.shard_tree(p, on)
+        m, v = models.init_opt_state(p)
+        if on is not None:
+            m, v = plan.shard_tree(m, on), plan.shard_tree(v, on)
+        step = models.make_train_step(cfg, on, optimizer=opt, lr=TRAIN_LR)
+        t0, d0 = cs.trace_count(), cs.dispatch_count()
+        losses, counted, traced = [], [], []
+        for t in range(1, MESH_LM_STEPS + 1):
+            (_p, _m, _v, loss), c, tr = traced_launches(
+                ck, lambda: step(p, m, v, tokens, labels, t),
+                trace=on is not None and t != 1, total=traced_total)
+            losses.append(loss.clone())
+            counted.append(c)
+            traced.append(tr)
+        what = f"15: {cfg.num_experts or 'dense'} {opt} step, {which}"
+        got = (cs.trace_count() - t0, cs.dispatch_count() - d0)
+        if got != (1, MESH_LM_STEPS):
+            fail(f"{what}: (captures, dispatches) {got} over "
+                 f"{MESH_LM_STEPS} steps")
+        if on is not None:
+            check_step_launches(what, counted, traced,
+                                {k: L for k in TRAIN_KERNELS}, True)
+            for c in counted:
+                for k, n in c.items():
+                    counts[k] = counts.get(k, 0) + n
+        runs[which] = (losses, [x.clone() for d in (p, m, v)
+                                for x in d.values()])
+        del p, m, v, step
+    (la, sa), (lb, sb) = runs["plain"], runs["mesh"]
+    same = all(torch.equal(a, b) for a, b in zip(la + sa, lb + sb))
+    vals = [x.item() for x in lb]
+    if not same or not all(math.isfinite(x) for x in vals):
+        fail(f"15: {opt} step on the mesh of one {mesh.shape} is not the "
+             f"plain step bit for bit (losses {vals}, plain "
+             f"{[x.item() for x in la]})")
+    print(f"15: {'MoE' if cfg.num_experts else 'dense'} LM {opt} step on "
+          f"the mesh of one {mesh.shape} with sharding_plan: "
+          f"{MESH_LM_STEPS} captured steps bitwise the plain step's "
+          f"(losses " + " ".join(f"{x:.6f}" for x in vals) + "), 1 "
+          f"capture, 1 dispatch a step, flash launches a step "
+          f"{ {k: L for k in TRAIN_KERNELS} }  ok")
+    return {"losses": vals, "bitwise_plain": True}
+
+
+def step_numbers(what, make_step, state0, tokens, labels, config,
+                 card_line) -> dict:
+    """Eager against captured numbers of one train step (``capture_numbers``
+    over ``make_step()``'s step on a fresh copy of ``state0()`` each
+    mode)."""
+    fns, kept = {}, 0
+    for mode in ("eager", "captured"):
+        step = make_step()
+        state = list(state0()) + [1]
+
+        def one(step=step, state=state, on=mode == "captured"):
+            set_compiled(config, on)
+            p_, m_, v_, t = state
+            step(p_, m_, v_, tokens, labels, t)
+            state[3] = t + 1
+
+        if mode == "captured":
+            _, kept = reserved_by(one)
+        fns[mode] = one
+    out = capture_numbers(what, fns, kept, card_line)
+    set_compiled(config, True)
+    return out
+
+
+def master_oracle(models, cfg, params0, tokens, labels):
+    """The unpipelined Adam loop on fp32 master weights: the pp step's
+    arithmetic (fp32 moments and weights, wd 0, the bf16 forward and
+    backward of the weights cast to their dtypes) without the pipeline,
+    its micro-batches or its tied copies. Returns (losses, master)."""
+    master = {k: w.float().clone() for k, w in params0.items()}
+    m = {k: torch.zeros_like(w) for k, w in master.items()}
+    v = {k: torch.zeros_like(w) for k, w in master.items()}
+    losses = []
+    for t in range(1, PP_STEPS + 1):
+        leaves = {k: w.to(params0[k].dtype).requires_grad_()
+                  for k, w in master.items()}
+        loss = models.loss_fn(leaves, tokens, labels, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        lr_t = TRAIN_LR * math.sqrt(1 - 0.999 ** t) / (1 - 0.9 ** t)
+        with torch.no_grad():
+            for k, g in zip(leaves, grads):
+                g = g.float()
+                m[k].mul_(0.9).add_(g * 0.1)
+                v[k].mul_(0.999).add_(g.square() * 0.001)
+                master[k] -= lr_t * m[k] / (v[k].sqrt() + 1e-8)
+        losses.append(loss.item())
+        del leaves, grads
+    return losses, master
+
+
+def pp_runs(models, cs, ck, cfg, mesh, n_micro, tokens, labels, counts,
+            traced_total) -> dict:
+    """``make_pp_pipeline`` at pp=1 with ``n_micro`` micro-batches through
+    ``make_pp_train_step`` (Adam, captured, wd 0), PP_STEPS steps from
+    the bf16 init, against (1) ``master_oracle``, the same arithmetic
+    unpipelined: losses within TRAIN_LOSS_ATOL (the bound of flash against
+    einsum) and every weight within PP_STEPS x (2 lr + one bf16 ulp of
+    it), as an Adam update moves a weight by at most about lr and
+    rounding can flip a near-zero gradient's sign; and (2) the plain step
+    (Adam, captured, wd 0), which rounds its weights to bf16 each step
+    where the packed buffer keeps fp32 ones: weights within the same
+    bound, losses within the oracle's own distance from the plain step
+    (the fp32-packing effect) plus TRAIN_LOSS_ATOL. Each step's flash
+    launches (``n_micro`` x the layers of each kernel) counted and
+    traced."""
+    L = cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = models.init_params(cfg, gen, device="cuda")
+    init = {k: w.clone() for k, w in params.items()}
+    pipe = models.make_pp_pipeline(cfg, params, mesh,
+                                   num_microbatches=n_micro,
+                                   example_tokens=tokens)
+    step = models.make_pp_train_step(pipe, optimizer="adam", lr=TRAIN_LR)
+    packed = pipe.packed_params.clone()
+    m, v = torch.zeros_like(packed), torch.zeros_like(packed)
+    want = {k: n_micro * L for k in TRAIN_KERNELS}
+    t0, d0 = cs.trace_count(), cs.dispatch_count()
+    losses, counted, traced = [], [], []
+    for t in range(1, PP_STEPS + 1):
+        (_p, _m, _v, loss), c, tr = traced_launches(
+            ck, lambda: step(packed, m, v, tokens, labels, t),
+            trace=t != 1, total=traced_total)
+        losses.append(loss.item())
+        counted.append(c)
+        traced.append(tr)
+    what = f"15: pp=1 LM pipeline, {n_micro} micro-batches"
+    got = (cs.trace_count() - t0, cs.dispatch_count() - d0)
+    if got != (1, PP_STEPS):
+        fail(f"{what}: (captures, dispatches) {got} over {PP_STEPS} steps")
+    check_step_launches(what, counted, traced, want, True)
+    for c in counted:
+        for k, n in c.items():
+            counts[k] = counts.get(k, 0) + n
+    stages = pipe.unpack_stage_params(packed)
+    del pipe, step, m, v
+    torch.cuda.empty_cache()
+    oracle, master = master_oracle(models, cfg, init, tokens, labels)
+    plain = models.make_train_step(cfg, optimizer="adam", lr=TRAIN_LR,
+                                   wd=0.0)
+    pm, vm = models.init_opt_state(params)
+    base = [plain(params, pm, vm, tokens, labels, t)[3].item()
+            for t in range(1, PP_STEPS + 1)]
+    del plain, pm, vm
+
+    def share(ref_of):
+        worst = 0.0
+        for part in stages:
+            for name, w in part.items():
+                ref = ref_of(name)
+                lim = PP_STEPS * (2 * TRAIN_LR + Z_ULP[torch.bfloat16]
+                                  * ref.float().abs())
+                worst = max(worst, ((w.float() - ref.float()).abs() / lim)
+                            .max().item())
+        return worst
+
+    def tied(name):
+        return "embed.weight" if name == "head.weight" else name
+
+    d_oracle = max(abs(a - b) for a, b in zip(losses, oracle))
+    d_plain = max(abs(a - b) for a, b in zip(losses, base))
+    packing = max(abs(a - b) for a, b in zip(oracle, base))
+    w_oracle = share(lambda n: master[tied(n)])
+    w_plain = share(lambda n: params[tied(n)])
+    ok = (all(math.isfinite(x) for x in losses)
+          and d_oracle <= TRAIN_LOSS_ATOL and w_oracle <= 1.0
+          and d_plain <= packing + TRAIN_LOSS_ATOL and w_plain <= 1.0)
+    line = (f"losses " + " ".join(f"{x:.6f}" for x in losses)
+            + "; fp32-master oracle " + " ".join(f"{x:.6f}" for x in oracle)
+            + f" (max |Δ| {d_oracle:.3e} <= {TRAIN_LOSS_ATOL}, weights at "
+            f"{w_oracle:.3f} of their bound); plain bf16 step "
+            + " ".join(f"{x:.6f}" for x in base) + f" (max |Δ| "
+            f"{d_plain:.3e} <= the packing's {packing:.3e} + "
+            f"{TRAIN_LOSS_ATOL}, weights at {w_plain:.3f} of their bound)")
+    if not ok:
+        fail(f"{what}: {line}")
+    print(f"{what}, Adam lr {TRAIN_LR}: {PP_STEPS} captured steps, {line}; "
+          f"1 capture, 1 dispatch a step, flash launches a step {want}  ok")
+    del master, stages
+    torch.cuda.empty_cache()
+    return {"losses": losses, "oracle_losses": oracle, "plain_losses": base,
+            "max_loss_diff_oracle": d_oracle, "max_loss_diff_plain": d_plain,
+            "packing_loss_diff": packing, "weight_bound_share_oracle":
+            w_oracle, "weight_bound_share_plain": w_plain,
+            "launches_per_step": want}
+
+
+def mesh_lm_phase(models, cs, ck, config, card_line, counts,
+                  traced_total) -> dict:
+    """Phase 15 (see the module docstring). Ring attention runs here at
+    sp=1 only, against dense attention: a smoke check of the code on the
+    card, not of the ring (a ring of more than one member needs more than
+    one card)."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    par = port_parallel()
+    dist = mesh_world("15")
+    out = {}
+    try:
+        mesh = par.make_mesh(MESH_LM_AXES)
+        if mesh.device_mesh is None or mesh.device.type != "cuda":
+            fail(f"15: the mesh of one is not over the NCCL world: {mesh}")
+        cfg = bert_base(models)
+        moe = moe_config(models)
+        rng = np.random.RandomState(15)
+        tokens, labels = batch(rng, cfg, *TRAIN_TOKENS)
+        fallback0 = models.flash_fallback_count()
+        for c, opts in ((cfg, ("adam", "lamb")), (moe, ("adam", "lamb"))):
+            for opt in opts:
+                key = f"{'moe' if c.num_experts else 'dense'}_{opt}"
+                out[key] = mesh_lm_runs(models, cs, ck, c, opt, mesh,
+                                        tokens, labels, counts, traced_total)
+                torch.cuda.empty_cache()
+        for c in (cfg, moe):
+            key = f"{'moe' if c.num_experts else 'dense'}_adam"
+            plan = models.sharding_plan(c)
+
+            def state0(c=c, plan=plan):
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                p = plan.shard_tree(models.init_params(c, gen,
+                                                       device="cuda"), mesh)
+                return (p,) + models.init_opt_state(p)
+
+            out[key]["numbers"] = step_numbers(
+                f"15: {key} LM step on the mesh of one, tokens "
+                f"{TRAIN_TOKENS}", lambda c=c: models.make_train_step(
+                    c, mesh, lr=TRAIN_LR), state0, tokens, labels, config,
+                card_line)
+            torch.cuda.empty_cache()
+        pp_mesh = par.make_mesh(PP_AXES)
+        for n_micro in PP_MICRO:
+            key = f"pp1_micro{n_micro}"
+            out[key] = pp_runs(models, cs, ck, cfg, pp_mesh, n_micro,
+                               tokens, labels, counts, traced_total)
+            torch.cuda.empty_cache()
+
+            made = {}
+
+            def make_pp(n_micro=n_micro, made=made):
+                gen = torch.Generator(device="cuda").manual_seed(0)
+                made["pipe"] = models.make_pp_pipeline(
+                    cfg, models.init_params(cfg, gen, device="cuda"),
+                    pp_mesh, num_microbatches=n_micro,
+                    example_tokens=tokens)
+                return models.make_pp_train_step(made["pipe"], lr=TRAIN_LR)
+
+            def pp_state0(made=made):
+                packed = made["pipe"].packed_params.clone()
+                return packed, torch.zeros_like(packed), \
+                    torch.zeros_like(packed)
+
+            out[key]["numbers"] = step_numbers(
+                f"15: pp=1 LM step, {n_micro} micro-batches, tokens "
+                f"{TRAIN_TOKENS}", make_pp, pp_state0, tokens, labels,
+                config, card_line)
+            made.clear()
+            torch.cuda.empty_cache()
+        if models.flash_fallback_count() != fallback0:
+            fail("15: a flash fallback on the mesh or pp path")
+        # ring attention at sp=1: dense attention's numbers (smoke only)
+        from mxnet_tpu_torch.parallel.ring_attention import ring_attention
+        sp_mesh = par.make_mesh({"sp": 1})
+        B, S = TRAIN_TOKENS
+        q, k, v = attn_inputs(B * cfg.num_heads, S, cfg.head_dim,
+                              torch.bfloat16, 15)
+        q, k, v = (t.view(B, cfg.num_heads, S, cfg.head_dim)
+                   for t in (q, k, v))
+        got = ring_attention(q, k, v, "sp", mesh=sp_mesh).float()
+        s_ = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) \
+            / math.sqrt(cfg.head_dim)
+        want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s_, -1),
+                            v.float())
+        err = (got - want).abs().max().item()
+        atol, rtol = OUT_TOL[torch.bfloat16]
+        if not torch.allclose(got, want, atol=atol, rtol=rtol):
+            fail(f"15: ring attention at sp=1 against dense: max |Δ| "
+                 f"{err:.3e} (atol {atol}, rtol {rtol})")
+        print(f"15: ring attention at sp=1 (smoke only) against dense "
+              f"attention, bf16 ({B}, {cfg.num_heads}, {S}, "
+              f"{cfg.head_dim}): max |Δ| {err:.3e}  ok")
+        out["ring_sp1_max_abs_err"] = err
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["multi_gpu"] = "not run: one card"
+    print(f"15: the LM on the mesh of one took {out['phase_s']:.1f} s, peak "
+          f"memory {out['peak_gib']:.2f} GiB [{card_line}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5896,20 +6238,36 @@ def main() -> int:
     print(json.dumps({"mesh": {"card": card_line, **mesh}}, default=str))
     torch.cuda.empty_cache()
 
+    # -- 15. the LM on a mesh ---------------------------------------------------
+    mesh_lm_counts, mesh_lm_traced = {}, {}
+    mesh_lm = mesh_lm_phase(models, cs, ck, config, card_line,
+                            mesh_lm_counts, mesh_lm_traced)
+    if not all(mesh_lm_counts.get(k) for k in TRAIN_KERNELS):
+        fail(f"15: a flash kernel never launched on the mesh or pp path: "
+             f"{mesh_lm_counts}")
+    print(f"phase 15 launch counts of the mesh and pp runs: counted by the "
+          f"wrappers {mesh_lm_counts}; traced on the device in the replays "
+          f"{mesh_lm_traced}")
+    print(json.dumps({"mesh_lm": {"card": card_line, **mesh_lm}},
+                     default=str))
+    torch.cuda.empty_cache()
+
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
              "capture": capture_counts, "compiled_steps": steps_counts,
              "nd": nd_counts, "int8": int8_counts,
              "serving": serving_counts, "speculative": spec_counts,
-             "moe": moe_counts, "mesh": mesh_counts}
+             "moe": moe_counts, "mesh": mesh_counts,
+             "mesh_lm": mesh_lm_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were
     # checked (the captured runs of the train and capture phases)
     traced_paths = {"train": train_traced, "capture": capture_traced,
                     "compiled_steps": steps_traced, "nd": nd_traced,
-                    "moe": moe_traced, "mesh": mesh_traced}
+                    "moe": moe_traced, "mesh": mesh_traced,
+                    "mesh_lm": mesh_lm_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}

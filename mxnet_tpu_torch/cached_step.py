@@ -78,9 +78,15 @@ gathers the blocks before the forward and reduces the gradients to the
 blocks (``spmd.reduce_grad``). ``spmd.reshard_count`` counts the
 placements and stays flat after it. With ``MXNET_COMPILED_STEP=0`` the
 same body runs without a program. A ``tp`` axis above 1 reaches the model
-through ``sharding.constraint``. Under a mesh, bucketing with the
-parameters split, the MoE aux fold over a split batch (ROADMAP A6b-2) and
-``grad_req='add'`` raise. On a mesh of more than one rank no call takes
+through ``sharding.constraint``. The packed pipeline stage buffer
+(``pp_stages``) is placed over ``pp`` and expert weights over ``ep`` by
+``spmd.param_spec``'s name rules. The MoE aux losses recorded on a batch
+split over ``dp`` are folded as the whole batch's (the members' mean, its
+gradient summed over them). Bucketing's pad check runs the net on the
+whole batch with the split parameters gathered whole. A net's
+``compiled_grad_transform`` (``PipelineBlock``'s tied gradients) is
+applied to the whole gradients after the backward, each rank keeping its
+block. Under a mesh ``grad_req='add'`` raises. On a mesh of more than one rank no call takes
 the eager tape, which would update each rank's own values over the whole
 batch: a pending deferred initialization is finished by a forward that
 records nothing, and the first step then places the first rank's values.
@@ -241,8 +247,10 @@ class TrainStep:
         args = tuple(map(_tensor, args))
         if mesh is not None:
             self._place(mesh)
-            self._split_batch(mesh, args)
         pargs = self._maybe_pad(args)
+        if mesh is not None:
+            # the rows the step splits are the padded batch's
+            self._split_batch(mesh, pargs)
         if self._accum_steps > 1:
             loss = self._accum_step(pargs, batch_size)
         else:
@@ -308,6 +316,14 @@ class TrainStep:
                 loss = self._loss_fn(self._net, *args)
             heads = _fold_aux(auxes, _heads(loss))
         autograd.backward(heads)
+        hook = getattr(self._net, "compiled_grad_transform", None)
+        if hook is not None:
+            params = self._net.collect_params()
+            named = {n: p._data.grad for n, p in params.items()
+                     if p.grad_req != "null" and p._data.grad is not None}
+            for n, g in hook(dict(named)).items():
+                if named.get(n) is not g:
+                    params[n]._data.grad = g
         self._trainer.step(batch_size)
         return loss
 
@@ -322,10 +338,6 @@ class TrainStep:
         applied."""
         if not self._bucket or self.bucket_refused is not None:
             return args
-        if self._specs is not None and any(self._specs.values()):
-            raise NotImplementedError(
-                "bucket=True with parameters split over the mesh: the pad "
-                "check runs the net outside the step")
         policy = _serving.BucketPolicy()
         leaves = [a for a in args if isinstance(a, torch.Tensor)]
         if not policy.enabled or not leaves or \
@@ -357,7 +369,19 @@ class TrainStep:
         """The loss of the true and of the padded batch, recording off and
         in training mode, with every parameter (batch-norm running
         statistics too) restored after; None when they are bitwise equal,
-        else the reason to refuse."""
+        else the reason to refuse. On a mesh that splits parameters, every
+        rank runs both on the whole batch with the parameters gathered
+        whole, put back after."""
+        swapped = []
+        if self._specs:
+            from .parallel import spmd as _spmd
+
+            for p in self._net.collect_params().values():
+                spec = self._specs.get(id(p))
+                if spec and p._data is not None:
+                    swapped.append((p, p._data))
+                    p._data = _spmd.gather_full(p._data.detach(), spec,
+                                                self._mesh)
         held = [p._data for p in self._net.collect_params().values()
                 if p._data is not None]
         snap = [t.detach().clone() for t in held]
@@ -371,6 +395,8 @@ class TrainStep:
             with torch.no_grad():
                 for t, v in zip(held, snap):
                     t.copy_(v)
+            for p, d in swapped:
+                p._data = d
         if len(lt) != len(lp) or not all(
                 a.shape == b.shape and torch.equal(a, b)
                 for a, b in zip(lt, lp)):
@@ -537,6 +563,7 @@ class TrainStep:
         nd = dict(self._nd)
         mesh, specs = self._mesh, self._specs or {}
         axes, rows = self._batch_axes, self._rows
+        grad_hook = getattr(net, "compiled_grad_transform", None)
         if mesh is not None:
             from .parallel import collectives as _coll
             from .parallel import spmd as _spmd
@@ -574,9 +601,12 @@ class TrainStep:
                         with _moe.aux_scope() as auxes:
                             loss = loss_fn(call_net, *call_args)
                         if auxes and axes:
-                            raise NotImplementedError(
-                                "the MoE aux fold over a batch split on a "
-                                "mesh is ROADMAP A6b-2")
+                            # the aux of the whole batch: the mean of the
+                            # members' (over equal rows), through a sum
+                            # whose backward sums the cotangents
+                            auxes = [_coll.all_reduce_sum(
+                                sum(auxes[1:], auxes[0]), mesh, axes)
+                                * seed]
                         heads = _fold_aux(auxes, [_tensor(h) for h in
                                                   _heads(loss)])
                     grads = torch.autograd.grad(
@@ -599,6 +629,8 @@ class TrainStep:
                 grads = [_spmd.reduce_grad(_spmd.full_tensors(g),
                                            specs.get(id(p), ()), mesh, axes)
                          for g, p in zip(grads, trainable)]
+            if grad_hook is not None:
+                grads = self._apply_grad_transform(grad_hook, grads)
             if isinstance(loss, (list, tuple)):
                 loss = type(loss)(_tensor(h).detach() for h in loss)
             else:
@@ -606,6 +638,35 @@ class TrainStep:
             return loss, weights, grads
 
         return fb
+
+    def _apply_grad_transform(self, hook, grads):
+        """The net's ``compiled_grad_transform(named_grads) -> named_grads``
+        (``PipelineBlock`` summing its tied leaves' slices), applied after
+        the backward on both the step and the accumulation programs, to the
+        whole gradients: on a mesh they are gathered from the blocks, and
+        each rank keeps its block of the result (reference
+        ``cached_step.py:1213-1238``)."""
+        from .parallel import collectives as _coll
+        from .parallel import spmd as _spmd
+
+        mesh, specs = self._mesh, self._specs or {}
+        names = {id(p): n for n, p in self._net.collect_params().items()}
+        trainable = self._trainer._params
+        named = {names[id(p)]: (g if mesh is None else _spmd.gather_full(
+            g, specs.get(id(p), ()), mesh))
+            for p, g in zip(trainable, grads) if id(p) in names}
+        out = hook(dict(named))
+        new = []
+        for p, g in zip(trainable, grads):
+            n = names.get(id(p))
+            if n is None or out.get(n) is named[n]:
+                new.append(g)
+            elif mesh is None:
+                new.append(out[n])
+            else:
+                new.append(_coll.local_block(out[n], specs.get(id(p), ()),
+                                             mesh).contiguous())
+        return new
 
     # -- gradient accumulation (compile_step(accum_steps=N)) --------------
     def _accum_step(self, args, batch_size):

@@ -21,7 +21,15 @@ outputs by ``out_specs`` with all-gathers, so that every rank returns what
 :func:`gather_rows` and :func:`all_reduce_sum` are the differentiable
 forms the steps use: the rows of a batch gathered over its axes (backward:
 a reduce-scatter of the cotangent), and a sum whose backward is the same
-sum (batch-norm statistics).
+sum (batch-norm statistics). :func:`gather_dim`,
+:func:`gather_replicated`, :func:`copy_to` and :func:`reduce_from` are
+the forms of the language model's mesh step, ring attention and the
+pipeline: every rank there computes the same replicated loss and seeds
+its cotangent 1, so a sum whose output all members then use alike passes
+the cotangent back as it is (Megatron's ``g``), and a value all members
+hold alike but compute on differently sums its cotangent over them
+(Megatron's ``f``). :func:`ppermute` and :func:`ring_shift` are
+differentiable: the backward runs the inverse permutation.
 """
 from __future__ import annotations
 
@@ -34,7 +42,8 @@ from .mesh import Mesh, _AMBIENT, current_mesh
 __all__ = [
     "all_reduce", "all_gather", "reduce_scatter", "all_to_all", "ppermute",
     "ring_shift", "axis_index", "axis_size", "broadcast_from", "pmean",
-    "run_sharded", "shard_map", "gather_rows", "all_reduce_sum",
+    "run_sharded", "shard_map", "gather_rows", "gather_dim",
+    "gather_replicated", "copy_to", "reduce_from", "all_reduce_sum",
 ]
 
 
@@ -170,15 +179,38 @@ def all_to_all(x, axis_name: str, split_axis: int, concat_axis: int,
     return torch.cat(parts, dim=c)
 
 
+class _PPermute(torch.autograd.Function):
+    """``ppermute`` whose backward sends the cotangent back along the
+    inverse permutation (``lax.ppermute``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, axis_name, pairs, mesh):
+        ctx.axis_name, ctx.pairs, ctx.mesh = axis_name, pairs, mesh
+        return _ppermute(x, axis_name, pairs, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.pairs]
+        return (_ppermute(g.contiguous(), ctx.axis_name, inverse, ctx.mesh),
+                None, None, None)
+
+
 def ppermute(x, axis_name: str, perm, mesh: Optional[Mesh] = None):
     """``lax.ppermute``: member ``src`` sends its ``x`` to member ``dst``
     for every ``(src, dst)`` of ``perm``; a member no pair sends to gets
-    zeros."""
+    zeros. Differentiable: the backward sends the cotangent along the
+    inverse pairs."""
     mesh = _mesh(mesh)
+    pairs = tuple((int(s), int(d)) for s, d in perm)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PPermute.apply(x, axis_name, pairs, mesh)
+    return _ppermute(x, axis_name, pairs, mesh)
+
+
+def _ppermute(x, axis_name: str, pairs, mesh: Mesh):
     g = mesh.group(axis_name)
     me = mesh.coordinate(axis_name)
     out = torch.zeros_like(x)
-    pairs = [(int(s), int(d)) for s, d in perm]
     if g is None:
         for s, d in pairs:
             if s == me and d == me:
@@ -311,21 +343,29 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs,
 # ---------------------------------------------------------------------------
 # differentiable forms (the steps' batch gather and statistics)
 # ---------------------------------------------------------------------------
-class _GatherRows(torch.autograd.Function):
+def _live(mesh: Mesh, axes) -> tuple:
+    return tuple(a for a in _as_axes(axes) if mesh.shape.get(a, 1) > 1)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` whose backward sums the cotangent over the
+    members and keeps this rank's block (a reduce-scatter): for a value
+    each member then computes on differently."""
+
     @staticmethod
-    def forward(ctx, x, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
         out = x
         for a in reversed(axes):
-            out = _gather_one(out, mesh, a, 0)
+            out = _gather_one(out, mesh, a, dim)
         return out
 
     @staticmethod
     def backward(ctx, g):
         out = g.contiguous()
         for a in ctx.axes:
-            out = _scatter_one(out, ctx.mesh, a, 0)
-        return out, None, None
+            out = _scatter_one(out, ctx.mesh, a, ctx.dim)
+        return out, None, None, None
 
 
 def gather_rows(x, mesh: Mesh, axes: Sequence[str]):
@@ -333,10 +373,98 @@ def gather_rows(x, mesh: Mesh, axes: Sequence[str]):
     axis slowest), differentiably: the backward sums the cotangent over
     the members and keeps this rank's rows (a reduce-scatter). Axes of
     size 1 are elided."""
-    axes = tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+    return gather_dim(x, mesh, axes, 0)
+
+
+def gather_dim(x, mesh: Mesh, axes, dim: int):
+    """The blocks of every member of ``axes`` concatenated along ``dim``
+    (the first axis slowest), differentiably, with :func:`gather_rows`'
+    backward. Axes of size 1 are elided."""
+    axes = _live(mesh, axes)
     if not axes or not isinstance(x, torch.Tensor):
         return x
-    return _GatherRows.apply(x, mesh, axes)
+    return _Gather.apply(x, mesh, axes, dim % x.dim())
+
+
+class _GatherSlice(torch.autograd.Function):
+    """All-gather along ``dim`` whose backward keeps this rank's block of
+    the cotangent: for a value every member then computes on alike (a
+    replicated loss)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        out = x
+        for a in reversed(axes):
+            out = _gather_one(out, mesh, a, dim)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g
+        for a in ctx.axes:
+            n = ctx.mesh.shape[a]
+            out = out.chunk(n, dim=ctx.dim)[ctx.mesh.coordinate(a)]
+        return out.contiguous(), None, None, None
+
+
+def gather_replicated(x, mesh: Mesh, axes, dim: int):
+    """:func:`gather_dim` for a value that every member then uses alike:
+    the backward keeps this rank's block of the (equal) cotangents
+    instead of summing them. Axes of size 1 are elided."""
+    axes = _live(mesh, axes)
+    if not axes or not isinstance(x, torch.Tensor):
+        return x
+    return _GatherSlice.apply(x, mesh, axes, dim % x.dim())
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, all-reduce (sum) backward: a value the members
+    hold alike, which each then computes on differently (Megatron's
+    ``f``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.axes, mesh=ctx.mesh), None, None
+
+
+def copy_to(x, mesh: Mesh, axes):
+    """``x`` itself, whose gradient is summed over the members of ``axes``
+    in the backward. Axes of size 1 are elided."""
+    axes = _live(mesh, axes)
+    if not axes or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyTo.apply(x, mesh, axes)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """All-reduce (sum) forward, identity backward: partial values summed
+    into one that every member then uses alike (Megatron's ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x, axes, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def reduce_from(x, mesh: Mesh, axes):
+    """The sum of ``x`` over the members of ``axes``, for a value every
+    member then uses alike: the backward hands each member the cotangent
+    as it is. Axes of size 1 are elided."""
+    axes = _live(mesh, axes)
+    if not axes:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReduceFrom.apply(x, mesh, axes)
+    return all_reduce(x, axes, mesh=mesh)
 
 
 class _AllReduceSum(torch.autograd.Function):

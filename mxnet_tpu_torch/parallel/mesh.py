@@ -13,8 +13,9 @@ neighbouring ranks are the ones NVLink joins best):
 - ``dp``   data parallel (gradient all-reduce; the KVStore axis)
 - ``fsdp`` fully-sharded data parallel (parameter and optimizer state)
 - ``tp``   tensor parallel within layers
-- ``sp``, ``ep``, ``pp``: sequence, expert and pipeline parallel; their
-  placements come with ROADMAP A6b-2 and A6b-3.
+- ``sp``   sequence parallel (ring attention, ``parallel.ring_attention``)
+- ``ep``   expert parallel (the experts of ``parallel.moe``)
+- ``pp``   pipeline parallel (``parallel.pipeline``)
 
 A mesh whose axes are all 1 needs no world: it is the one device of
 ``devices[0]`` (``cuda`` when None), as before. A world that is

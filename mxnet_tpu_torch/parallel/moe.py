@@ -1,18 +1,25 @@
 """Mixture-of-experts FFN with top-k gating and capacity.
 
-Counterpart of ``mxnet_tpu/parallel/moe.py`` on one device: top-k gating
-with capacity and the dense dispatch/combine einsums (static shapes, no
-data-dependent sizes, so a step that runs them stays capturable as one
-CUDA graph; a gather/scatter dispatch is speed work for later), the
-load-balance aux-loss scope that the compiled train step folds into the
-loss, and ``MoEBlock``, the Gluon block. Tokens over an expert's capacity
-are dropped: their combine weights are zero.
+Counterpart of ``mxnet_tpu/parallel/moe.py``: top-k gating with capacity
+and the dense dispatch/combine einsums (static shapes, no data-dependent
+sizes, so a step that runs them stays capturable as one CUDA graph; a
+gather/scatter dispatch is speed work for later), the load-balance
+aux-loss scope that the compiled train step folds into the loss, and
+``MoEBlock``, the Gluon block. Tokens over an expert's capacity are
+dropped: their combine weights are zero.
 
-The reference annotates the expert-dim intermediates with
-``sharding.constraint(P('ep', 'dp'))`` so that expert weights sharded over
-an ``ep`` mesh axis turn the dispatch einsums into all-to-alls. On one
-device those annotations are no-ops and are left out; placing the experts
-over ``ep`` is ROADMAP A6b.
+Expert parallelism over ``ep``: the reference annotates the expert-dim
+intermediates with ``sharding.constraint(P('ep', 'dp'))`` and lets XLA
+partition the einsums. The port places the expert weights ``P('ep')`` on
+dim 0 (``spmd.param_spec``'s name rule, and ``P('ep', None, 'tp')`` /
+``P('ep', 'tp', None)`` in the language model's plan). The language
+model's mesh step runs each rank's own experts on every token of its rows
+and sums the combine over ``ep`` (:func:`moe_layer` with ``mesh``); the
+compiled Gluon step (``cached_step.TrainStep``) gathers the expert blocks
+whole before the forward and keeps its block of their gradients. The
+batch is not split over ``ep`` in either (the reference's data axes are
+``dp`` and ``fsdp``), so the dispatch is the single-device one bit for
+bit.
 """
 from __future__ import annotations
 
@@ -129,21 +136,44 @@ def _gelu(x):
 
 def moe_layer(x, gate_w, w_in, w_out, *, k: int = 2,
               capacity_factor: float = 1.25, capacity: Optional[int] = None,
-              activation: Callable = _gelu
+              activation: Callable = _gelu, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dense-dispatch MoE FFN.
 
     x: [G, S, M]; gate_w: [M, E]; w_in: [E, M, H]; w_out: [E, H, M].
-    Returns (output [G, S, M], aux_loss)."""
+    Returns (output [G, S, M], aux_loss).
+
+    On ``mesh`` with an ``ep`` or ``tp`` axis above 1, ``x`` and
+    ``gate_w`` are alike on every member of those axes, and ``w_in`` /
+    ``w_out`` are this rank's blocks ``[E / ep, M, H / tp]`` /
+    ``[E / ep, H / tp, M]`` (``P('ep', None, 'tp')`` and ``P('ep', 'tp',
+    None)``). Every member routes all E experts, with the same dispatch
+    bit for bit, runs its own experts on its hidden block, and the
+    combine is summed over ``ep`` and ``tp``: the batch is not split over
+    ``ep``, so no token moves and no all-to-all is needed."""
     E = gate_w.shape[-1]
     dispatch, combine, aux = top_k_gating(
         x, gate_w, num_experts=E, k=k, capacity_factor=capacity_factor,
         capacity=capacity)
+    axes = () if mesh is None else tuple(
+        a for a in ("ep", "tp") if int(mesh.shape.get(a, 1)) > 1)
+    if axes:
+        from . import collectives as _coll
+
+        n_local = w_in.shape[0]
+        e0 = (mesh.coordinate("ep") if "ep" in axes else 0) * n_local
+        dispatch = dispatch[:, :, e0:e0 + n_local]
+        # x and the combine weights feed every member's own experts: their
+        # gradients are summed over the members
+        combine = _coll.copy_to(combine, mesh, axes)[:, :, e0:e0 + n_local]
+        x = _coll.copy_to(x, mesh, axes)
     # [G,S,E,C] x [G,S,M] -> expert inputs [E, G, C, M]
     expert_in = torch.einsum("gsec,gsm->egcm", dispatch, x)
     h = activation(torch.einsum("egcm,emh->egch", expert_in, w_in))
     expert_out = torch.einsum("egch,ehm->egcm", h, w_out)
     out = torch.einsum("gsec,egcm->gsm", combine, expert_out)
+    if axes:
+        out = _coll.reduce_from(out, mesh, axes)
     return out, aux
 
 

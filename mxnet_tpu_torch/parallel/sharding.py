@@ -157,7 +157,15 @@ class ShardingPlan:
         return _legalize(self.default, shape, mesh)
 
     def shard(self, name: str, arr: torch.Tensor, mesh) -> torch.Tensor:
-        """This rank's block of ``arr`` under the plan's spec for it."""
+        """This rank's block of ``arr`` under the plan's spec for it; a
+        block this rank already holds on ``mesh`` (placed by an earlier
+        call) as it is, as the reference's placement of an array already
+        placed so is a no-op."""
+        from .spmd import mesh_key
+
+        placed = getattr(arr, "_spmd_placement", None)
+        if placed is not None and placed[0] == mesh_key(mesh):
+            return arr
         return shard_array(arr, mesh,
                            self.spec_for(name, tuple(arr.shape), mesh))
 
@@ -209,7 +217,7 @@ def fsdp_plan(axis: str = "fsdp", min_size: int = 1024) -> ShardingPlan:
 def expert_parallel_plan(axis: str = "ep") -> ShardingPlan:
     """Expert weights (``[E, ...]`` leaves under an ``expert.`` prefix)
     shard dim 0 over ``axis``; everything else replicates (reference
-    :181-192). The step that places them over ``ep`` is ROADMAP A6b-2."""
+    :181-192)."""
     return ShardingPlan([
         (r"(^|\.)expert\..*", PartitionSpec(axis)),
         (r".*", PartitionSpec()),
@@ -235,8 +243,15 @@ def shard_array(arr: torch.Tensor, mesh, spec) -> torch.Tensor:
     """This rank's block of the global ``arr`` under ``spec`` legalized on
     ``mesh``, on the mesh's device (reference :213-214 places the global
     array)."""
+    from .spmd import mesh_key
+
     lspec = _legalize(spec, tuple(arr.shape), mesh)
-    return _coll.local_block(arr.to(mesh.device), lspec, mesh).contiguous()
+    out = _coll.local_block(arr.to(mesh.device), lspec, mesh).contiguous()
+    if out is arr:
+        out = arr.view_as(arr)
+    # the block records its placement (what ``spmd.ensure_placed`` reads)
+    out._spmd_placement = (mesh_key(mesh), tuple(lspec))
+    return out
 
 
 def _ambient_mesh():

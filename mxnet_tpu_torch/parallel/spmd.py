@@ -41,12 +41,16 @@ quarantine list there (:199-232); that waits for the port's
 ``sentinel.py`` (ROADMAP A7). :func:`put_batch` takes the global batch,
 as the reference's tests pass it; the multi-controller form, where each
 process reads only its shard (the DataLoader's ``num_shards``), waits for
-the DataLoader (A9). The ``pp`` and ``ep`` name rules of
-:func:`param_spec` come with A6b-2 and A6b-3.
+the DataLoader (A9). :func:`param_spec` places the packed pipeline
+stage buffer over ``pp`` and expert weights over ``ep`` by name; the
+batch splits over ``dp`` only, so the ``pp``, ``ep`` and ``fsdp`` members
+of one ``dp`` row compute on the same rows and the gradients of their
+blocks are slices of the whole (:func:`reduce_grad`).
 """
 from __future__ import annotations
 
 import math
+import re
 import threading
 import warnings
 from contextlib import contextmanager
@@ -78,6 +82,8 @@ PIPE_AXIS = "pp"
 EXPERT_AXIS = "ep"
 
 _MESH_STORES = ("tpu", "nccl")
+_PIPE_PACKED_RE = re.compile(r"(^|\.)pp_stages$")
+_EXPERT_RE = re.compile(r"(^|\.)expert\.")
 
 _lock = threading.Lock()
 _RESHARD = _telemetry.counter(
@@ -209,10 +215,22 @@ def batch_sharding(mesh) -> NamedSharding:
 def param_spec(shape: Tuple[int, ...], mesh, min_size: Optional[int] = None,
                name: Optional[str] = None) -> PartitionSpec:
     """The placement of one parameter or optimizer-state leaf (reference
-    :317-370): the largest dim the ``fsdp`` axis divides evenly. Leaves
-    under ``min_size`` elements (``MXNET_FSDP_MIN_SIZE``) stay replicated;
-    a large leaf no dim of which divides the axis replicates loudly
-    (counted and warned once per shape by the ``_legalize`` path)."""
+    :317-370). The name rules come first (``name`` is the structural
+    parameter name where the caller knows it): the packed pipeline stage
+    buffer ``pp_stages`` takes ``P('pp', None)`` when its leading dim is
+    the ``pp`` axis's size, and ``expert.*`` leaves take ``P('ep')`` on
+    dim 0 when ``ep`` divides the expert count. Otherwise the ``fsdp``
+    rule: the largest dim the ``fsdp`` axis divides evenly. Leaves under
+    ``min_size`` elements (``MXNET_FSDP_MIN_SIZE``) stay replicated; a
+    large leaf no dim of which divides the axis replicates loudly (counted
+    and warned once per shape by the ``_legalize`` path)."""
+    if name and shape:
+        n_pp = int(mesh.shape.get(PIPE_AXIS, 1))
+        if n_pp > 1 and _PIPE_PACKED_RE.search(name) and shape[0] == n_pp:
+            return PartitionSpec(PIPE_AXIS, *([None] * (len(shape) - 1)))
+        n_ep = int(mesh.shape.get(EXPERT_AXIS, 1))
+        if n_ep > 1 and _EXPERT_RE.search(name) and shape[0] % n_ep == 0:
+            return PartitionSpec(EXPERT_AXIS, *([None] * (len(shape) - 1)))
     if min_size is None:
         min_size = int(_config.get("MXNET_FSDP_MIN_SIZE"))
     n = int(mesh.shape.get(MODEL_AXIS, 1))

@@ -509,14 +509,18 @@ def test_moe_captured_step_equals_eager_body_bitwise(monkeypatch):
 
 
 def test_moe_with_ring_attention_or_mesh_still_refuses():
+    # ring attention and meshes are ported (tests/test_torch_lm_mesh.py):
+    # without an 'sp' axis the ring flag leaves the MoE forward as it is,
+    # bit for bit, and something other than a mesh still refuses
     _jcfg, tcfg = _cfgs()
     p = tm.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     toks, _labels = _batch((1, 8))
-    with pytest.raises(NotImplementedError, match="ring_attention"):
-        tm.forward(p, toks, dataclasses.replace(tcfg,
-                                                use_ring_attention=True),
-                   device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    ring = tm.forward(p, toks, dataclasses.replace(tcfg,
+                                                   use_ring_attention=True),
+                      device="cpu")
+    dense = tm.forward(p, toks, tcfg, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(ring, dense))
+    with pytest.raises(TypeError, match="mesh"):
         tm.make_train_step(tcfg, mesh=object(), device="cpu")
 
 

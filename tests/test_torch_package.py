@@ -369,9 +369,11 @@ def test_spec_and_moe_entry_points_raise_without_cuda(no_cuda):
         models.forward(p, toks, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         models.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="ring_attention"):
-        models.forward(p, toks, dataclasses.replace(
-            cfg, use_ring_attention=True), device="cpu")
+    ring = dataclasses.replace(cfg, use_ring_attention=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.forward(p, toks, ring)
+    logits, _aux = models.forward(p, toks, ring, device="cpu")
+    assert logits.shape == (1, 4, 64)
 
 
 def test_gluon_entry_points_raise_without_cuda(no_cuda):

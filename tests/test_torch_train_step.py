@@ -16,6 +16,8 @@ import gc
 import time
 import weakref
 
+from types import SimpleNamespace
+
 import numpy as onp
 import pytest
 import torch
@@ -230,14 +232,19 @@ def test_train_step_refuses(case):
         with pytest.raises(ValueError, match="grad_accum"):
             step(p, m, v, toks, labels, 1)
     elif case == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # a mesh runs (tests/test_torch_lm_mesh.py); something else raises
+        with pytest.raises(TypeError, match="mesh"):
             tm.make_train_step(tcfg, mesh=object(), device="cpu")
     elif case == "moe":
-        # mixture-of-experts layers are ported (tests/test_torch_moe.py);
-        # with ring attention the step still refuses
-        with pytest.raises(NotImplementedError, match="ring_attention"):
-            tm.make_train_step(dataclasses.replace(
-                tcfg, num_experts=4, use_ring_attention=True), device="cpu")
+        # mixture-of-experts layers with ring attention build; experts the
+        # 'ep' axis does not split refuse
+        cfg = dataclasses.replace(tcfg, num_experts=4,
+                                  use_ring_attention=True)
+        tm.make_train_step(cfg, device="cpu")
+        mesh = SimpleNamespace(shape={"ep": 3}, device=torch.device("cpu"),
+                               coordinate=lambda axis: 0)
+        with pytest.raises(ValueError, match="num_experts=4"):
+            tm.make_train_step(cfg, mesh=mesh)
     else:
         with pytest.raises(ValueError, match="optimizer"):
             tm.make_train_step(tcfg, optimizer="sgd", device="cpu")

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Phases 11 (serving), 12 (speculative decoding), 13 (the
-mixture-of-experts LM) and 14 (the mesh of one) of ``chip_smoke.py``
-alone, on one card: a quicker look at those paths than the whole script.
+mixture-of-experts LM), 14 (the mesh of one) and 15 (the LM on a mesh) of
+``chip_smoke.py`` alone, on one card: a quicker look at those paths than
+the whole script.
 
-    python3 tools/torch_chip_smoke_phases.py [11] [12] [13] [14]
+    python3 tools/torch_chip_smoke_phases.py [11] [12] [13] [14] [15]
 
-With no argument it runs 12, 13 and 14. It builds the port's kernels first
-(phase 1 of the script: phase 13 runs the flash-attention kernels, phase
-14 the conv + batch-norm and epilogue kernels) and exits with the
-script's failure code at the first failed gate.
+A phase may be named more than once (``12 12 12`` runs phase 12 three
+times in one process). With no argument it runs 12, 13, 14 and 15. It
+builds the port's kernels first (phase 1 of the script: phases 13 and 15
+run the flash-attention kernels, phase 14 the conv + batch-norm and
+epilogue kernels) and exits with the script's failure code at the first
+failed gate.
 """
 import json
 import os
@@ -59,6 +62,12 @@ def main(which) -> int:
                                counts, traced)
             print(f"phase 14 launch counts of the kvstore and planned runs "
                   f"{counts}, traced in the replays {traced}")
+        elif phase == "15":
+            counts, traced = {}, {}
+            out = c.mesh_lm_phase(models, cs, ck, config, card_line, counts,
+                                  traced)
+            print(f"phase 15 launch counts of the mesh and pp runs {counts}, "
+                  f"traced in the replays {traced}")
         else:
             print(f"torch_chip_smoke_phases: no phase {phase}",
                   file=sys.stderr)
@@ -72,4 +81,4 @@ def main(which) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["12", "13", "14"]))
+    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15"]))
