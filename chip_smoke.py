@@ -298,6 +298,41 @@ Phases, in order; any failure exits non-zero before the result line:
    eager and captured wall, device busy, host ms, idle share and peak
    memory. The path's launches are those of the mesh and pp runs. A JSON
    line holds phase 15's numbers.
+16. The runtime around the step (``engine``, ``metric``, ``profiler``,
+   ``sentinel``, ``parallel.elastic``) on the ResNet-50 v1 bf16 step at
+   batch RESNET_BATCH through ``Trainer.compile_step`` on the conv + BN
+   route (B4 at the 36 1x1 sites, B8 at the 16 3x3 sites), weights from
+   seed 0, batches from numpy seeds, captured before the loops. (a)
+   RUNTIME_STEPS steps of a
+   synchronous loop (a blocking copy of each batch, host metric reads
+   under ``MXNET_METRIC_DEVICE=0``) against the same steps pipelined
+   (``engine.prefetch(depth=RUNTIME_DEPTH)`` of pinned batches, ``Loss``
+   and ``Accuracy`` accumulated on the device and read once), each under
+   ``profiler.StepTimeline``: final parameters and momenta bitwise equal,
+   accuracy equal, losses within RUNTIME_LOSS_RTOL, the steady
+   dispatch-ahead depth >= RUNTIME_DEPTH, no blocking host read or
+   synchronization in a pipelined step (the port's counters), and a traced
+   replay running 36 B4 and 16 B8; printed: each loop's
+   ``device_idle_gap_us``, wall and the speedup. (b) ``Sentinel(every=
+   SENTINEL_EVERY)`` over SENTINEL_STEPS steps: each in-program digest
+   bitwise ``sentinel.tree_digest`` of the same state recomputed after
+   ``engine.waitall()``, its parameter sum and gradient norm within
+   SENTINEL_RTOL of host recomputes, the parameters after the run bitwise
+   those of the same steps without a sentinel, no capture after the
+   first call, one dispatch and no blocking synchronization a step;
+   printed: the overhead of ``every=20`` against off over
+   SENTINEL_OVERHEAD_STEPS steps, the plain and the digest form's memory
+   pools and the fold's peak memory. (c) ``tools/torch_elastic_drill.py``'s
+   three children, each a fresh ``python3`` on the card: uninterrupted,
+   preempted by a real SIGTERM at step 7 (``run_elastic(preemption=
+   True)``, async checkpoints every 4 steps, the drain force-saving the
+   last completed step), restarted: 0 steps replayed, the restored hash
+   the saved one, the final state bitwise the uninterrupted child's, no
+   temp file left, B4 and B8 launched in every child, ``telemetry.merge``
+   of the three shards holding ``elastic.recovery_s`` and
+   ``preemption.drain_s``; printed: the recovery wall, restore and drain
+   ms and the captures on restart. The path's launches are those of (a)
+   and (b), name ``runtime``. A JSON line holds phase 16's numbers.
 10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
@@ -453,10 +488,19 @@ PROFILE_FORWARDS = 5
 PROFILE_STEPS = 3
 # a profiler trace can miss the first kernels of a graph replay that starts
 # as soon as the trace does (the LM train step's flash-forward launches),
-# and misses none after a 50 ms wait inside the trace before the replay:
-# tools/torch_trace_settle.py counts both (PERF.md). traced_launches
-# waits so long
-TRACE_SETTLE_S = 0.05
+# and missed none after a 50 ms wait inside the trace before the replay
+# (tools/torch_trace_settle.py counts both; PERF.md). Late in a whole run
+# a trace lost the records of the first ~51 ms after its start (every
+# replay of one MoE graph short by its first 118 kernels, marker
+# included), and none with a 200 ms wait in 220 traces (PERF.md §6);
+# a later whole run lost one record with 200 ms. The records lost were
+# always a trace's first ones, so each trace runs a prefix of
+# TRACE_PREFIX short marker kernels and one of about 10 ms, all run to
+# their end, before fn: the first records a trace loses are the prefix's,
+# and their count (the prefix's records missing) is reported.
+TRACE_SETTLE_S = 0.2
+TRACE_PREFIX = 1024
+TRACE_PREFIX_SPIN = 1 << 24  # cycles of the prefix's last marker
 # -- the ResNet path --
 # (M, K, N) cases of the epilogue kernels vs their plain versions: M ragged
 # (not a multiple of either m-tile, 128 rows for bf16 and 64 for fp32)
@@ -1260,6 +1304,27 @@ TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 _PROFILER_WARM = []
 # traced_launches' traces in this process (printed with the kernels line)
 TRACES = [0]
+# the prefix records each trace lost (traced_launches)
+TRACE_LOSS = {"short": 0, "most": 0}
+
+
+def trace_prefix() -> None:
+    """TRACE_PREFIX short kernels of their own name (``spin_kernel``), one
+    long one, run to their end."""
+    for _ in range(TRACE_PREFIX):
+        torch.cuda._sleep(1)
+    torch.cuda._sleep(TRACE_PREFIX_SPIN)
+    torch.cuda.synchronize()
+
+
+def note_prefix_loss(prof) -> None:
+    seen = sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "spin_kernel" in e.name)
+    lost = TRACE_PREFIX + 1 - seen
+    if lost:
+        TRACE_LOSS["short"] += 1
+        TRACE_LOSS["most"] = max(TRACE_LOSS["most"], lost)
 
 
 def traced_launches(ck, fn, trace=True, total=None):
@@ -1280,17 +1345,16 @@ def traced_launches(ck, fn, trace=True, total=None):
     if not trace:
         out, traced = fn(), None
     else:
-        marker = torch.ones(1, device="cuda")
         torch.cuda.synchronize()
         with trace_(activities=[ProfilerActivity.CUDA]) as prof:
             time.sleep(TRACE_SETTLE_S)
-            # a marker kernel run to its end inside the trace before fn:
-            # with the settle alone, two traces of the MoE step each lost
-            # one flash-forward record (PERF.md §6)
-            marker.add_(1)
-            torch.cuda.synchronize()
+            # marker kernels run to their end inside the trace before fn:
+            # with the settle alone, traces of the MoE step lost their
+            # first records (PERF.md §6)
+            trace_prefix()
             out = fn()
             torch.cuda.synchronize()
+        note_prefix_loss(prof)
         TRACES[0] += 1
         traced = {}
         for evt in prof.events():
@@ -6037,6 +6101,444 @@ def mesh_lm_phase(models, cs, ck, config, card_line, counts,
     return out
 
 
+# -- 16. the runtime around the step ------------------------------------------
+RUNTIME_STEPS = 30         # steps of each loop of 16a
+RUNTIME_DEPTH = 2          # engine.prefetch depth
+RUNTIME_BATCHES = 4        # distinct numpy batches, cycled
+RUNTIME_LOSS_RTOL = 1e-6   # loss metric, device against host accumulation
+SENTINEL_EVERY, SENTINEL_STEPS = 4, 12
+SENTINEL_RTOL = 1e-5       # parameter sum and gradient norm against the host
+SENTINEL_OVERHEAD_EVERY, SENTINEL_OVERHEAD_STEPS = 20, 60
+DRILL = {"steps": 12, "save_every": 4, "kill_at": 7}
+
+
+def port_runtime():
+    """(engine, metric, profiler, sentinel) of the port beside this file."""
+    from mxnet_tpu_torch import engine, metric, profiler, sentinel
+    return engine, metric, profiler, sentinel
+
+
+def runtime_batches(n, classes=1000, device="cuda"):
+    """n (x, y) host batches of RESNET_BATCH images from numpy seeds 100 +
+    i: x bf16 NHWC and y fp32 labels, pinned where the card is used."""
+    out = []
+    for i in range(n):
+        rng = np.random.RandomState(100 + i)
+        x = torch.from_numpy(rng.randn(RESNET_BATCH, RESNET_IMAGE,
+                                       RESNET_IMAGE, 3).astype(np.float32))
+        y = torch.from_numpy(rng.randint(0, classes, RESNET_BATCH)
+                             .astype(np.float32))
+        x = x.to(torch.bfloat16)
+        if device == "cuda":
+            x, y = x.pin_memory(), y.pin_memory()
+        out.append((x, y))
+    return out
+
+
+def runtime_loss_fn(mx):
+    """The step's loss: the fp32 per-sample cross entropy, and as a second
+    head each sample's predicted class (fp32, exact) plus a zero times the
+    logits' sum, so that its gradient adds exact zeros: the step returns
+    the predictions beside the loss for ``Accuracy``."""
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_fn(net, x, y):
+        logits = net(x)
+        pred = logits.argmax(-1).float() + 0.0 * logits.float().sum(-1)
+        return ce(logits, y).float(), pred
+    return loss_fn
+
+
+def state_of(trainer, net):
+    """Clones of every parameter (running statistics included) and
+    momentum, in order."""
+    tree = trainer.state_tree(net)
+    return [t.detach().clone() for t in tree["params"].values()] + \
+        [s.detach().clone() for s in tree["opt"].values()]
+
+
+def reset_state(trainer, net, init):
+    """Parameters back to ``init`` and momenta to 0, in place."""
+    tree = trainer.state_tree(net)
+    with torch.no_grad():
+        for k, t in tree["params"].items():
+            t.copy_(init[k])
+        for s in tree["opt"].values():
+            s.zero_()
+
+
+def counters(mx, engine, metric):
+    """The blocking host reads and synchronizations the port counts."""
+    from mxnet_tpu_torch.ndarray import ndarray as ndmod
+    return {"metric.host_sync": metric.host_sync_count(),
+            "engine.host_sync": engine.sync_count(),
+            "ndarray.host_sync": ndmod.host_sync_count()}
+
+
+def delta(a, b):
+    return {k: b[k] - a[k] for k in a}
+
+
+def sync_loop(mx, rt, step, batches, device="cuda"):
+    """16a's synchronous loop: each batch copied from pageable memory
+    (blocking), the step dispatched, the metrics read on the host."""
+    engine, metric, profiler, _s = rt
+    os.environ["MXNET_METRIC_DEVICE"] = "0"
+    loss_m, acc_m = metric.Loss(), metric.Accuracy()
+    tl = profiler.StepTimeline("sync")
+    pageable = [(x.clone(), y.clone()) for x, y in batches]
+    engine.waitall()
+    c0 = counters(mx, engine, metric)
+    t0 = time.perf_counter()
+    for i in range(RUNTIME_STEPS):
+        hx, hy = pageable[i % len(pageable)]
+        with tl.phase("h2d"):
+            x, y = hx.to(device), hy.to(device)
+        with tl.phase("dispatch"):
+            loss, pred = step(x, y)
+        with tl.phase("read"):
+            loss_m.update(None, loss)
+            acc_m.update([y], [pred])
+        tl.step()
+    engine.waitall()
+    wall = time.perf_counter() - t0
+    os.environ["MXNET_METRIC_DEVICE"] = "1"
+    return {"wall_s": wall, "timeline": tl.summary(),
+            "syncs": delta(c0, counters(mx, engine, metric)),
+            "loss": loss_m.get()[1], "accuracy": acc_m.get()[1]}
+
+
+def pipelined_loop(mx, rt, step, batches, device="cuda"):
+    """16a's pipelined loop: ``engine.prefetch`` of the pinned batches,
+    the metrics accumulated on the device and read once at ``.get()``.
+    Returns its numbers and the port's counters over the steps alone."""
+    engine, metric, profiler, _s = rt
+    loss_m, acc_m = metric.Loss(), metric.Accuracy()
+    tl = profiler.StepTimeline("pipelined")
+    engine.waitall()
+    source = (batches[i % len(batches)] for i in range(RUNTIME_STEPS))
+    c0 = counters(mx, engine, metric)
+    t0 = time.perf_counter()
+    pf = engine.prefetch(source, depth=RUNTIME_DEPTH, device=device)
+    it = iter(pf)
+    for _ in range(RUNTIME_STEPS):
+        with tl.phase("h2d"):
+            x, y = next(it)
+        with tl.phase("dispatch"):
+            loss, pred = step(x, y)
+        with tl.phase("read"):
+            loss_m.update(None, loss)
+            acc_m.update([y], [pred])
+        tl.step()
+    steps_syncs = delta(c0, counters(mx, engine, metric))
+    pending = loss_m._dev_pending
+    out = {"loss": loss_m.get()[1], "accuracy": acc_m.get()[1]}
+    engine.waitall()
+    wall = time.perf_counter() - t0
+    return {"wall_s": wall, "timeline": tl.summary(), "syncs": steps_syncs,
+            "pending_before_get": pending, "prefetch": pf.stats(), **out}
+
+
+def pipeline_phase(mx, rt, ck, net, trainer, step, card_line, counts,
+                   traced_total, device="cuda") -> dict:
+    """16a (see the module docstring)."""
+    engine = rt[0]
+    batches = runtime_batches(RUNTIME_BATCHES, device=device)
+    init = {k: p.data().detach().clone()
+            for k, p in net.collect_params().items()}
+    c0 = ck.launch_counts()
+    # the capture before either loop, so that both run replays only
+    step(*(t.to(device) for t in batches[0]))
+    reset_state(trainer, net, init)
+    sync = sync_loop(mx, rt, step, batches, device)
+    final_sync = state_of(trainer, net)
+    reset_state(trainer, net, init)
+    pipe = pipelined_loop(mx, rt, step, batches, device)
+    final_pipe = state_of(trainer, net)
+    c1 = ck.launch_counts()
+    for k in c1:
+        if c1[k] != c0[k]:
+            counts[k] = counts.get(k, 0) + c1[k] - c0[k]
+    diff = [i for i, (a, b) in enumerate(zip(final_sync, final_pipe))
+            if not torch.equal(a, b)]
+    if diff:
+        fail(f"16a: {len(diff)} parameter / momentum tensors differ between "
+             f"the synchronous and the pipelined loop (first {diff[0]})")
+    if pipe["accuracy"] != sync["accuracy"]:
+        fail(f"16a: accuracy {pipe['accuracy']} pipelined, "
+             f"{sync['accuracy']} synchronous")
+    lrel = abs(pipe["loss"] - sync["loss"]) / abs(sync["loss"])
+    if not lrel <= RUNTIME_LOSS_RTOL:
+        fail(f"16a: loss metric {pipe['loss']} pipelined, {sync['loss']} "
+             f"synchronous: relative {lrel} > {RUNTIME_LOSS_RTOL}")
+    if pipe["prefetch"]["steady_ahead"] < RUNTIME_DEPTH:
+        fail(f"16a: steady dispatch-ahead depth "
+             f"{pipe['prefetch']['steady_ahead']} < {RUNTIME_DEPTH}: "
+             f"{pipe['prefetch']}")
+    if any(pipe["syncs"].values()) or pipe["pending_before_get"] != \
+            RUNTIME_STEPS:
+        fail(f"16a: the pipelined steps made blocking host reads or "
+             f"synchronizations {pipe['syncs']}, or the metric folded "
+             f"before .get() ({pipe['pending_before_get']} pending)")
+    # the host path reads the loss, and the predictions and labels
+    if sync["syncs"]["metric.host_sync"] != 3 * RUNTIME_STEPS:
+        fail(f"16a: the synchronous loop read the metrics "
+             f"{sync['syncs']['metric.host_sync']} times, want "
+             f"{3 * RUNTIME_STEPS}")
+    x, y = (t.to(device) for t in batches[0])
+    if device == "cuda":
+        _out, counted, traced = traced_launches(
+            ck, lambda: step(x, y), total=traced_total)
+        if counted or traced != CONV_BN.launches:
+            fail(f"16a: a replay of the step counted {counted} and traced "
+                 f"{traced}; want none counted and {CONV_BN.launches}")
+    else:
+        traced = None
+    speedup = sync["wall_s"] / pipe["wall_s"]
+    for name, r in (("synchronous", sync), ("pipelined", pipe)):
+        t = r["timeline"]
+        print(f"16a: {name} loop, {RUNTIME_STEPS} steps: wall "
+              f"{r['wall_s'] * 1e3:.1f} ms, device_idle_gap_us "
+              f"{t['device_idle_gap_us']} per step, phases "
+              f"{t['phase_us_per_step']}, blocking reads / syncs "
+              f"{r['syncs']}, loss {r['loss']!r}, accuracy "
+              f"{r['accuracy']!r} [{card_line}]")
+    print(f"16a: pipelined over synchronous wall {speedup:.3f}x, prefetch "
+          f"{pipe['prefetch']}; params and momenta bitwise equal, loss "
+          f"relative {lrel:.3g}; a replay traced {traced}  ok")
+    return {"sync": sync, "pipelined": pipe, "wall_speedup": speedup,
+            "loss_rel": lrel, "replay_traced": traced}
+
+
+def eager_grad_norm(step, x, y) -> float:
+    """The gradient norm of the step's loss at the live parameters,
+    computed eagerly with the step's own forward and backward (fp64 sum of
+    squares on the host)."""
+    fb = step._forward_backward((x, y))
+    _loss, _w, grads = fb(x, y)
+    return math.sqrt(sum(float(g.double().square().sum()) for g in grads))
+
+
+def sentinel_phase(mx, rt, ck, net, trainer, step, batches, card_line,
+                   counts, device="cuda") -> dict:
+    """16b (see the module docstring)."""
+    engine, metric, _p, sentinel = rt
+    from mxnet_tpu_torch import cached_step as cs
+    init = {k: p.data().detach().clone()
+            for k, p in net.collect_params().items()}
+    staged = [tuple(t.to(device) for t in b) for b in batches]
+
+    def run(snt_every, n, keep=True):
+        """n steps from ``init``; with a sentinel and ``keep``, clones of
+        the state before and after each sentinel step."""
+        reset_state(trainer, net, init)
+        snt = sentinel.Sentinel(step=step, every=snt_every) \
+            if snt_every else None
+        if snt is None:
+            step._sentinel = None
+        before, after = [], []
+        engine.waitall()
+        c0 = counters(mx, engine, metric)
+        cs.reset_counters()
+        tr0 = None
+        t0 = time.perf_counter()
+        for i in range(n):
+            x, y = staged[i % len(staged)]
+            if keep and snt_every and (i + 1) % snt_every == 0:
+                before.append([t.detach().clone()
+                               for t in step.digest_leaves()])
+            step(x, y)
+            if i == 0:
+                tr0 = cs.trace_count()
+            if keep and snt_every and (i + 1) % snt_every == 0:
+                after.append([t.detach().clone()
+                              for t in step.digest_leaves()])
+        syncs = delta(c0, counters(mx, engine, metric))
+        engine.waitall()
+        wall = time.perf_counter() - t0
+        return {"snt": snt, "before": before, "after": after,
+                "syncs": syncs, "wall_s": wall,
+                "captures_after_first": cs.trace_count() - tr0,
+                "dispatches": cs.dispatch_count(),
+                "final": state_of(trainer, net)}
+
+    c0 = ck.launch_counts()
+    on = run(SENTINEL_EVERY, SENTINEL_STEPS)
+    c1 = ck.launch_counts()
+    for k in c1:
+        if c1[k] != c0[k]:
+            counts[k] = counts.get(k, 0) + c1[k] - c0[k]
+    off = run(0, SENTINEL_STEPS)
+    snt = on["snt"]
+    n_w = len(trainer._params)
+    rows = []
+    for k, (rec, pre, post) in enumerate(zip(snt.history, on["before"],
+                                             on["after"])):
+        host = sentinel.tree_digest(post)
+        psum = sum(float(t.double().sum()) for t in post[:n_w])
+        i = (k + 1) * SENTINEL_EVERY - 1
+        with torch.no_grad():
+            for p, w in zip(trainer._params, pre[:n_w]):
+                p._data.copy_(w)
+        gnorm = eager_grad_norm(step, *staged[i % len(staged)])
+        rows.append({"step": i + 1, "fold": rec["fold"], "host_fold": host,
+                     "psum": rec["psum"], "host_psum": psum,
+                     "gnorm": rec["gnorm"], "host_gnorm": gnorm})
+        if rec["fold"] != host:
+            fail(f"16b: the digest of step {i + 1} is {rec['fold']}, "
+                 f"tree_digest of the same state {host}")
+        for what, a, b in (("psum", rec["psum"], psum),
+                           ("gnorm", rec["gnorm"], gnorm)):
+            if not abs(a - b) <= SENTINEL_RTOL * abs(b):
+                fail(f"16b: {what} of step {i + 1}: {a} in the program, "
+                     f"{b} on the host (rtol {SENTINEL_RTOL})")
+    if len(rows) != SENTINEL_STEPS // SENTINEL_EVERY:
+        fail(f"16b: {len(rows)} digests read, want "
+             f"{SENTINEL_STEPS // SENTINEL_EVERY}")
+    diff = [j for j, (a, b) in enumerate(zip(on["final"], off["final"]))
+            if not torch.equal(a, b)]
+    if diff:
+        fail(f"16b: {len(diff)} tensors differ after {SENTINEL_STEPS} "
+             f"steps with and without the sentinel")
+    if on["captures_after_first"] or on["dispatches"] != SENTINEL_STEPS \
+            or any(on["syncs"].values()):
+        fail(f"16b: after the first call {on['captures_after_first']} "
+             f"captures, {on['dispatches']} dispatches for "
+             f"{SENTINEL_STEPS} steps, blocking reads / syncs "
+             f"{on['syncs']}")
+    if device == "cuda":
+        pools = form_pool_bytes(step)
+        fold_peak = fold_peak_bytes(step, sentinel)
+    else:
+        pools = fold_peak = None
+    print(f"16b: memory: the captured forms' pools {pools} bytes, the "
+          f"fold's peak over the live state {fold_peak} bytes (chunks of "
+          f"{sentinel._FOLD_CHUNK} elements) [{card_line}]")
+    print(f"16b: {len(rows)} in-program digests bitwise tree_digest, psum "
+          f"and gnorm within {SENTINEL_RTOL} of the host: {rows}; "
+          f"{on['dispatches']} dispatches, {on['captures_after_first']} "
+          f"captures after the first call, syncs {on['syncs']}, late "
+          f"reads {snt_late()}; parameters bitwise those without it  ok")
+    # the cadence's cost, measured: every=20 against off
+    walls = {}
+    for name, every in (("off", 0), ("every20", SENTINEL_OVERHEAD_EVERY)):
+        walls[name] = run(every, SENTINEL_OVERHEAD_STEPS,
+                          keep=False)["wall_s"]
+    overhead = 100.0 * (walls["every20"] / walls["off"] - 1.0)
+    step._sentinel = None
+    print(f"16b: sentinel every={SENTINEL_OVERHEAD_EVERY} over "
+          f"{SENTINEL_OVERHEAD_STEPS} steps: {walls['every20']:.4f} s "
+          f"against {walls['off']:.4f} s off, overhead {overhead:.3f} % "
+          f"(the reference's acceptance: < 1 %, bench.py:978-980; not "
+          f"gated) [{card_line}]")
+    return {"digests": rows, "syncs": on["syncs"],
+            "captures_after_first": on["captures_after_first"],
+            "dispatches": on["dispatches"], "overhead_pct": overhead,
+            "walls_s": walls, "pool_bytes": pools,
+            "fold_peak_bytes": fold_peak}
+
+
+def form_pool_bytes(step) -> dict:
+    """The bytes of each captured form's private memory pool (the plain
+    and the digest form of the step's program): the segments of
+    ``torch.cuda.memory_snapshot`` that belong to the form's graph's
+    pool, and the number of distinct pools. None where the card's torch
+    does not say."""
+    try:
+        snap = torch.cuda.memory_snapshot()
+        out, pools = {}, set()
+        for key, prog in step._programs.items():
+            graph = getattr(prog, "_graph", None)
+            if graph is None:
+                continue
+            pid = tuple(graph.pool())
+            pools.add(pid)
+            name = "digest" if key[-1] == "digest" else "plain"
+            out[name] = out.get(name, 0) + sum(
+                seg["total_size"] for seg in snap
+                if tuple(seg["segment_pool_id"]) == pid)
+        out["distinct_pools"] = len(pools)
+        return out
+    except (AttributeError, KeyError, RuntimeError, TypeError):
+        return None
+
+
+def fold_peak_bytes(step, sentinel) -> int:
+    """The peak of the memory the digest fold takes over the step's live
+    state, run once eagerly (its temporaries, beyond what was allocated
+    before it)."""
+    from mxnet_tpu_torch import engine
+    engine.waitall()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sentinel.fold_leaves(step.digest_leaves())
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def snt_late() -> int:
+    from mxnet_tpu_torch import telemetry
+    return int(telemetry.get("sentinel.late_reads").value)
+
+
+def drill_phase(card_line, device="cuda", net="resnet50") -> dict:
+    """16c: ``tools/torch_elastic_drill.py``'s children on the card."""
+    import tempfile
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_elastic_drill.py")
+    with tempfile.TemporaryDirectory(prefix="mxt_drill_") as d:
+        cmd = [sys.executable, tool, "--device", device, "--net", net,
+               "--dir", d, "--steps", str(DRILL["steps"]),
+               "--save-every", str(DRILL["save_every"]),
+               "--kill-at", str(DRILL["kill_at"])]
+        p = subprocess.run(cmd, capture_output=True, text=True,
+                           timeout=900)
+    lines = p.stdout.strip().splitlines()
+    if not lines:
+        fail(f"16c: the drill printed nothing (exit {p.returncode}): "
+             f"{p.stderr[-3000:]}")
+    rec = json.loads(lines[-1])
+    if p.returncode != 0 or rec["failures"]:
+        fail(f"16c: the drill's gates failed: {rec['failures']} "
+             f"{p.stderr[-3000:]}")
+    print(f"16c: preempted at step {DRILL['kill_at']} by SIGTERM, drained "
+          f"in {rec['drain_ms']:.1f} ms, restored in "
+          f"{rec['restore_ms']:.1f} ms, recovery wall (process start to the "
+          f"first resumed step) {rec['recovery_wall_s']:.2f} s, "
+          f"{rec['captures_on_restart']} capture(s) on restart, "
+          f"{rec['steps_replayed']} steps replayed; final state bitwise the "
+          f"uninterrupted child's; merged shards {rec['merged_counters']}; "
+          f"children {rec['children']}  ok [{card_line}]")
+    return rec
+
+
+def runtime_phase(mx, ck, config, card_line, counts, traced,
+                  device="cuda") -> dict:
+    """Phase 16: 16a, 16b and 16c (see the module docstring)."""
+    rt = port_runtime()
+    set_fused(config, 0, EPILOGUE)
+    set_fused(config, 1, CONV_BN)
+    t0 = time.perf_counter()
+    x, _y = image_batch(2, torch.float32)
+    net = resnet50(mx, x)
+    net.cast("bfloat16")
+    net.hybridize()
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", RESNET_OPT)
+    step = trainer.compile_step(net, runtime_loss_fn(mx))
+    pipeline = pipeline_phase(mx, rt, ck, net, trainer, step, card_line,
+                              counts, traced, device)
+    batches = runtime_batches(SENTINEL_EVERY, device=device)
+    snt = sentinel_phase(mx, rt, ck, net, trainer, step, batches, card_line,
+                         counts, device)
+    del net, trainer, step, batches
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    set_fused(config, 0, CONV_BN)
+    drill = drill_phase(card_line, device)
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return {"pipeline": pipeline, "sentinel": snt, "drill": drill}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6252,6 +6754,21 @@ def main() -> int:
                      default=str))
     torch.cuda.empty_cache()
 
+    # -- 16. the runtime around the step ----------------------------------------
+    runtime_counts, runtime_traced = {}, {}
+    ck.reset_launch_counts()
+    runtime = runtime_phase(mx, ck, config, card_line, runtime_counts,
+                            runtime_traced)
+    if not all(runtime_counts.get(k) for k in CONV_BN_KERNELS):
+        fail(f"16: a conv + BN kernel never launched on the runtime path: "
+             f"{runtime_counts}")
+    print(f"phase 16 launch counts of the pipelined, synchronous and "
+          f"sentinel runs: counted by the wrappers {runtime_counts}; traced "
+          f"on the device in the replay {runtime_traced}")
+    print(json.dumps({"runtime": {"card": card_line, **runtime}},
+                     default=str))
+    torch.cuda.empty_cache()
+
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
@@ -6259,7 +6776,7 @@ def main() -> int:
              "nd": nd_counts, "int8": int8_counts,
              "serving": serving_counts, "speculative": spec_counts,
              "moe": moe_counts, "mesh": mesh_counts,
-             "mesh_lm": mesh_lm_counts}
+             "mesh_lm": mesh_lm_counts, "runtime": runtime_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were
@@ -6267,7 +6784,7 @@ def main() -> int:
     traced_paths = {"train": train_traced, "capture": capture_traced,
                     "compiled_steps": steps_traced, "nd": nd_traced,
                     "moe": moe_traced, "mesh": mesh_traced,
-                    "mesh_lm": mesh_lm_traced}
+                    "mesh_lm": mesh_lm_traced, "runtime": runtime_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
@@ -6395,7 +6912,9 @@ def main() -> int:
         "library_w_col_major_ms": t["library_w_col_major_ms"],
         "bf16_matmul_ms": t["bf16_matmul_ms"], "sites": int8_times["sites"],
     })
-    print(f"traces of launches by kernel name in this run: {TRACES[0]}")
+    print(f"traces of launches by kernel name in this run: {TRACES[0]}; "
+          f"{TRACE_LOSS['short']} lost records of their prefix of "
+          f"{TRACE_PREFIX + 1} markers, at most {TRACE_LOSS['most']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

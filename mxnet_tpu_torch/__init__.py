@@ -25,11 +25,17 @@ which the Gluon layers dispatch; and serving: ``serving.ServingEngine``
 (micro-batched, shape-bucketed captured inference) and
 ``serving_decode.GenerativeEngine`` (continuous batching over a paged KV
 cache with a prefix cache and seeded sampling), on the runtime pieces
-``faults``, ``telemetry``, ``preemption`` and ``engine``.
+``faults``, ``telemetry``, ``preemption`` and ``engine``; and the runtime
+around the train step: device prefetch (``engine.prefetch``), metrics
+accumulated on the device (``metric``), ``profiler`` with its
+``StepTimeline``, ``runtime`` features, the flight recorder
+(``telemetry.flush`` / ``merge``), the integrity sentinel (``sentinel``)
+and checkpoints with elastic restore (``parallel.elastic``).
 """
 from . import (autograd, base, config, contrib, engine, faults, gluon,
-               initializer, models, ndarray, optimizer, preemption, random,
-               serving, serving_decode, telemetry)
+               initializer, metric, models, ndarray, optimizer, preemption,
+               profiler, random, runtime, sentinel, serving, serving_decode,
+               telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .ndarray import NDArray
@@ -39,6 +45,6 @@ init = initializer
 
 __all__ = ["Context", "MXNetError", "NDArray", "autograd", "base", "config",
            "contrib", "cpu", "current_context", "engine", "faults", "gluon",
-           "gpu", "init", "initializer", "models", "nd", "ndarray",
-           "num_gpus", "optimizer", "preemption", "random", "serving",
-           "serving_decode", "telemetry"]
+           "gpu", "init", "initializer", "metric", "models", "nd", "ndarray",
+           "num_gpus", "optimizer", "preemption", "profiler", "random",
+           "runtime", "sentinel", "serving", "serving_decode", "telemetry"]

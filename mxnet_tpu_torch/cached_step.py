@@ -91,6 +91,18 @@ the eager tape, which would update each rank's own values over the whole
 batch: a pending deferred initialization is finished by a forward that
 records nothing, and the first step then places the first rank's values.
 
+``attach_sentinel(sentinel)`` (reference ``cached_step.py:209-221,
+:937-970``): the step keeps a second form of its program, the digest form,
+which runs the same forward, backward and update and also emits
+``sentinel.program_digest`` of the post-update parameters and optimizer
+state and of the gradients. Both forms are captured at the step's first
+compiled call (the digest form through ``Program.prepare``, with every
+tensor it updates put back after its eager run), so that a sentinel step
+is one dispatch of the digest form with no capture and no host read: the
+counterpart of the reference's ``lax.cond`` on a traced flag. The digest
+goes to ``sentinel.offer`` unread. The plain form is the program it was.
+Accumulation windows (``accum_steps`` above 1) take no digest.
+
 Setups the reference also runs eagerly (``_eligibility``,
 ``cached_step.py:431-460``) take the eager tape and name their reason in
 ``last_fallback_reason``: ``MXNET_COMPILED_STEP=0``, a parameter with
@@ -208,6 +220,26 @@ class TrainStep:
         self._specs: Optional[Dict[int, tuple]] = None
         self._batch_axes: tuple = ()
         self._rows: Optional[int] = None
+        # the training-integrity sentinel (sentinel.Sentinel), if attached
+        self._sentinel = None
+
+    def attach_sentinel(self, sentinel):
+        """Attach a ``sentinel.Sentinel``: it picks the dispatches that run
+        the digest form (``want_digest``) and takes their digests
+        (``offer``)."""
+        if self._accum_steps > 1:
+            raise MXNetError("a sentinel takes its digests from the step "
+                             "program; accumulation windows take none")
+        self._sentinel = sentinel
+        return sentinel
+
+    def digest_leaves(self) -> list:
+        """The live tensors the digest form folds, in its order: every
+        trainable parameter, then every optimizer state leaf (what
+        ``sentinel.tree_digest`` of the same state takes)."""
+        tr = self._trainer
+        states = tr._init_states()
+        return [p._data for p in tr._params] + _state_leaves(states)
 
     @property
     def mesh(self):
@@ -429,19 +461,70 @@ class TrainStep:
                tuple(map(id, trainable)), _pstore.storage_key(held),
                self._mesh_key())
 
-        def build():
+        def build(digest=False):
             fb = self._forward_backward(args)
 
             def body(*inputs):
                 loss, weights, grads = fb(*inputs)
                 opt.step(weights, grads, states)
-                return loss
+                if not digest:
+                    return loss
+                from . import sentinel as _sentinel
+
+                heads = _heads(loss)
+                return tuple(heads) + _sentinel.program_digest(
+                    weights, _state_leaves(states), grads)
             return body
 
+        snt = self._sentinel
         if self._mesh is not None and not enabled():
+            if snt is not None and snt.want_digest():
+                return self._offer(snt, build(True)(*tensors))
             return build()(*tensors)       # the mesh body, no program
-        return _pstore.run(self._programs, key, build, tensors,
-                           device=held[0].device, keep=held)
+        if snt is None or snt.every <= 0:
+            return _pstore.run(self._programs, key, build, tensors,
+                               device=held[0].device, keep=held)
+        if self._specs:
+            snt.vote = not any(self._specs.values())
+        dkey = key + ("digest",)
+        if dkey not in self._programs:
+            self._prepare_restored(dkey, lambda: build(True), tensors,
+                                   held, states, opt)
+        if not snt.want_digest():
+            return _pstore.run(self._programs, key, build, tensors,
+                               device=held[0].device, keep=held)
+        return self._offer(snt, _pstore.run(
+            self._programs, dkey, lambda: build(True), tensors,
+            device=held[0].device, keep=held))
+
+    @staticmethod
+    def _offer(snt, out):
+        """Split a digest form's outputs into the loss and the digest,
+        handed to the sentinel unread."""
+        *heads, fold, psum, gnorm = out
+        snt.offer(fold, psum, gnorm)
+        return heads[0] if len(heads) == 1 else tuple(heads)
+
+    def _prepare_restored(self, key, build, tensors, held, states,
+                          opt) -> None:
+        """Capture a program for ``key`` without a dispatch
+        (``Program.prepare``), putting back every tensor its eager first
+        run updates: the parameters, every optimizer state leaf (a tuple
+        state's too) and the optimizer's device scalars, made first where
+        the update would make them."""
+        for d in {t.device for t in held}:
+            opt.scalars(d)
+        keep = list(held) + _state_leaves(states) + [
+            t for sc in opt._scalars.values() for t in sc.values()]
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in keep]
+        prog = _pstore.Program(self._programs.namespace, build(), tensors,
+                               held[0].device, keep=held)
+        prog.prepare(*tensors)
+        with torch.no_grad():
+            for t, v in zip(keep, saved):
+                t.copy_(v)
+        self._programs.insert(key, prog)
 
     # -- the step on a mesh -------------------------------------------------
     def _mesh_key(self):
@@ -733,6 +816,18 @@ class TrainStep:
             _pstore.run(self._update_programs, ukey, lambda: update, [],
                         device=weights[0].device, keep=uheld)
         return loss
+
+
+def _state_leaves(states) -> list:
+    """The optimizer states' tensors in order (a state may be a tensor or
+    a tuple of them)."""
+    out = []
+    for s in states:
+        if isinstance(s, torch.Tensor):
+            out.append(s)
+        elif isinstance(s, (list, tuple)):
+            out.extend(t for t in s if isinstance(t, torch.Tensor))
+    return out
 
 
 def _tensor_ops(mesh):

@@ -254,6 +254,61 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "record_function ranges, so host-side spans (serving dispatch, "
            "decode iteration) land inside torch.profiler traces of the "
            "device. 0 = spans record host-side only.", cached=False),
+    EnvVar("MXNET_TELEMETRY_DIR", str, None,
+           "Telemetry flight recorder: when set, telemetry.flush() (called "
+           "by engine.waitall() and the preemption drain) writes the event "
+           "bus, the spans and a counter snapshot as JSON lines to "
+           "<dir>/telemetry-r<rank>-p<pid>.jsonl. Unset = recorder off.",
+           cached=False),
+    EnvVar("MXNET_TELEMETRY_MAX_MB", float, 64.0,
+           "Flight-recorder size cap: when the MXNET_TELEMETRY_DIR shards "
+           "exceed this many megabytes after a flush, the oldest shards "
+           "(never the flushing process's own) are deleted until they fit "
+           "(telemetry.shards_rotated). <= 0 disables rotation.",
+           cached=False),
+    EnvVar("MXNET_TPU_PROC_ID", int, None,
+           "This process's rank, stamped on its flight-recorder shard "
+           "(unset: the torch.distributed rank when a world is up, else "
+           "0).", cached=False),
+    EnvVar("MXNET_METRIC_DEVICE", int, 1,
+           "Device-side metric accumulators: EvalMetric.update on device "
+           "tensors or NDArrays adds (sum, count) device scalars with no "
+           "host read; the host reads them at .get(), engine.waitall() or "
+           "every MXNET_METRIC_SYNC_STEPS updates. 0 = host accumulation "
+           "everywhere (each update counted in metric.host_sync_count); "
+           "MXNET_ENGINE_TYPE=NaiveEngine forces 0.", cached=False),
+    EnvVar("MXNET_METRIC_SYNC_STEPS", int, 50,
+           "Device-side metric accumulators: fold the device scalars into "
+           "the host sums every N update() calls.", cached=False,
+           validator=lambda v: v >= 1),
+    EnvVar("MXNET_PROFILER_AUTOSTART", bool, False,
+           "Start the profiler at import (reference profiler env var)."),
+    EnvVar("MXNET_BARRIER_TIMEOUT", float, 0.0,
+           "Barrier deadline in seconds; with it set, run_elastic(kvstore=) "
+           "attaches a HeartbeatMonitor under the checkpoint directory. "
+           "0 = wait forever.", cached=False, validator=lambda v: v >= 0),
+    EnvVar("MXNET_ELASTIC_BACKOFF", float, 0.0,
+           "run_elastic: base delay (s) of the exponential backoff between "
+           "restore-and-resume restarts (capped at "
+           "MXNET_RETRY_BACKOFF_MAX); 0 = restart at once.", cached=False,
+           validator=lambda v: v >= 0),
+    EnvVar("MXNET_SENTINEL_EVERY", int, 20,
+           "Training-integrity sentinel cadence (sentinel.py): every N "
+           "compiled train-step dispatches run the step's digest form, "
+           "which also emits a state fingerprint (uint32 fold over the "
+           "post-update parameters and optimizer state, parameter sum, "
+           "gradient norm) in the same one dispatch; the host read is "
+           "deferred a full cadence. 0 = sentinel off.", cached=False,
+           validator=lambda v: v >= 0),
+    EnvVar("MXNET_SENTINEL_ZMAX", float, 6.0,
+           "Sentinel anomaly window z-score threshold: a grad-norm or loss "
+           "sample farther than zmax standard deviations from its EMA, or "
+           "any non-finite sample, trips the window.", cached=False,
+           validator=lambda v: v > 0),
+    EnvVar("MXNET_SENTINEL_STRIKES", int, 1,
+           "Replica divergences a device may accumulate before the "
+           "sentinel quarantines it.", cached=False,
+           validator=lambda v: v >= 1),
 )}
 
 _CACHE: Dict[str, Any] = {}

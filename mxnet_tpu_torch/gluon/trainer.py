@@ -14,10 +14,20 @@ give ``compile_step`` the mesh of ``parallel.spmd.mesh_for_store``
 on which the step reduces the gradients inside its program. ``step()``,
 the eager update, applies this rank's gradients as they are. The
 ``dist_*`` stores (parameter servers) are the port's ``kvstore/``, ROADMAP
-A9, and raise. There is no AMP in the port yet.
+A9, and raise. There is no AMP in the port yet (ROADMAP A7b).
+
+States (reference ``trainer.py:387-410``): :meth:`save_states` /
+:meth:`load_states` write and read the optimizer's states (momentum, Adam's
+moments and step count) as a pickle of host tensors; :meth:`state_tree` /
+:meth:`load_state_tree` are the tree a checkpoint holds (the net's
+parameters by name, batch-norm running statistics included, and the
+optimizer's states; the reference's ``drills.py:201-240`` ``_capture`` /
+``_restore_into``). Loading always copies into the live tensors in place,
+so the captured steps that read them stay valid.
 """
 from __future__ import annotations
 
+import pickle
 from typing import Dict, List
 
 import torch
@@ -109,3 +119,75 @@ class Trainer:
             grads.append(w.grad if w.grad is not None
                          else torch.zeros_like(w))
         self._optimizer.step(weights, grads, states)
+
+    # -- states ----------------------------------------------------------
+    def _state_scalars(self) -> Dict[str, torch.Tensor]:
+        """The optimizer's device scalars that are state, not settings
+        (Adam's step count ``t``), of its first device."""
+        scal = self._optimizer._scalars
+        if not scal:
+            return {}
+        first = next(iter(scal.values()))
+        return {k: v for k, v in first.items() if k == "t"}
+
+    def state_tree(self, net=None) -> dict:
+        """The live tensors a checkpoint holds: ``{"params": {name: tensor}
+        (the net's, else the trainer's own by name), "opt": {index: state},
+        "scalars": {"t": ...}}``. Made missing states first."""
+        params = net.collect_params() if net is not None else \
+            {p.name: p for p in self._params}
+        states = self._init_states()
+        return {
+            "params": {k: params[k]._check() for k in sorted(params)},
+            "opt": {i: s for i, s in enumerate(states)},
+            "scalars": self._state_scalars(),
+        }
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: dict, net=None) -> None:
+        """Copy a restored :meth:`state_tree` (or the parts of one it
+        holds) into the live tensors in place."""
+        live = self.state_tree(net)
+
+        def copy(dst, src):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+            elif isinstance(dst, (list, tuple)):
+                for d, v in zip(dst, src):
+                    copy(d, v)
+        for k, t in live["params"].items():
+            if k in tree.get("params", {}):
+                copy(t, tree["params"][k])
+        for i, s in live["opt"].items():
+            if i in tree.get("opt", {}):
+                copy(s, tree["opt"][i])
+        for k, t in live["scalars"].items():
+            if k in tree.get("scalars", {}):
+                copy(t, tree["scalars"][k])
+
+    def save_states(self, fname) -> None:
+        """Save the optimizer's states (reference ``trainer.py:482``)."""
+        tree = self.state_tree()
+
+        def host(x):
+            if isinstance(x, torch.Tensor):
+                return x.detach().to("cpu", copy=True)
+            if isinstance(x, (list, tuple)):
+                return type(x)(host(v) for v in x)
+            return x
+        with open(fname, "wb") as f:
+            pickle.dump({"optimizer": type(self._optimizer).__name__,
+                         "opt": host(tree["opt"]),
+                         "scalars": host(tree["scalars"])}, f)
+
+    def load_states(self, fname) -> None:
+        """Load the optimizer's states saved by :meth:`save_states`
+        (reference ``trainer.py:501``), in place."""
+        with open(fname, "rb") as f:
+            data = pickle.load(f)
+        if data.get("optimizer") != type(self._optimizer).__name__:
+            raise ValueError(
+                f"states of a {data.get('optimizer')} optimizer cannot load "
+                f"into {type(self._optimizer).__name__}")
+        self.load_state_tree({"opt": data["opt"],
+                              "scalars": data.get("scalars", {})})

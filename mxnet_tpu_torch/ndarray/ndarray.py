@@ -33,12 +33,15 @@ workaround; neither changes a result.
 from __future__ import annotations
 
 import numbers
+import time
 from typing import Optional, Sequence, Tuple, Union
 
 import numpy as onp
 import torch
 
 from .. import autograd
+from .. import engine as _engine
+from .. import profiler as _profiler
 from .. import telemetry as _telemetry
 from ..base import MXNetError, dtype_np, op_dtype, torch_dtype
 from ..context import Context, context_of, current_context, resolve_device
@@ -627,8 +630,17 @@ def invoke(op: Union[str, OpSchema], inputs: Sequence, attrs: dict,
     without inputs)."""
     _INVOKE.inc()
     schema = (_OPS.get(op) or get_op(op)) if isinstance(op, str) else op
-    # marked place: the profiler's per-op record times the call from here
-    # (reference ``ndarray.py:840-845``; ROADMAP A7)
+    if _profiler.ops_active():
+        # the profiler's per-op record (reference ``ndarray.py:840-845``)
+        t0 = time.perf_counter_ns()
+        try:
+            return _invoke_body(schema, inputs, attrs, out)
+        finally:
+            _profiler.record_op(schema.name, t0, time.perf_counter_ns())
+    return _invoke_body(schema, inputs, attrs, out)
+
+
+def _invoke_body(schema: OpSchema, inputs: Sequence, attrs: dict, out):
     # marked place: the AMP cast policy wraps schema.fn here (reference
     # ``_amp_policy``, ``ndarray.py:855-860``; ROADMAP A9)
     for i in inputs:
@@ -649,6 +661,10 @@ def invoke(op: Union[str, OpSchema], inputs: Sequence, attrs: dict,
                                  for i in inputs], attrs)
     multi = isinstance(raw, (tuple, list))
     outputs = [_wrap(o, ctx) for o in (raw if multi else [raw])]
+    if _engine.is_naive():
+        # NaiveEngine: synchronous execution, errors surface at the op
+        # (reference ``ndarray.py:1055-1060``)
+        _engine.naive_sync([o._data for o in outputs])
     # marked place: the deferred-compute hook records the outputs here
     # (reference ``_deferred_compute``, ``ndarray.py:1080-1083``; ROADMAP A9)
     if out is not None:

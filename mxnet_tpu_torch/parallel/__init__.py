@@ -7,9 +7,13 @@ with plans and batch specs (:mod:`train`), ring attention over ``sp``
 (:mod:`ring_attention`), the mixture-of-experts layer with its experts
 over ``ep`` (:mod:`moe`), and the GPipe pipeline over ``pp``
 (:mod:`pipeline`). Every axis ``dp``, ``fsdp``, ``tp``, ``sp``, ``ep``
-and ``pp`` runs; the elastic layer (``elastic.py``: checkpoints,
-heartbeats, ``run_elastic``) is ROADMAP A7."""
-from . import collectives, moe, pipeline, ring_attention, sharding, spmd
+and ``pp`` runs. The elastic layer (:mod:`elastic`: checkpoints,
+heartbeats, ``run_elastic``) checkpoints placed blocks and restores them
+onto another mesh."""
+from . import (collectives, elastic, moe, pipeline, ring_attention, sharding,
+               spmd)
+from .elastic import (AnomalyDetected, CheckpointManager, DigestMismatch,
+                      HeartbeatMonitor, nonfinite_anomaly, run_elastic)
 from .collectives import (all_gather, all_reduce, all_to_all, axis_index,
                           axis_size, broadcast_from, pmean, ppermute,
                           reduce_scatter, ring_shift, run_sharded, shard_map)
@@ -24,13 +28,16 @@ from .sharding import (NamedSharding, PartitionSpec, ShardingPlan,
                        replicated_plan, shard_array, tensor_parallel_plan)
 from .train import ShardedTrainer, functional_call
 
-__all__ = ["AXIS_NAMES", "HeteroPipeline", "Mesh", "MoEBlock",
+__all__ = ["AXIS_NAMES", "AnomalyDetected", "CheckpointManager",
+           "DigestMismatch", "HeartbeatMonitor", "HeteroPipeline", "Mesh",
+           "MoEBlock",
            "NamedSharding", "PartitionSpec", "PipelineBlock",
            "ShardedTrainer", "ShardingPlan", "all_gather", "all_reduce",
            "all_to_all", "auto_mesh", "aux_scope", "axis_index", "axis_size",
            "broadcast_from", "bubble_fraction", "collectives", "constraint",
-           "current_mesh", "expert_parallel_plan", "fsdp_plan",
+           "current_mesh", "elastic", "expert_parallel_plan", "fsdp_plan",
            "functional_call", "make_mesh", "mesh_scope", "moe", "moe_layer",
+           "nonfinite_anomaly", "run_elastic",
            "pipeline", "pipeline_apply", "pipelined", "pmean", "ppermute",
            "record_aux", "reduce_scatter", "replicated_plan", "ring_attention",
            "ring_attention_sharded", "ring_shift", "run_sharded", "set_mesh",

@@ -21,10 +21,18 @@ A mesh whose axes are all 1 needs no world: it is the one device of
 ``devices[0]`` (``cuda`` when None), as before. A world that is
 initialized makes a ``DeviceMesh`` even of one rank (the card's mesh of
 one), so that ``parallel.collectives`` run through its backend.
+
+Quarantine (reference ``spmd.py:200-232``): the CUDA device a rank takes
+(:func:`world_device`) skips every device index in the sentinel's active
+quarantine (:func:`admitted_devices`), so a restart after a corrupt
+device was quarantined runs without it; when every device is
+quarantined the list is ignored, with a warning and the reference's
+``corruption`` event ``spmd.quarantine_excluded``.
 """
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -32,7 +40,8 @@ import torch
 from ..context import resolve_device
 
 __all__ = ["AXIS_NAMES", "Mesh", "make_mesh", "auto_mesh", "current_mesh",
-           "set_mesh", "mesh_scope", "world_size", "world_device"]
+           "set_mesh", "mesh_scope", "world_size", "world_device",
+           "admitted_devices"]
 
 AXIS_NAMES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
@@ -66,9 +75,37 @@ def world_device(devices: Optional[Sequence] = None) -> torch.device:
     if dist is not None and dist.get_backend() == "gloo":
         return torch.device("cpu")
     dev = resolve_device(None)
-    if dist is not None and dev.type == "cuda":
-        return torch.device("cuda", rank % torch.cuda.device_count())
-    return dev
+    if dev.type != "cuda":
+        return dev
+    count = torch.cuda.device_count()
+    cuda = admitted_devices([torch.device("cuda", i) for i in range(count)])
+    if dist is None and len(cuda) == count:
+        return dev
+    return cuda[rank % len(cuda)]
+
+
+def admitted_devices(devices: Sequence) -> List:
+    """``devices`` minus those the sentinel's active quarantine names (by
+    device index, or as a quarantined rank's device), in order; all of
+    them, loudly, when every one is quarantined."""
+    from .. import sentinel as _sentinel
+    from .. import telemetry as _telemetry
+
+    q = _sentinel.active_quarantine()
+    devices = list(devices)
+    if q is None:
+        return devices
+    kept = q.filter_devices(devices)
+    if not kept:
+        warnings.warn("every visible device is quarantined (entries: "
+                      f"{q.entries()}); ignoring the quarantine list for "
+                      "mesh resolution", stacklevel=2)
+        return devices
+    if len(kept) < len(devices):
+        excluded = [d.index or 0 for d in devices if d not in kept]
+        _telemetry.event("corruption", "spmd.quarantine_excluded",
+                         devices=excluded)
+    return kept
 
 
 class Mesh:

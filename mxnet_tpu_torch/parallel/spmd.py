@@ -36,9 +36,10 @@ global batch:
 
 :func:`resolve_mesh` reads ``MXNET_SPMD_MESH`` (``auto`` / ``off`` /
 ``<int>`` / ``dp=…,fsdp=…,tp=…``, reference :234-286) over every rank of
-the world. The reference also drops the devices in the sentinel's
-quarantine list there (:199-232); that waits for the port's
-``sentinel.py`` (ROADMAP A7). :func:`put_batch` takes the global batch,
+the world; the device each rank takes skips the devices in the
+sentinel's quarantine list (``mesh.admitted_devices``, reference
+:199-232). A quarantined rank is not yet left out of the world's mesh
+(ROADMAP A7b). :func:`put_batch` takes the global batch,
 as the reference's tests pass it; the multi-controller form, where each
 process reads only its shard (the DataLoader's ``num_shards``), waits for
 the DataLoader (A9). :func:`param_spec` places the packed pipeline
@@ -53,6 +54,7 @@ import math
 import re
 import threading
 import warnings
+import weakref
 from contextlib import contextmanager
 from typing import Optional, Sequence, Tuple
 
@@ -284,12 +286,27 @@ def batch_spec_for(shape: Tuple[int, ...], mesh) -> PartitionSpec:
 
 
 def mesh_key(mesh) -> Optional[tuple]:
-    """The mesh's part of a program key: axes, sizes, ranks and device."""
+    """The mesh's part of a program key: axes, sizes, ranks and device.
+    A ``Mesh`` is remembered under its key (:func:`mesh_of`); the spec
+    functions also take stand-ins that only carry these fields."""
     if mesh is None:
         return None
-    return (tuple(mesh.axis_names),
-            tuple(int(mesh.shape[a]) for a in mesh.axis_names),
-            tuple(mesh.ranks), str(mesh.device))
+    key = (tuple(mesh.axis_names),
+           tuple(int(mesh.shape[a]) for a in mesh.axis_names),
+           tuple(mesh.ranks), str(mesh.device))
+    if isinstance(mesh, Mesh):
+        _MESHES[key] = mesh
+    return key
+
+
+# the live meshes by key: a block's placement (``_spmd_placement``) names
+# its mesh by key, and the checkpoints and the sentinel's digest find it
+_MESHES: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+
+def mesh_of(key) -> Optional[Mesh]:
+    """The live mesh of a placement's key, None when it is gone."""
+    return _MESHES.get(key)
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,17 @@ Counterpart of ``mxnet_tpu/preemption.py``, whole:
 
 ``notice()`` is callable directly, ``install(exit_fn=...)`` lets a test
 observe the exit instead of dying, and the ``preemption.drain`` injection
-site fires at the start of every drain. The reference also flushes its
-telemetry flight recorder before the exit; the port has no flight
-recorder yet (ROADMAP A7).
+site fires at the start of every drain. The telemetry flight recorder is
+flushed before every exit (``telemetry.flush``, a no-op unless
+``MXNET_TELEMETRY_DIR`` is set), as in the reference.
+
+Inside :func:`cooperative` (``parallel.elastic.run_elastic`` with
+preemption enters it) a notice only sets the draining flag, emits its
+event and arms the watchdog: the loop, whose steps update state in place,
+drains at its next step boundary through
+:func:`finish_cooperative_drain` (the same drain, hooks and exit). A
+signal handler runs between bytecodes of the main thread, anywhere in a
+step; only the loop knows where a step ends.
 """
 from __future__ import annotations
 
@@ -39,7 +47,8 @@ from . import telemetry as _telemetry
 
 __all__ = ["Preempted", "install", "uninstall", "installed", "draining",
            "notice", "drain", "on_drain", "remove_drain_hook", "reset",
-           "exit_code", "grace_s"]
+           "exit_code", "grace_s", "cooperative",
+           "finish_cooperative_drain"]
 
 _LOG = logging.getLogger("mxnet_tpu_torch.preemption")
 
@@ -71,6 +80,7 @@ _STATE: Dict[str, object] = {
     "exit_code": None,          # install-time override, else knob
     "exit_fn": None,            # install-time override, else raise
     "watchdog": None,           # armed threading.Timer
+    "cooperative": 0,           # depth of cooperative() scopes
 }
 _DRAIN_HOOKS: List[Callable[[], None]] = []
 
@@ -197,7 +207,53 @@ def drain() -> float:
     return secs
 
 
+def _flush_telemetry() -> None:
+    try:
+        _telemetry.flush()
+    except OSError:
+        pass
+
+
+class cooperative:
+    """A scope in which a notice only flags the drain; the loop inside it
+    calls :func:`finish_cooperative_drain` at a step boundary."""
+
+    def __enter__(self):
+        with _LOCK:
+            _STATE["cooperative"] += 1
+        return self
+
+    def __exit__(self, *exc):
+        with _LOCK:
+            _STATE["cooperative"] -= 1
+        return False
+
+
+def finish_cooperative_drain() -> None:
+    """The second half of a notice (at once outside :func:`cooperative`,
+    at the loop's step boundary inside it): run :func:`drain`
+    (``engine.waitall()``, then the hooks), disarm the watchdog and exit
+    with the distinguished code (1 when the drain failed)."""
+    code = exit_code()
+    try:
+        drain()
+    except BaseException as e:
+        from . import faults as _faults
+
+        _faults.record_event("preemption.drain", "drain_failed", e)
+        _LOG.error("preemption drain FAILED (%r); exiting 1 — do not "
+                   "trust the newest checkpoint beyond its digest", e)
+        code = 1
+    finally:
+        wd = _STATE["watchdog"]
+        _STATE["watchdog"] = None
+        if wd is not None:
+            wd.cancel()
+    _do_exit(code)
+
+
 def _do_exit(code: int) -> None:
+    _flush_telemetry()
     try:
         sys.stdout.flush()
         sys.stderr.flush()
@@ -222,6 +278,7 @@ def _force_exit() -> None:
                "force-exiting %d", grace_s(), code)
     _telemetry.event("drain", "preemption", phase="grace_exceeded",
                      grace_s=grace_s())
+    _flush_telemetry()
     fn = _STATE["exit_fn"]
     if fn is not None:
         fn(code)
@@ -236,8 +293,10 @@ def notice(signum: Optional[int] = None, frame: object = None) -> None:
     First notice: flip the draining flag, emit the ``drain`` event
     (stamped with the current train-step index), arm the grace
     watchdog, run :func:`drain`, then exit with the distinguished code
-    (drain failure exits 1 instead).  A second notice while draining
-    exits immediately — the supervisor escalated."""
+    (drain failure exits 1 instead); inside :func:`cooperative` the
+    drain and the exit wait for the loop's step boundary.  A second
+    notice while draining exits immediately — the supervisor
+    escalated."""
     _NOTICES.inc()
     first = not _DRAINING.is_set()
     _DRAINING.set()
@@ -258,18 +317,6 @@ def notice(signum: Optional[int] = None, frame: object = None) -> None:
         wd.daemon = True
         wd.start()
         _STATE["watchdog"] = wd
-    code = exit_code()
-    try:
-        drain()
-    except BaseException as e:
-        from . import faults as _faults
-
-        _faults.record_event("preemption.drain", "drain_failed", e)
-        _LOG.error("preemption drain FAILED (%r); exiting 1 — do not "
-                   "trust the newest checkpoint beyond its digest", e)
-        code = 1
-    finally:
-        if wd is not None:
-            wd.cancel()
-            _STATE["watchdog"] = None
-    _do_exit(code)
+    if _STATE["cooperative"] > 0:
+        return                 # the loop drains at its next step boundary
+    finish_cooperative_drain()

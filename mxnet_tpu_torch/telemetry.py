@@ -22,17 +22,27 @@ engines, the fault sites and the preemption drain call:
   wraps it in ``torch.profiler.record_function`` under the same knob, so
   the host bracket shows in a ``torch.profiler`` trace of the device.
 
-Not ported yet (ROADMAP A7): the flight recorder (``flush``,
-``flight_recorder_path``), the fleet ``merge`` and ``merge_chrome_trace``,
-the chrome-trace export through the profiler, ``report`` and the ``main``
-CLI (reference :715-1109).
+- **Chrome-trace export**: every recorded span is also emitted into the
+  profiler's trace buffer while the profiler runs (``profiler.dump``), and
+  the spans of one request's trace link into one flow.
+- **Flight recorder** (reference :705-1109): :func:`flush` writes this
+  process's shard ``telemetry-r<rank>-p<pid>.jsonl`` under
+  ``MXNET_TELEMETRY_DIR`` (rewritten whole through a rename, a line cap,
+  rotation by ``MXNET_TELEMETRY_MAX_MB``); ``engine.waitall()`` and the
+  preemption drain call it. :func:`merge` folds a directory of shards
+  into one fleet snapshot, :func:`merge_chrome_trace` renders it with a
+  lane per process, :func:`report` is the counter table, and
+  ``python -m mxnet_tpu_torch.telemetry {report|trace|merge}``
+  (:func:`main`) inspects either without a script.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
 import weakref
+import zlib
 from collections import deque
 from collections.abc import Mapping
 from typing import Any, Callable, Dict, Iterator, List, Optional
@@ -46,6 +56,8 @@ __all__ = [
     "current_step", "next_step", "span", "record_span", "spans",
     "clear_spans", "KINDS", "tracing_enabled", "new_trace_id",
     "trace_scope", "current_trace", "current_span_id", "trace",
+    "flight_recorder_path", "flush", "merge", "merge_chrome_trace",
+    "report", "main",
 ]
 
 # one lock guards registry structure and every counter value: increments
@@ -407,6 +419,7 @@ _EVENTS_EMITTED = counter(
     "telemetry.events", "structured events emitted through the bus "
     "(the bounded buffer keeps the newest MXNET_TELEMETRY_EVENTS)")
 _EVT_LOCK = threading.Lock()
+_FLUSH_SEQ = [0]          # bus sequence already flushed to disk
 
 _RESERVED_EVENT_KEYS = ("kind", "name", "step", "t_us", "seq",
                         "trace_id", "parent")
@@ -459,7 +472,15 @@ def clear_events() -> None:
 # spans
 # ---------------------------------------------------------------------------
 _SPANS: "deque" = deque(maxlen=2048)
-_SPANS_SEQ = [0]
+_SPANS_SEQ = [0]          # span ids + the flight recorder's flush cursor
+# trace ids whose chrome flow already emitted its "s" (start) arrow: later
+# spans of the same trace emit "t" (step), so a request renders as one flow
+_FLOW_STARTED: set = set()
+
+
+def _flow_id(trace_id: str) -> int:
+    return zlib.crc32(trace_id.encode()) & 0x7FFFFFFF
+
 _SPANS_RECORDED = counter(
     "telemetry.spans", "completed spans recorded (serving / decode / user "
     "categories)")
@@ -494,6 +515,19 @@ def record_span(name: str, cat: str, t0_ns: int, t1_ns: int,
         rec["args"] = dict(args)
     _SPANS_RECORDED.inc()
     _SPANS.append(rec)
+    from . import profiler as _profiler
+
+    _profiler._emit(name, cat, "X", ts=rec["t0_us"], dur=rec["dur_us"],
+                    args=rec.get("args"))
+    if tid is not None:
+        first = tid not in _FLOW_STARTED
+        if first:
+            _FLOW_STARTED.add(tid)
+            if len(_FLOW_STARTED) > 8192:
+                _FLOW_STARTED.clear()
+                _FLOW_STARTED.add(tid)
+        _profiler._emit(f"trace:{tid}", "flow", "s" if first else "t",
+                        ts=rec["t0_us"], flow_id=_flow_id(tid))
     return rec
 
 
@@ -571,3 +605,408 @@ def spans(cat: Optional[str] = None,
 
 def clear_spans() -> None:
     _SPANS.clear()
+    _FLOW_STARTED.clear()
+
+
+# ---------------------------------------------------------------------------
+# exporters: the flight recorder (per-process shards) + fleet merge
+# ---------------------------------------------------------------------------
+_SHARDS_ROTATED = counter(
+    "telemetry.shards_rotated",
+    "flight-recorder shards deleted by the MXNET_TELEMETRY_MAX_MB "
+    "oldest-first size-cap rotation")
+
+
+def _flight_dir() -> Optional[str]:
+    d = _config.get("MXNET_TELEMETRY_DIR")
+    if not d:
+        return None
+    return os.path.expanduser(d)
+
+
+def _process_rank() -> int:
+    """``MXNET_TPU_PROC_ID``, else the ``torch.distributed`` rank when a
+    world is up, else 0."""
+    r = _config.get("MXNET_TPU_PROC_ID")
+    if r is not None:
+        return int(r)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return int(dist.get_rank())
+    return 0
+
+
+def flight_recorder_path() -> Optional[str]:
+    """This process's shard file (``MXNET_TELEMETRY_DIR`` set), else None
+    (recorder off). Shards are stamped with rank and pid,
+    ``telemetry-r<rank>-p<pid>.jsonl``, so every process writes its own
+    file and :func:`merge` folds them back together."""
+    d = _flight_dir()
+    if d is None:
+        return None
+    return os.path.join(
+        d, f"telemetry-r{_process_rank()}-p{os.getpid()}.jsonl")
+
+
+_FLUSH_LOCK = threading.Lock()
+_SPAN_FLUSH_SEQ = [0]     # span sequence already flushed to disk
+
+
+def _shard_line_cap() -> int:
+    # the newest 4x the bus capacity of event and span lines survive
+    return 4 * max(1, int(_config.get("MXNET_TELEMETRY_EVENTS")))
+
+
+def _rotate_shards(directory: str, keep: str) -> int:
+    """``MXNET_TELEMETRY_MAX_MB`` over the shard directory: delete the
+    oldest shards (never ``keep``, this process's own) until the total
+    fits. Returns the shards removed."""
+    cap_mb = float(_config.get("MXNET_TELEMETRY_MAX_MB"))
+    if cap_mb <= 0:
+        return 0
+    cap = cap_mb * 1024 * 1024
+    shards = []
+    try:
+        for fn in os.listdir(directory):
+            if fn.startswith("telemetry-") and fn.endswith(".jsonl"):
+                p = os.path.join(directory, fn)
+                try:
+                    st = os.stat(p)
+                except OSError:
+                    continue
+                shards.append((st.st_mtime, st.st_size, p))
+    except OSError:
+        return 0
+    total = sum(s for _m, s, _p in shards)
+    removed = 0
+    for _mtime, size, p in sorted(shards):
+        if total <= cap:
+            break
+        if os.path.abspath(p) == os.path.abspath(keep):
+            continue
+        try:
+            os.unlink(p)
+        except OSError:
+            continue
+        total -= size
+        removed += 1
+    if removed:
+        _SHARDS_ROTATED.inc(removed)
+    return removed
+
+
+def flush(snapshot_too: bool = True,
+          path: Optional[str] = None) -> Optional[str]:
+    """The flight recorder: every event and span not yet flushed, plus (by
+    default) one fresh ``{"kind": "snapshot"}`` record of all counters,
+    into this process's shard under ``MXNET_TELEMETRY_DIR``. The shard is
+    rewritten whole through a rename, so a kill mid-flush leaves the
+    previous complete shard. A no-op returning None when the knob is
+    unset. ``path`` overrides the shard file (tests)."""
+    path = flight_recorder_path() if path is None else path
+    if path is None:
+        return None
+    with _FLUSH_LOCK:
+        with _EVT_LOCK:
+            pending = [e for e in _EVENTS if e["seq"] > _FLUSH_SEQ[0]]
+            if pending:
+                _FLUSH_SEQ[0] = pending[-1]["seq"]
+        pend_spans = [s for s in list(_SPANS)
+                      if s.get("seq", 0) > _SPAN_FLUSH_SEQ[0]]
+        if pend_spans:
+            _SPAN_FLUSH_SEQ[0] = pend_spans[-1]["seq"]
+        # earlier data lines survive the rewrite (meta and snapshot are
+        # made fresh at each flush: only the newest matters)
+        old: List[str] = []
+        try:
+            with open(path) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        kind = json.loads(line).get("kind")
+                    except ValueError:
+                        continue
+                    if kind not in ("meta", "snapshot"):
+                        old.append(line)
+        except OSError:
+            pass
+        lines = old
+        lines.extend(json.dumps(e, default=str) for e in pending)
+        lines.extend(json.dumps({"kind": "span", **s}, default=str)
+                     for s in pend_spans)
+        cap = _shard_line_cap()
+        if len(lines) > cap:
+            lines = lines[-cap:]
+        meta = {"kind": "meta", "pid": os.getpid(),
+                "rank": _process_rank(),
+                "t_us": time.monotonic_ns() // 1000,
+                "counter_kinds": {n: m["kind"]
+                                  for n, m in registered().items()}}
+        directory = os.path.dirname(path)
+        os.makedirs(directory, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(json.dumps(meta) + "\n")
+            for line in lines:
+                f.write(line + "\n")
+            if snapshot_too:
+                f.write(json.dumps({
+                    "kind": "snapshot", "step": current_step(),
+                    "t_us": time.monotonic_ns() // 1000,
+                    "counters": snapshot()}, default=str) + "\n")
+        os.replace(tmp, path)
+        _rotate_shards(directory, keep=path)
+    return path
+
+
+# -- fleet merge ------------------------------------------------------------
+
+def _read_shard(path: str) -> Dict[str, Any]:
+    sh: Dict[str, Any] = {"path": path, "meta": {}, "snapshot": None,
+                          "events": [], "spans": [], "skipped_lines": 0}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                sh["skipped_lines"] += 1      # a torn tail
+                continue
+            kind = rec.get("kind")
+            if kind == "meta":
+                sh["meta"] = rec
+            elif kind == "snapshot":
+                sh["snapshot"] = rec          # the last one wins
+            elif kind == "span":
+                sh["spans"].append(rec)
+            else:
+                sh["events"].append(rec)
+    return sh
+
+
+def merge(directory: str) -> Dict[str, Any]:
+    """A directory of per-process shards folded into ONE fleet snapshot:
+    cumulative and time counters sum across processes, gauges stay per
+    process, and every event and span comes back stamped with its
+    ``pid``, ``rank`` and ``shard``. Torn or mid-write files (``*.tmp``,
+    invalid lines) are skipped, never fatal."""
+    directory = os.path.expanduser(directory)
+    shards: List[Dict[str, Any]] = []
+    for fn in sorted(os.listdir(directory)):
+        if not (fn.startswith("telemetry-") and fn.endswith(".jsonl")):
+            continue
+        try:
+            shards.append(_read_shard(os.path.join(directory, fn)))
+        except OSError:
+            continue
+    counters: Dict[str, Any] = {}
+    gauges: Dict[str, Dict[str, Any]] = {}
+    events_all: List[Dict[str, Any]] = []
+    spans_all: List[Dict[str, Any]] = []
+    processes: List[Dict[str, Any]] = []
+    skipped = 0
+    for sh in shards:
+        name = os.path.basename(sh["path"])
+        meta = sh["meta"]
+        pid, rank = meta.get("pid"), meta.get("rank", 0)
+        kinds = meta.get("counter_kinds", {})
+        processes.append({"shard": name, "pid": pid, "rank": rank,
+                          "events": len(sh["events"]),
+                          "spans": len(sh["spans"]),
+                          "skipped_lines": sh["skipped_lines"]})
+        skipped += sh["skipped_lines"]
+        snap = (sh["snapshot"] or {}).get("counters", {})
+        for cname, val in snap.items():
+            kind = kinds.get(cname, "cumulative")
+            if kind == "gauge" or val is None:
+                gauges.setdefault(cname, {})[name] = val
+            else:
+                counters[cname] = counters.get(cname, 0) + val
+        for ev in sh["events"]:
+            events_all.append(dict(ev, pid=pid, rank=rank, shard=name))
+        for sp in sh["spans"]:
+            spans_all.append(dict(sp, pid=pid, rank=rank, shard=name))
+    events_all.sort(key=lambda e: e.get("t_us", 0))
+    spans_all.sort(key=lambda s: s.get("t0_us", 0))
+    return {
+        "dir": directory,
+        "shards": [os.path.basename(s["path"]) for s in shards],
+        "processes": processes,
+        "counters": dict(sorted(counters.items())),
+        "gauges": dict(sorted(gauges.items())),
+        "events": events_all,
+        "spans": spans_all,
+        "skipped_lines": skipped,
+    }
+
+
+def merge_chrome_trace(directory: str,
+                       merged: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, Any]:
+    """One chrome trace over every process's shard: a lane per process
+    (its ``pid`` and a ``process_name`` row naming the rank), spans as
+    duration events, and spans that share a ``trace_id`` linked into one
+    flow across processes."""
+    m = merged if merged is not None else merge(directory)
+    events: List[Dict[str, Any]] = []
+    for proc in m["processes"]:
+        pid = proc["pid"] if proc["pid"] is not None else proc["shard"]
+        events.append({"name": "process_name", "ph": "M", "pid": pid,
+                       "args": {"name": f"rank {proc['rank']} "
+                                        f"({proc['shard']})"}})
+    flow_started: set = set()
+    for sp in m["spans"]:
+        pid = sp.get("pid") if sp.get("pid") is not None \
+            else sp.get("shard")
+        ev = {"name": sp["name"], "cat": sp["cat"], "ph": "X",
+              "pid": pid, "tid": sp.get("thread", 0),
+              "ts": sp["t0_us"], "dur": sp["dur_us"]}
+        args = dict(sp.get("args") or {})
+        if sp.get("trace_id"):
+            args["trace_id"] = sp["trace_id"]
+        if args:
+            ev["args"] = args
+        events.append(ev)
+        tid = sp.get("trace_id")
+        if tid:
+            first = tid not in flow_started
+            flow_started.add(tid)
+            events.append({"name": f"trace:{tid}", "cat": "flow",
+                           "ph": "s" if first else "t", "pid": pid,
+                           "tid": sp.get("thread", 0), "ts": sp["t0_us"],
+                           "id": _flow_id(tid)})
+    return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def report(prefix: Optional[str] = None, nonzero_only: bool = True) -> str:
+    """The counter table (name, kind, value), grouped by top-level
+    namespace."""
+    snap = snapshot()
+    kinds = registered()
+    lines = [f"{'Counter':<52}{'Kind':>12}{'Value':>16}", "=" * 80]
+    last_ns = None
+    for name, val in snap.items():
+        if prefix is not None and not name.startswith(prefix):
+            continue
+        if nonzero_only and not val:
+            continue
+        ns = name.split(".", 1)[0]
+        if ns != last_ns:
+            if last_ns is not None:
+                lines.append("-" * 80)
+            last_ns = ns
+        kind = kinds.get(name, {}).get("kind", "?")
+        if isinstance(val, float):
+            lines.append(f"{name:<52}{kind:>12}{val:>16.3f}")
+        else:
+            lines.append(f"{name:<52}{kind:>12}{val!s:>16}")
+    lines.append("=" * 80)
+    lines.append(f"{len(snap)} declared counters; "
+                 f"{len(events())} buffered events; "
+                 f"{len(spans())} buffered spans")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m mxnet_tpu_torch.telemetry {report | trace <id> | merge <dir>}
+# ---------------------------------------------------------------------------
+
+def _merged_report(merged: Dict[str, Any],
+                   prefix: Optional[str] = None) -> str:
+    """The :func:`report` table over a fleet merge."""
+    lines = [f"{'Counter (fleet sum)':<52}{'Value':>16}", "=" * 68]
+    for name, val in merged["counters"].items():
+        if prefix is not None and not name.startswith(prefix):
+            continue
+        if not val:
+            continue
+        if isinstance(val, float):
+            lines.append(f"{name:<52}{val:>16.3f}")
+        else:
+            lines.append(f"{name:<52}{val!s:>16}")
+    lines.append("=" * 68)
+    lines.append(f"{len(merged['shards'])} shard(s): "
+                 f"{', '.join(merged['shards']) or '-'}; "
+                 f"{len(merged['events'])} events, "
+                 f"{len(merged['spans'])} spans"
+                 + (f"; {merged['skipped_lines']} torn line(s) skipped"
+                    if merged["skipped_lines"] else ""))
+    return "\n".join(lines)
+
+
+def _trace_from_merge(merged: Dict[str, Any],
+                      trace_id: str) -> Dict[str, Any]:
+    """:func:`trace` stitched from a shard merge."""
+    evs = [e for e in merged["events"] if e.get("trace_id") == trace_id]
+    sps = [s for s in merged["spans"]
+           if s.get("trace_id") == trace_id or
+           trace_id in ((s.get("args") or {}).get("trace_ids") or ())]
+    records = [dict(e, type="event") for e in evs]
+    records += [dict(s, type="span", t_us=s["t0_us"]) for s in sps]
+    records.sort(key=lambda r: (r["t_us"], r.get("seq", 0)))
+    return {"trace_id": trace_id, "events": evs, "spans": sps,
+            "records": records}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Inspection without a script:
+
+    - ``report [--dir D] [--prefix P]``: the counter table; with ``--dir``
+      the fleet sum over that shard directory.
+    - ``trace <id> [--dir D]``: one request's stitched lifecycle, from
+      the in-process buffers or a shard directory.
+    - ``merge <dir> [--json] [--chrome OUT]``: fold the shards into one
+      snapshot; ``--json`` dumps the whole merge, ``--chrome`` writes the
+      chrome trace with a lane per process.
+    """
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m mxnet_tpu_torch.telemetry",
+                                description=__doc__.splitlines()[0])
+    sub = p.add_subparsers(dest="cmd", required=True)
+    rp = sub.add_parser("report", help="counter table")
+    rp.add_argument("--dir", default=None,
+                    help="shard directory (default: this process)")
+    rp.add_argument("--prefix", default=None)
+    tp = sub.add_parser("trace", help="one request's stitched lifecycle")
+    tp.add_argument("trace_id")
+    tp.add_argument("--dir", default=None,
+                    help="shard directory (default: in-process buffers)")
+    mp = sub.add_parser("merge", help="fold shards into one snapshot")
+    mp.add_argument("dir")
+    mp.add_argument("--json", action="store_true",
+                    help="dump the full merge as JSON")
+    mp.add_argument("--chrome", default=None, metavar="OUT",
+                    help="also write the merged chrome trace here")
+    a = p.parse_args(argv)
+    if a.cmd == "report":
+        if a.dir:
+            print(_merged_report(merge(a.dir), prefix=a.prefix))
+        else:
+            print(report(prefix=a.prefix))
+        return 0
+    if a.cmd == "trace":
+        tr = (_trace_from_merge(merge(a.dir), a.trace_id) if a.dir
+              else trace(a.trace_id))
+        print(json.dumps(tr, indent=2, default=str))
+        return 0 if tr["records"] else 1
+    merged = merge(a.dir)
+    if a.chrome:
+        with open(a.chrome, "w") as f:
+            json.dump(merge_chrome_trace(a.dir, merged), f)
+    if a.json:
+        print(json.dumps(merged, default=str))
+    else:
+        print(_merged_report(merged))
+    return 0
+
+
+if __name__ == "__main__":          # pragma: no cover - CLI entry
+    import sys as _sys
+
+    _sys.exit(main())

@@ -21,8 +21,8 @@ held against the JAX package's ``tests/test_moe_step.py`` and
 
 The reference's pp tests on the sentinel, ``CheckpointManager`` and
 preemption (``tests/test_pp_step.py:376-450``) and the restore across an
-``ep`` mesh change (``tests/test_moe_step.py:283``) wait for the elastic
-layer (ROADMAP A7).
+``ep`` mesh change (``tests/test_moe_step.py:283``) are
+``tests/test_torch_elastic_world.py``'s.
 """
 import numpy as onp
 import pytest

@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Phases 11 (serving), 12 (speculative decoding), 13 (the
-mixture-of-experts LM), 14 (the mesh of one) and 15 (the LM on a mesh) of
-``chip_smoke.py`` alone, on one card: a quicker look at those paths than
-the whole script.
+mixture-of-experts LM), 14 (the mesh of one), 15 (the LM on a mesh) and 16
+(the runtime around the step: prefetch, device metrics, the sentinel, the
+preemption drill) of ``chip_smoke.py`` alone, on one card: a quicker look
+at those paths than the whole script.
 
-    python3 tools/torch_chip_smoke_phases.py [11] [12] [13] [14] [15]
+    python3 tools/torch_chip_smoke_phases.py [11] [12] [13] [14] [15] [16]
 
 A phase may be named more than once (``12 12 12`` runs phase 12 three
-times in one process). With no argument it runs 12, 13, 14 and 15. It
+times in one process). With no argument it runs 12, 13, 14, 15 and 16. It
 builds the port's kernels first (phase 1 of the script: phases 13 and 15
 run the flash-attention kernels, phase 14 the conv + batch-norm and
-epilogue kernels) and exits with the script's failure code at the first
-failed gate.
+epilogue kernels, phase 16 the conv + batch-norm kernels) and exits with
+the script's failure code at the first failed gate.
 """
 import json
 import os
@@ -68,6 +69,11 @@ def main(which) -> int:
                                   traced)
             print(f"phase 15 launch counts of the mesh and pp runs {counts}, "
                   f"traced in the replays {traced}")
+        elif phase == "16":
+            counts, traced = {}, {}
+            out = c.runtime_phase(mx, ck, config, card_line, counts, traced)
+            print(f"phase 16 launch counts of the pipelined, synchronous and "
+                  f"sentinel runs {counts}, traced in the replay {traced}")
         else:
             print(f"torch_chip_smoke_phases: no phase {phase}",
                   file=sys.stderr)
@@ -81,4 +87,4 @@ def main(which) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15"]))
+    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15", "16"]))
