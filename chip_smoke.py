@@ -333,6 +333,33 @@ Phases, in order; any failure exits non-zero before the result line:
    ``preemption.drain_s``; printed: the recovery wall, restore and drain
    ms and the captures on restart. The path's launches are those of (a)
    and (b), name ``runtime``. A JSON line holds phase 16's numbers.
+17. Mixed precision (``amp``). (k) The fp16 forms of B4, B5, B6 and B8
+   against their plain versions at the edges and cases of phases 5 and 5b
+   and at every site shape of the ResNet-50 step, with bf16's bounds
+   scaled to fp16's ulp, bitwise repeatable; (t) each fp16 kernel beside
+   its bf16 form over a step's launches at every site shape (interleaved,
+   one call), and at its first timed site with its plain version and the
+   library call. (a) ResNet-50 v1 at batch RESNET_BATCH, fp32 parameters
+   from seed 0, under ``amp.init("float16")`` with ``amp.init_trainer``,
+   SGD momentum through ``Trainer.compile_step`` on the conv + BN route,
+   AMP_STEPS steps with the batch of step AMP_OVERFLOW_AT scaled to
+   overflow fp16, once with ``MXNET_AMP_LAG=0`` and once with 1 (cuDNN
+   deterministic in both): the lag-1 run bitwise the lag-0 run
+   (parameters, momenta, the scaler's scale and clean-step count), the
+   overflow step leaving every parameter and momentum as it was and
+   halving the scale, one dispatch a replay with each flag read one step
+   late and no other host read, the first step's loss within
+   AMP_LOSS_RTOL of the fp32 step's on the same weights, and a traced
+   replay running B4 and B8 in fp16 at the sites the route fuses under
+   fp16 AMP (AMP16_CONV_BN: an fp16 input is not fused, as in the
+   reference); printed: the captured step's wall. (b) The epilogue route
+   in fp16, B5 and B6 traced in fp16. (c) ``amp.init()`` (bf16, no
+   scaler) on the conv + BN route: B4 and B8 traced in bf16 at all 52
+   sites. (d) ``amp.convert_hybrid_block(net, "float16")`` hybridized,
+   held to the fp32 net within AMP_INFER_RTOL, and the captures of its
+   calls across ``amp.init`` / ``uninit``. The path's launches are those
+   of (a)-(c), name ``amp``; the kernels line gains a row per fp16 form.
+   A JSON line holds phase 17's numbers.
 10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
@@ -485,7 +512,10 @@ TRAIN_LOSS_ATOL = 1e-2
 TIMING_ROUNDS = 5     # interleaved replays of a graph of TIMING_ITERS calls
 TIMING_ITERS = 50
 PROFILE_FORWARDS = 5
-PROFILE_STEPS = 3
+# steps a profile averages over: 2 since PR 19 (3 before), which took a
+# third of the script's time off its profiles as the script reached 89% of
+# its 1200 s limit
+PROFILE_STEPS = 2
 # a profiler trace can miss the first kernels of a graph replay that starts
 # as soon as the trace does (the LM train step's flash-forward launches),
 # and missed none after a 50 ms wait inside the trace before the replay
@@ -535,7 +565,9 @@ STATS_RTOL = 1e-5
 # last fp32 bits, so the outputs may be one bf16 ulp (2^-7 relative) apart.
 # fp32: z sums K products in another order, ~sqrt(K) * 2^-24 * Σ|x w|,
 # about 1e-5 at K 1024, then scale (< 1.5) and shift.
-EPI_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
+# fp16 (phase 17): bf16's bound scaled to fp16's ulp, 2^-10 against 2^-7.
+EPI_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float16: (1.25e-3, 1.25e-3),
+           torch.float32: (1e-4, 1e-5)}
 RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 128, 224, 5
 # bench.py's lane_train recipe is SGD at lr 0.1. With the reference's
 # Xavier fans on OHWI weights (kh*kw*Cin in, Cout*kw*Cin out) the conv
@@ -626,7 +658,8 @@ BORDER = 10.0
 # same product or conv of |x| and |w| (fp32 sums in another order) + Z_ULP
 # x |z|: in bf16 each side rounds its fp32 z once, so the two may land one
 # bf16 ulp (2^-7 relative at most) apart
-Z_ULP = {torch.bfloat16: 2.0 ** -7, torch.float32: 0.0}
+Z_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
+         torch.float32: 0.0}
 
 # -- the capture phase (program_store, cached_step) --
 # the captured ResNet step's learning rate drops to CAPTURE_LR2 after
@@ -898,11 +931,12 @@ def spread(times) -> str:
 
 def profile(fn, n: int, what: str, card_line: str) -> None:
     """Trace n calls of fn: wall and device-busy ms per call, the device's
-    idle share, and the kernels by device time."""
+    idle share, and the kernels by device time. The trace records the
+    device only: only its kernels are read, and recording every host op
+    of an eager step cost a third of the script's time."""
     from torch.profiler import ProfilerActivity, profile as trace
     torch.cuda.synchronize()
-    with trace(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+    with trace(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -979,8 +1013,10 @@ WGMMA_KERNELS = {
                             r"(\d+)E", 8),
     "flash_attention_bwd": (r"(dq|dkv)_wgmmaI\d+(__nv_bfloat16|__half)Li"
                             r"(\d+)E", 8),
-    "conv_bn_epilogue": (r"gemm_wgmmaILi(\d+)ELi(\d)ELi(\d)E", 8),
-    "convkxk_bn_stats": (r"gemm_wgmmaILi(\d+)ELi(\d)ELi(\d)E", 3),
+    "conv_bn_epilogue": (r"gemm_wgmmaILi(\d+)ELi(\d)ELi(\d)E\d+"
+                         r"(__nv_bfloat16|__half)", 16),
+    "convkxk_bn_stats": (r"gemm_wgmmaILi(\d+)ELi(\d)ELi(\d)E\d+"
+                         r"(__nv_bfloat16|__half)", 6),
     "int8_matmul": (r"int8_wgmmaILb(\d)ELb(\d)E", 4),
 }
 # gemm_wgmma's KIND, by the kernel it serves
@@ -1022,6 +1058,7 @@ def wgmma_report(_build) -> None:
                     f"{cfg(2)} tile buffer{'' if cfg(2) == 1 else 's'})",
                     cfg(0))
         bn, nrb, kind = int(args[0]), int(args[1]), args[2]
+        elem = "bf16" if args[3] == "__nv_bfloat16" else "fp16"
         k = 4096 if nrb == 1 else 64      # the ring depth follows K
         if kind == "3":
             cfg = lambda what: kxk_config(bn, what)
@@ -1029,8 +1066,9 @@ def wgmma_report(_build) -> None:
             cfg = lambda what: epi_config(bn, k, what)
         else:
             cfg = lambda what: stats_config(bn, k, int(kind == "2"), what)
-        return (f"gemm_wgmma<{bn}, {nrb}, {GEMM_KINDS[kind]}> ({cfg(1)}-stage "
-                f"ring, {nrb} tile buffer{'' if nrb == 1 else 's'})", cfg(0))
+        return (f"gemm_wgmma<{bn}, {nrb}, {GEMM_KINDS[kind]}, {elem}> "
+                f"({cfg(1)}-stage ring, {nrb} tile buffer"
+                f"{'' if nrb == 1 else 's'})", cfg(0))
 
     for source, (pattern, want) in WGMMA_KERNELS.items():
         log = _build.build_log(source)
@@ -1327,13 +1365,14 @@ def note_prefix_loss(prof) -> None:
         TRACE_LOSS["most"] = max(TRACE_LOSS["most"], lost)
 
 
-def traced_launches(ck, fn, trace=True, total=None):
+def traced_launches(ck, fn, trace=True, total=None, by_dtype=None):
     """fn(), under a profiler that traces the device only if ``trace``:
     (its result, the port's kernel launches that the wrappers counted, and
     those the trace saw run on the device, each by wrapper and without
     zeros; None untraced). A replayed graph runs no Python, so only the
     trace sees its launches; a call that captures is not traced. The
-    traced counts are added into ``total``."""
+    traced counts are added into ``total``, and the conv / batch-norm TMA
+    + wgmma kernels' by (wrapper, element type) into ``by_dtype``."""
     from torch.profiler import ProfilerActivity, profile as trace_
     if trace and not _PROFILER_WARM:
         # the first trace of a process can miss its first kernels
@@ -1362,6 +1401,10 @@ def traced_launches(ck, fn, trace=True, total=None):
                 if evt.device_type == torch.autograd.DeviceType.CUDA else None
             if name:
                 traced[name] = traced.get(name, 0) + 1
+                dtype = ck.kernel_dtype(evt.name)
+                if by_dtype is not None and dtype:
+                    by_dtype[(name, dtype)] = \
+                        by_dtype.get((name, dtype), 0) + 1
         if total is not None:
             for k, n in traced.items():
                 total[k] = total.get(k, 0) + n
@@ -6539,6 +6582,571 @@ def runtime_phase(mx, ck, config, card_line, counts, traced,
     return {"pipeline": pipeline, "sentinel": snt, "drill": drill}
 
 
+# -- 17. mixed precision (amp) -------------------------------------------------
+
+AMP_KERNELS = ("matmul_bn_stats", "matmul_stats", "matmul_epilogue",
+               "convkxk_bn_stats")
+AMP_REPLACES = {"matmul_bn_stats": 316, "matmul_stats": 512,
+                "matmul_epilogue": 574, "convkxk_bn_stats": 880}
+AMP_SOURCES = {"convkxk_bn_stats": "convkxk_bn_stats.cu"}
+# fused sites a step under fp16 AMP: the Gluon gates fuse on an fp32 or
+# bf16 INPUT only, as the reference's do, and a fused site's output is in
+# the conv's dtype, fp16, so a conv fed by one stays unfused (the cast
+# inside the op is what brings fp16 to the kernels); bf16 fuses every site
+AMP16_CONV_BN = {"matmul_bn_stats": 28, "convkxk_bn_stats": 4}
+AMP16_CONV_BN_SITES = {"1x1": 28, "kxk": 4, "refused": 21}
+AMP16_EPILOGUE = {"matmul_stats": 17, "matmul_epilogue": 17}
+# the first steps overflow at this init (the reference's Xavier fans on
+# OHWI weights give weight gradients of ~1e3 and more, summed over the
+# batch's per-sample losses), so the scale halves from 2^16 until a step
+# is clean; AMP_STEPS leave room for that before the forced overflow
+AMP_STEPS, AMP_OVERFLOW_AT, AMP_OVERFLOW_X = 20, 17, 1e6
+AMP_SCALE0 = 2.0 ** 16     # LossScaler's first scale
+AMP_BF16_STEPS, AMP_EPI_STEPS = 3, 3
+# the first step's mean loss under fp16 AMP against the fp32 step's on the
+# same weights (no update before it): 50 layers of fp16 operands with fp32
+# accumulation and fp32 batch norm; measured 1e-3 or less on the narrow
+# net (tests/test_torch_amp_step.py)
+AMP_LOSS_RTOL = 1e-2
+# convert_hybrid_block(net, "float16") logits against the fp32 net's, the
+# same batch in training mode: relative L2 (fp16 weights and activations
+# through 50 layers; measured 3.09e-2 on the card)
+AMP_INFER_RTOL = 5e-2
+
+
+def port_amp():
+    """(amp, the compiled step module, the ndarray module) of the port."""
+    from mxnet_tpu_torch import amp, cached_step
+    from mxnet_tpu_torch.ndarray import ndarray as ndmod
+    return amp, cached_step, ndmod
+
+
+def amp_kernel_phase(ck) -> dict:
+    """Phase 17k: the fp16 forms of B4, B5, B6 and B8 against their plain
+    versions, with bf16's bounds scaled to fp16's ulp, at the edges of
+    phases 5 and 5b, at their KxK cases and at every site shape of the
+    ResNet-50 step at batch RESNET_BATCH; every output and statistic
+    bitwise repeatable. Returns the max abs err of each at the site
+    shapes."""
+    dt, first = torch.float16, (lambda t: t[0])
+    edge = {k: (-1.0, None) for k in AMP_KERNELS}
+    seed = 3000
+    for m, k, n in [(m, k, n) for m in EPI_EDGE_MS for k in EPI_EDGE_KS
+                    for n in STATS_EDGE_NS] + STATS_WALK_CASES:
+        seed += 1
+        x, w = epi_inputs(m, k, n, dt, seed)[:2]
+        what = f"({m}, {k}, {n}) fp16"
+        edge["matmul_stats"] = max(edge["matmul_stats"], (check_stats(
+            ck, x, w, what), (m, k, n)), key=first)
+        for relu in (False, True):
+            edge["matmul_bn_stats"] = max(edge["matmul_bn_stats"], (
+                check_bn_stats(ck, x, w, relu, f"{what} relu {relu}"),
+                (m, k, n, relu)), key=first)
+    for m in EPI_EDGE_MS:
+        for k in EPI_EDGE_KS:
+            for n in EPI_EDGE_NS:
+                seed += 1
+                x, w, sc, sh, r = epi_inputs(m, k, n, dt, seed)
+                for res in (None, r):
+                    for relu in (False, True):
+                        edge["matmul_epilogue"] = max(
+                            edge["matmul_epilogue"], (check_epilogue(
+                                ck, x, w, sc, sh, res, relu,
+                                f"edge ({m}, {k}, {n}) fp16"),
+                                (m, k, n, res is not None, relu)), key=first)
+    for i, (xshape, cout, kernel, pad) in enumerate(KXK_CASES):
+        x, w = kxk_inputs(xshape, cout, kernel, dt, seed=3100 + i)
+        edge["convkxk_bn_stats"] = max(edge["convkxk_bn_stats"], (
+            check_convkxk(ck, x, w, pad, f"{xshape} -> {cout}, kernel "
+                          f"{kernel}, pad {pad}, fp16"), xshape), key=first)
+    print("fp16 conv + BN kernels vs plain at the edges and cases of phases "
+          "5 and 5b, within bf16's bounds scaled to fp16's ulp and bitwise "
+          "repeatable; largest abs err " + ", ".join(
+              f"{k} {e:.3e} at {at}" for k, (e, at) in edge.items())
+          + "  ok")
+    site = {k: (-1.0, None) for k in AMP_KERNELS}
+    for i, (side, k, n, res, relu) in enumerate(RESNET_SITE_SHAPES):
+        m = RESNET_BATCH * side * side
+        x, w, sc, sh, r = epi_inputs(m, k, n, dt, seed=3200 + i)
+        what = f"site ({m}, {k}, {n}) fp16"
+        site["matmul_stats"] = max(site["matmul_stats"], (check_stats(
+            ck, x, w, what), (m, k, n)), key=first)
+        site["matmul_epilogue"] = max(site["matmul_epilogue"], (
+            check_epilogue(ck, x, w, sc, sh, r if res else None, relu, what),
+            (m, k, n)), key=first)
+        del x, w, sc, sh, r
+    for i, (side, k, n) in enumerate(C1X1_SITE_SHAPES):
+        m = RESNET_BATCH * side * side
+        x, w = epi_inputs(m, k, n, dt, seed=3300 + i)[:2]
+        site["matmul_bn_stats"] = max(site["matmul_bn_stats"], (
+            check_bn_stats(ck, x, w, False, f"site ({m}, {k}, {n}) fp16"),
+            (m, k, n)), key=first)
+    for i, (side, c) in enumerate(KXK_SITE_SHAPES):
+        xshape = (RESNET_BATCH, side, side, c)
+        x, w = kxk_inputs(xshape, c, (3, 3), dt, seed=3400 + i)
+        site["convkxk_bn_stats"] = max(site["convkxk_bn_stats"], (
+            check_convkxk(ck, x, w, (1, 1), f"site {xshape} fp16"), xshape),
+            key=first)
+    torch.cuda.synchronize()
+    print("fp16 conv + BN kernels vs plain at every site shape of the "
+          f"ResNet-50 step, batch {RESNET_BATCH}: within bounds, bitwise "
+          "repeatable; largest abs err " + ", ".join(
+              f"{k} {e:.3e} at {at}" for k, (e, at) in site.items())
+          + "  ok")
+    return {k: e for k, (e, _) in site.items()}
+
+
+def amp_kernel_timings(ck, card_line) -> dict:
+    """Phase 17t: each fp16 kernel beside its bf16 form at every site shape
+    of the step (interleaved CUDA-graph replays in one call), summed over
+    a step's launches; and at its first timed site (stage-1 conv3, stage
+    1's 3x3) the fp16 kernel, its plain version and the library call of
+    the bare product or conv, beside the bound (the same as bf16's: the
+    same bytes and the same tensor-core rate)."""
+    import torch.nn.functional as F
+    dts = {"fp16": torch.float16, "bf16": torch.bfloat16}
+    sites = {k: [] for k in AMP_KERNELS}
+
+    def add(name, shape, count, fns, bound):
+        t = time_ms(fns)
+        sites[name].append(dict(shape=shape, launches=count,
+                                bound_ms=bound[0], bound_by=bound[1],
+                                **{f"{d}_ms": statistics.median(t[d])
+                                   for d in dts}))
+    launches = dict.fromkeys(C1X1_SITE_SHAPES, 0)
+    for (side, k, n, _r, _l), c in zip(RESNET_SITE_SHAPES,
+                                       RESNET_SITE_LAUNCHES):
+        launches[(side, k, n)] += c
+    for i, ((side, k, n), count) in enumerate(launches.items()):
+        m = RESNET_BATCH * side * side
+        xs = {d: epi_inputs(m, k, n, t, seed=3500 + i)[:2]
+              for d, t in dts.items()}
+        for name in STATS_KERNELS:
+            fn = getattr(ck, name)
+            add(name, [m, k, n], count,
+                {d: (lambda fn=fn, x=x, w=w: fn(x, w))
+                 for d, (x, w) in xs.items()}, stats_bound_ms(name, m, k, n))
+        del xs
+    for i, ((side, k, n, res, relu), count) in enumerate(zip(
+            RESNET_SITE_SHAPES, RESNET_SITE_LAUNCHES)):
+        m = RESNET_BATCH * side * side
+        xs = {d: epi_inputs(m, k, n, t, seed=3600 + i)
+              for d, t in dts.items()}
+        add("matmul_epilogue", [m, k, n], count, {
+            d: (lambda x=x, w=w, sc=sc, sh=sh, r=r: ck.matmul_epilogue(
+                x, w, sc, sh, r if res else None, relu))
+            for d, (x, w, sc, sh, r) in xs.items()},
+            epi_bound_ms(m, k, n, True, res))
+        del xs
+    for i, ((side, c), count) in enumerate(zip(KXK_SITE_SHAPES,
+                                               KXK_SITE_LAUNCHES)):
+        xshape = (RESNET_BATCH, side, side, c)
+        xs = {d: kxk_inputs(xshape, c, (3, 3), t, seed=3700 + i)
+              for d, t in dts.items()}
+        m = RESNET_BATCH * side * side
+        add("convkxk_bn_stats", [*xshape, c], count, {
+            d: (lambda x=x, w=w: ck.convkxk_bn_stats(x, w, (1, 1)))
+            for d, (x, w) in xs.items()},
+            conv_bn_bound_ms(2 * (2 * m * c + 9 * c * c) + 8 * c,
+                             2 * m * 9 * c * c))
+        del xs
+    out = {}
+    for name in AMP_KERNELS:
+        step = {key: sum(s["launches"] * s[key] for s in sites[name])
+                for key in ("fp16_ms", "bf16_ms", "bound_ms")}
+        # the first timed site: the kernel, plain and library in fp16
+        if name == "convkxk_bn_stats":
+            side, c = KXK_SITE_SHAPES[0]
+            xshape = (RESNET_BATCH, side, side, c)
+            x, w = kxk_inputs(xshape, c, (3, 3), torch.float16, seed=3800)
+            xc, wc = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2)
+            fns = {"ms": lambda: ck.convkxk_bn_stats(x, w, (1, 1)),
+                   "plain_ms": lambda: ck.convkxk_bn_stats_reference(
+                       x, w, (1, 1)),
+                   "library_ms": lambda: F.conv2d(xc, wc, padding=1)}
+            shape, at = [*xshape, c, "fp16"], sites[name][0]
+        else:
+            m, k, n = EPI_SITES[0]
+            x, w, sc, sh, r = epi_inputs(m, k, n, torch.float16, seed=3800)
+            kernel = {"matmul_bn_stats": lambda: ck.matmul_bn_stats(x, w),
+                      "matmul_stats": lambda: ck.matmul_stats(x, w),
+                      "matmul_epilogue": lambda: ck.matmul_epilogue(
+                          x, w, sc, sh, r, True)}[name]
+            plain = {"matmul_bn_stats": lambda: ck.matmul_bn_stats_reference(
+                         x, w),
+                     "matmul_stats": lambda: ck.matmul_stats_reference(x, w),
+                     "matmul_epilogue": lambda: ck.matmul_epilogue_reference(
+                         x, w, sc, sh, r, True)}[name]
+            fns = {"ms": kernel, "plain_ms": plain,
+                   "library_ms": lambda: torch.matmul(x, w)}
+            shape = [m, k, n, "fp16"]
+            at = (stats_bound_ms(name, m, k, n) if name != "matmul_epilogue"
+                  else epi_bound_ms(m, k, n, True))
+            at = dict(bound_ms=at[0], bound_by=at[1])
+        t = time_ms(fns)
+        row = {key: statistics.median(v) for key, v in t.items()}
+        out[name] = dict(shape=shape, bound_ms=at["bound_ms"],
+                         bound_by=at["bound_by"], **row, per_step=step,
+                         sites=sites[name])
+        del fns, x, w
+        print(f"{name} fp16 at {shape}: kernel {spread(t['ms'])}, plain "
+              f"{spread(t['plain_ms'])}, library {spread(t['library_ms'])}"
+              f"; bound {at['bound_ms']:.5f} ms ({at['bound_by']}). Over a "
+              f"step's {sum(s['launches'] for s in sites[name])} launches "
+              f"at every site shape: fp16 {step['fp16_ms']:.4f} ms, bf16 "
+              f"{step['bf16_ms']:.4f} ms (interleaved, the same call), "
+              f"bound {step['bound_ms']:.4f} ms [{card_line}]")
+    torch.cuda.empty_cache()
+    return out
+
+
+def amp_tally(ck, counts, counted_fp16) -> None:
+    """Add the wrappers' launch counts since the last reset into
+    ``counts``, and their fp16 launches into ``counted_fp16``."""
+    for k, n in ck.launch_counts().items():
+        if n:
+            counts[k] = counts.get(k, 0) + n
+    for (k, d), n in ck.launch_counts_by_dtype().items():
+        if d == "fp16":
+            counted_fp16[k] = counted_fp16.get(k, 0) + n
+
+
+def same_bits(a, b) -> bool:
+    """a and b bitwise equal, NaNs included (the overflow batch leaves NaN
+    in the running statistics, which torch.equal would call unequal)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.is_floating_point():
+        n = a.element_size()
+        return torch.equal(a.contiguous().view(ints[n]),
+                           b.contiguous().view(ints[n]))
+    return torch.equal(a, b)
+
+
+def trained_state(trainer):
+    """Clones of the trainable parameters and their optimizer states (the
+    batch-norm running statistics, which every forward updates, apart)."""
+    states = trainer._init_states()
+    return [p.data().detach().clone() for p in trainer._params] + \
+        [t.detach().clone() for st in states
+         for t in (st if isinstance(st, (list, tuple)) else [st])]
+
+
+def amp_trace(ck, fn, by_dtype):
+    """fn() traced: (result, traced launches by wrapper, by (wrapper,
+    dtype))."""
+    seen = {}
+    out, _counted, traced = traced_launches(ck, fn, by_dtype=seen)
+    for key, n in seen.items():
+        by_dtype[key] = by_dtype.get(key, 0) + n
+    return out, traced, seen
+
+
+def amp_net(mx, amp, config, route_modes, dtype, lag):
+    """A fresh ResNet-50 (seed 0, fp32 parameters) hybridized, AMP on in
+    ``dtype``, an SGD momentum trainer with the scaler, its compiled step:
+    (net, trainer, step)."""
+    for route, mode in route_modes:
+        set_fused(config, mode, route)
+    os.environ["MXNET_AMP_LAG"] = str(lag)
+    config.refresh("MXNET_AMP_LAG")
+    x, _y = image_batch(2, torch.float32)
+    net = resnet50(mx, x)
+    net.hybridize()
+    amp.init(dtype)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", dict(RESNET_OPT))
+    amp.init_trainer(trainer)
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    step = trainer.compile_step(net, lambda n, a, b: ce(n(a), b))
+    return net, trainer, step
+
+
+def amp_fp16_run(mx, ck, config, lag, batches, counts, traced, by_dtype,
+                 counted_fp16, card_line):
+    """17a: AMP_STEPS fp16 steps on the conv + BN route with the gate at
+    ``lag``; the batch of step AMP_OVERFLOW_AT scaled by AMP_OVERFLOW_X to
+    overflow fp16. Returns the run's record."""
+    amp, cs, ndmod = port_amp()
+    engine = port_runtime()[0]
+    net, trainer, step = amp_net(mx, amp, config, ((EPILOGUE, 0),
+                                                   (CONV_BN, 1)),
+                                 "float16", lag)
+    scaler = trainer._amp_loss_scaler
+    ck.reset_launch_counts()
+    resnet_mod = port_gluon()[2]
+    resnet_mod.reset_fused_conv_bn_counts()
+    losses, scales, before, after = [], [], None, None
+
+    def marks():
+        return (cs.dispatch_count(), cs.deferred_read_count(),
+                ndmod.host_sync_count(), engine.sync_count(),
+                cs.trace_count())
+    r0 = cs.deferred_read_count()
+    for i in range(AMP_STEPS):
+        if i == 1:
+            c0 = marks()      # the window: the replays after the capture
+        x, y = batches[i % len(batches)]
+        if i == AMP_OVERFLOW_AT:
+            x = x * AMP_OVERFLOW_X
+            before = trained_state(trainer)
+        losses.append(step(x, y, batch_size=RESNET_BATCH))
+        scales.append(scaler.loss_scale)
+        if i == AMP_OVERFLOW_AT:
+            after = trained_state(trainer)
+        if i == 0:
+            sites = resnet_mod.fused_conv_bn_counts()
+            first = ck.launch_counts_by_dtype()
+    c1 = marks()
+    window = dict(zip(("dispatches", "deferred_reads", "host_reads",
+                       "engine_syncs", "captures"),
+                      (b - a for a, b in zip(c0, c1))))
+    window["deferred_reads_in_run"] = cs.deferred_read_count() - r0
+    # a traced replay (outside the counted window)
+    x, y = batches[0]
+    _out, tr, seen = amp_trace(ck, lambda: step(x, y,
+                                                batch_size=RESNET_BATCH),
+                               by_dtype)
+    engine.waitall()
+    wall = event_ms(lambda: step(x, y, batch_size=RESNET_BATCH))
+    engine.waitall()
+    amp_tally(ck, counts, counted_fp16)
+    for k, n in tr.items():
+        traced[k] = traced.get(k, 0) + n
+    rec = dict(lag=lag, losses=[float(l.float().mean()) for l in losses],
+               scales=scales, final_scale=scaler.loss_scale,
+               unskipped=scaler._unskipped, window=window, sites=sites,
+               first_call=first, traced=seen, wall_ms=wall,
+               state=state_of(trainer, net), before=before, after=after)
+    amp.uninit()
+    del net, trainer, step
+    torch.cuda.empty_cache()
+    return rec
+
+
+def amp_fp32_loss(mx, config, batch):
+    """The mean loss of the fp32 step's forward on the initial weights
+    (training mode, no AMP, unfused), and the largest |gradient| of a
+    trainable parameter of that step's backward (the scale fp16 can
+    hold is below 65504 over it)."""
+    set_fused(config, 0, EPILOGUE)
+    set_fused(config, 0, CONV_BN)
+    x, y = batch
+    net = resnet50(mx, image_batch(2, torch.float32)[0])
+    ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with mx.autograd.record():
+        loss = ce(net(x), y)
+    mx.autograd.backward(loss)
+    gmax = max(float(p.grad().abs().max())
+               for p in net.collect_params().values()
+               if p.grad_req != "null")
+    loss = float(loss.mean())
+    del net
+    torch.cuda.empty_cache()
+    return loss, gmax
+
+
+def amp_short_run(mx, ck, config, route_modes, dtype, steps, batches,
+                  counts, traced, by_dtype, counted_fp16):
+    """17b / 17c: ``steps`` steps under AMP in ``dtype`` on the routes of
+    ``route_modes``, the last one traced. Returns (losses, traced launches
+    by (wrapper, dtype) of that replay, fused sites of the first call)."""
+    amp = port_amp()[0]
+    engine = port_runtime()[0]
+    resnet_mod = port_gluon()[2]
+    net, trainer, step = amp_net(mx, amp, config, route_modes, dtype, 1)
+    ck.reset_launch_counts()
+    resnet_mod.reset_fused_conv_bn_counts()
+    losses = []
+    for i in range(steps - 1):
+        x, y = batches[i % len(batches)]
+        losses.append(step(x, y, batch_size=RESNET_BATCH))
+    x, y = batches[(steps - 1) % len(batches)]
+    out, tr, seen = amp_trace(ck, lambda: step(x, y,
+                                               batch_size=RESNET_BATCH),
+                              by_dtype)
+    losses.append(out)
+    engine.waitall()
+    amp_tally(ck, counts, counted_fp16)
+    for k, n in tr.items():
+        traced[k] = traced.get(k, 0) + n
+    amp.uninit()
+    del net, trainer, step
+    torch.cuda.empty_cache()
+    return [float(l.float().mean()) for l in losses], seen
+
+
+def amp_infer_phase(mx, ps, config) -> dict:
+    """17d: ``convert_hybrid_block(net, "float16")`` hybridized against the
+    fp32 net on one batch in training mode (batch statistics), recording
+    nothing; then captures: the first call captures, the next replays,
+    ``amp.init`` and ``amp.uninit`` each make the next call capture."""
+    amp = port_amp()[0]
+    set_fused(config, 0, EPILOGUE)
+    set_fused(config, 0, CONV_BN)
+    x, _y = image_batch(RESNET_BATCH, torch.float32)
+    net = resnet50(mx, image_batch(2, torch.float32)[0])
+    with mx.autograd.train_mode():
+        ref = net(x).float()
+        amp.convert_hybrid_block(net, "float16")
+        net.hybridize()
+        ns = ps.namespace("hybrid_forward")
+        caps = []
+
+        def call():
+            t0 = ns.traces
+            out = net(x)
+            caps.append(ns.traces - t0)
+            return out
+        got = call().float()
+        call()
+        amp.init("float16")
+        call()
+        amp.uninit()
+        call()
+    torch.cuda.synchronize()
+    err = float((got - ref).norm() / ref.norm())
+    dtypes = sorted({str(p.data().dtype)[6:]
+                     for p in net.collect_params().values()})
+    if not torch.isfinite(got).all() or err > AMP_INFER_RTOL:
+        fail(f"17d: convert_hybrid_block fp16 logits vs fp32: relative L2 "
+             f"{err:.3e} > {AMP_INFER_RTOL}")
+    if caps != [1, 0, 1, 1]:
+        fail(f"17d: captures of the calls (first, again, after amp.init, "
+             f"after amp.uninit) {caps}, want [1, 0, 1, 1]")
+    print(f"17d: convert_hybrid_block(net, 'float16') hybridized, logits vs "
+          f"the fp32 net's relative L2 {err:.3e} (bound {AMP_INFER_RTOL}), "
+          f"parameter dtypes {dtypes}; captures {caps} (init / uninit "
+          f"capture anew)  ok")
+    del net
+    torch.cuda.empty_cache()
+    return {"rel_l2": err, "captures": caps, "param_dtypes": dtypes}
+
+
+def amp_phase(mx, ck, config, card_line, counts, traced) -> dict:
+    """Phase 17 (see the module docstring)."""
+    t0 = time.perf_counter()
+    ps = port_capture()[0]
+    amp = port_amp()[0]
+    cudnn_det = torch.backends.cudnn.deterministic
+    kernels = amp_kernel_phase(ck)
+    times = amp_kernel_timings(ck, card_line)
+    batches = [image_batch(RESNET_BATCH, torch.float32)]
+    by_dtype, counted_fp16 = {}, {}
+    keyed = lambda d: {f"{k}/{t}": n for (k, t), n in d.items()}
+    # (a): the lag-0 and lag-1 runs must end bitwise equal, so cuDNN takes
+    # deterministic algorithms at the unfused sites of both
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [amp_fp16_run(mx, ck, config, lag, batches, counts, traced,
+                             by_dtype, counted_fp16, card_line)
+                for lag in (0, 1)]
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    sync, lagged = runs
+    for a, b in zip(sync["state"], lagged["state"]):
+        if not same_bits(a, b):
+            fail("17a: the MXNET_AMP_LAG=1 run's parameters and momenta are "
+                 "not bitwise the MXNET_AMP_LAG=0 run's")
+    if (sync["final_scale"], sync["unskipped"]) != \
+            (lagged["final_scale"], lagged["unskipped"]):
+        fail(f"17a: scaler state lag 0 {sync['final_scale']}, "
+             f"{sync['unskipped']} != lag 1 {lagged['final_scale']}, "
+             f"{lagged['unskipped']}")
+    for rec in runs:
+        if not all(same_bits(a, b) for a, b in zip(rec["before"],
+                                                    rec["after"])):
+            fail(f"17a lag {rec['lag']}: the overflow step changed a "
+                 f"trainable parameter or a momentum")
+        if not math.isnan(rec["losses"][AMP_OVERFLOW_AT]) and \
+                math.isfinite(rec["losses"][AMP_OVERFLOW_AT]):
+            fail(f"17a lag {rec['lag']}: the overflow step's loss is finite "
+                 f"({rec['losses'][AMP_OVERFLOW_AT]})")
+        # the first call runs the step eagerly and then captures it
+        want_sites = {k: 2 * n for k, n in AMP16_CONV_BN_SITES.items()}
+        if rec["sites"] != want_sites:
+            fail(f"17a: fused sites of the first call {rec['sites']}, want "
+                 f"{want_sites} (its eager run and its capture)")
+        want = {(k, "fp16"): n for k, n in AMP16_CONV_BN.items()}
+        if rec["traced"] != want:
+            fail(f"17a lag {rec['lag']}: a traced replay ran "
+                 f"{rec['traced']}, want {want}")
+    # the scale of the overflow step halves: the synchronous gate has read
+    # its flag by the step's return
+    s = sync["scales"]
+    if s[AMP_OVERFLOW_AT] != s[AMP_OVERFLOW_AT - 1] / 2 and \
+            s[AMP_OVERFLOW_AT - 1] > 1.0:
+        fail(f"17a: the overflow step took the scale {s[AMP_OVERFLOW_AT - 1]}"
+             f" to {s[AMP_OVERFLOW_AT]}, not half")
+    w = lagged["window"]
+    n = AMP_STEPS - 1
+    want_w = {"dispatches": n, "deferred_reads": n, "host_reads": n,
+              "engine_syncs": 0, "captures": 0,
+              "deferred_reads_in_run": AMP_STEPS - 1}
+    if w != want_w:
+        fail(f"17a lag 1: over the {n} replays {w}, want {want_w} (one "
+             f"dispatch a step, each flag read one step late, no other host "
+             f"read, and the steps less one flags read before waitall)")
+    loss32, gmax = amp_fp32_loss(mx, config, batches[0])
+    rel = abs(sync["losses"][0] - loss32) / abs(loss32)
+    if not math.isfinite(sync["losses"][0]) or rel > AMP_LOSS_RTOL:
+        fail(f"17a: first step's mean loss {sync['losses'][0]} vs fp32 "
+             f"{loss32}: relative {rel:.3e} > {AMP_LOSS_RTOL}")
+    clean = sum(1 for a, b in zip([AMP_SCALE0] + s[:-1], s) if b >= a)
+    print(f"17a: fp16 AMP conv + BN step at batch {RESNET_BATCH}: {clean} "
+          f"of {AMP_STEPS} steps clean (lag 0's reads); losses "
+          f"{lagged['losses']}, scales {lagged['scales']} (lag 1; lag 0 "
+          f"{sync['scales']}), final {lagged['final_scale']} after "
+          f"waitall (the fp32 step's largest weight gradient {gmax:.4g}, so "
+          f"fp16 holds scales up to {65504 / gmax:.4g}); lag 1 bitwise "
+          f"lag 0; the overflow step left every "
+          f"parameter and momentum as it was; lag window {w}; first loss vs "
+          f"fp32 {rel:.3e} (bound {AMP_LOSS_RTOL}); a replay traced "
+          f"{lagged['traced']}; captured step wall {lagged['wall_ms']:.2f} "
+          f"ms (deterministic cuDNN; the bf16 conv + BN step, PERF.md §5: "
+          f"73.2 ms) [{card_line}]  ok")
+    # (b) the epilogue route in fp16
+    epi_losses, epi_seen = amp_short_run(
+        mx, ck, config, ((CONV_BN, 0), (EPILOGUE, 1)), "float16",
+        AMP_EPI_STEPS, batches, counts, traced, by_dtype, counted_fp16)
+    want = {(k, "fp16"): n for k, n in AMP16_EPILOGUE.items()}
+    if epi_seen != want:
+        fail(f"17b: a traced fp16 epilogue-route replay ran {epi_seen}, want "
+             f"{want}")
+    print(f"17b: fp16 AMP epilogue-route steps, losses {epi_losses}; a "
+          f"replay traced {epi_seen}  ok")
+    # (c) bf16, no scaler
+    bf_losses, bf_seen = amp_short_run(
+        mx, ck, config, ((EPILOGUE, 0), (CONV_BN, 1)), "bfloat16",
+        AMP_BF16_STEPS, batches, counts, traced, by_dtype, counted_fp16)
+    want = {(k, "bf16"): n for k, n in CONV_BN.launches.items()}
+    if bf_seen != want or not all(map(math.isfinite, bf_losses)):
+        fail(f"17c: a traced bf16 AMP replay ran {bf_seen}, want {want}; "
+             f"losses {bf_losses}")
+    print(f"17c: bf16 AMP conv + BN steps (no scaler), losses {bf_losses}; "
+          f"a replay traced {bf_seen}  ok")
+    infer = amp_infer_phase(mx, ps, config)
+    amp.uninit()
+    set_fused(config, 0, CONV_BN)
+    set_fused(config, 0, EPILOGUE)
+    seconds = time.perf_counter() - t0
+    print(f"phase 17 took {seconds:.1f} s")
+    return {"card": card_line, "seconds": seconds, "kernel_err": kernels,
+            "timings": times,
+            "fp16_conv_bn": dict(
+                {k: lagged[k] for k in ("losses", "scales", "final_scale",
+                                        "window", "sites", "wall_ms")},
+                traced=keyed(lagged["traced"]),
+                lag0_scales=sync["scales"]),
+            "fp16_first_loss_vs_fp32": rel, "fp16_clean_steps": clean,
+            "fp32_grad_max": gmax,
+            "fp16_epilogue": {"losses": epi_losses,
+                              "traced": keyed(epi_seen)},
+            "bf16_conv_bn": {"losses": bf_losses, "traced": keyed(bf_seen)},
+            "inference": infer, "traced_by_dtype": keyed(by_dtype),
+            "launches_fp16": dict(counted_fp16)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6769,6 +7377,18 @@ def main() -> int:
                      default=str))
     torch.cuda.empty_cache()
 
+    # -- 17. mixed precision --------------------------------------------------
+    amp_counts, amp_traced = {}, {}
+    amp = amp_phase(mx, ck, config, card_line, amp_counts, amp_traced)
+    if not all(amp_counts.get(k) for k in AMP_KERNELS):
+        fail(f"17: a conv + BN kernel never launched on the amp path: "
+             f"{amp_counts}")
+    print(f"phase 17 launch counts of the AMP steps: counted by the "
+          f"wrappers {amp_counts}; traced on the device in the replays "
+          f"{amp_traced}")
+    print(json.dumps({"amp": amp}, default=str))
+    torch.cuda.empty_cache()
+
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
@@ -6776,7 +7396,8 @@ def main() -> int:
              "nd": nd_counts, "int8": int8_counts,
              "serving": serving_counts, "speculative": spec_counts,
              "moe": moe_counts, "mesh": mesh_counts,
-             "mesh_lm": mesh_lm_counts, "runtime": runtime_counts}
+             "mesh_lm": mesh_lm_counts, "runtime": runtime_counts,
+             "amp": amp_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were
@@ -6784,7 +7405,8 @@ def main() -> int:
     traced_paths = {"train": train_traced, "capture": capture_traced,
                     "compiled_steps": steps_traced, "nd": nd_traced,
                     "moe": moe_traced, "mesh": mesh_traced,
-                    "mesh_lm": mesh_lm_traced, "runtime": runtime_traced}
+                    "mesh_lm": mesh_lm_traced, "runtime": runtime_traced,
+                    "amp": amp_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
@@ -6912,6 +7534,33 @@ def main() -> int:
         "library_w_col_major_ms": t["library_w_col_major_ms"],
         "bf16_matmul_ms": t["bf16_matmul_ms"], "sites": int8_times["sites"],
     })
+    # the fp16 forms (phase 17): launches by kernel name and element type
+    # in the AMP replays traced, beside the wrappers' count of the path
+    fp16_traced = {k.split("/")[0]: n
+                   for k, n in amp["traced_by_dtype"].items()
+                   if k.endswith("/fp16")}
+    for name in AMP_KERNELS:
+        t = amp["timings"][name]
+        kernels.append({
+            "name": f"{name}_fp16", "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/"
+                      + AMP_SOURCES.get(name, "conv_bn_epilogue.cu"),
+            "replaces": f"mxnet_tpu/ops/pallas_kernels.py:"
+                        f"{AMP_REPLACES[name]}",
+            "design": "the same TMA + wgmma GEMM core as the bf16 form, "
+                      "templated on the 16-bit element type (f16 wgmma, "
+                      "FLOAT16 tensor maps, __half2 stores)",
+            "launches": amp["launches_fp16"].get(name, 0),
+            "launches_by_path": {"amp": amp["launches_fp16"].get(name, 0)},
+            "traced_replay_launches_by_path": {
+                "amp": fp16_traced.get(name, 0)},
+            "max_abs_err": amp["kernel_err"][name],
+            **{k: t[k] for k in keys},
+            "library": "torch.matmul of the same fp16 product" if name !=
+                       "convkxk_bn_stats" else "cuDNN F.conv2d of the same "
+                       "fp16 conv",
+            "shape": t["shape"], "per_step": t["per_step"],
+        })
     print(f"traces of launches by kernel name in this run: {TRACES[0]}; "
           f"{TRACE_LOSS['short']} lost records of their prefix of "
           f"{TRACE_PREFIX + 1} markers, at most {TRACE_LOSS['most']}")

@@ -30,9 +30,12 @@ around the train step: device prefetch (``engine.prefetch``), metrics
 accumulated on the device (``metric``), ``profiler`` with its
 ``StepTimeline``, ``runtime`` features, the flight recorder
 (``telemetry.flush`` / ``merge``), the integrity sentinel (``sentinel``)
-and checkpoints with elastic restore (``parallel.elastic``).
+and checkpoints with elastic restore (``parallel.elastic``); and mixed
+precision (``amp``: the cast policy, the dynamic loss scaler and the
+deferred all-finite gate of the compiled step), with fp16 forms of the
+conv + batch-norm kernels.
 """
-from . import (autograd, base, config, contrib, engine, faults, gluon,
+from . import (amp, autograd, base, config, contrib, engine, faults, gluon,
                initializer, metric, models, ndarray, optimizer, preemption,
                profiler, random, runtime, sentinel, serving, serving_decode,
                telemetry)
@@ -43,8 +46,8 @@ from .ndarray import NDArray
 nd = ndarray
 init = initializer
 
-__all__ = ["Context", "MXNetError", "NDArray", "autograd", "base", "config",
-           "contrib", "cpu", "current_context", "engine", "faults", "gluon",
+__all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd", "base",
+           "config", "contrib", "cpu", "current_context", "engine", "faults", "gluon",
            "gpu", "init", "initializer", "metric", "models", "nd", "ndarray",
            "num_gpus", "optimizer", "preemption", "profiler", "random",
            "runtime", "sentinel", "serving", "serving_decode", "telemetry"]

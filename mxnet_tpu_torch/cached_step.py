@@ -103,6 +103,27 @@ counterpart of the reference's ``lax.cond`` on a traced flag. The digest
 goes to ``sentinel.offer`` unread. The plain form is the program it was.
 Accumulation windows (``accum_steps`` above 1) take no digest.
 
+AMP (reference ``cached_step.py:101-130, :270-300, :460-530, :875-1010,
+:1090-1210``): with a loss scaler on the trainer (``amp.init_trainer``)
+the program multiplies the heads by the loss scale inside the recorded
+region, computes the all-finite flag of the gradients on the device
+(all-reduced, AND, over a mesh) and updates with ``where(ok, new, old)``
+(``Optimizer.step(ok=, rescale=)``), so that an overflowed step leaves
+every weight and state bitwise as it was. The scale and the divisor ride
+in static device scalars, so a new scale never captures anew. Under
+``MXNET_AMP_LAG=1`` (``engine.amp_lag``) the gate is deferred: while step
+N-1's flag is unread, step N carries both candidates of
+``LossScaler.branch_scales`` and the program picks by that flag, which the
+program itself left in a device scalar; its copy to pinned host memory is
+read (``deferred_read_count``) after step N is launched, and moves the
+host's scaler. The result is bitwise the synchronous gate's
+(``MXNET_AMP_LAG=0``: the flag read after its own step). :meth:`TrainStep.
+drain` reads a pending flag; ``engine.waitall``, the eager tape and the
+lag window's close call it. An accumulation window holds one pair of
+candidates throughout, and its update program takes the flag of the
+summed gradients. An overflow emits the telemetry event
+``amp_overflow``.
+
 Setups the reference also runs eagerly (``_eligibility``,
 ``cached_step.py:431-460``) take the eager tape and name their reason in
 ``last_fallback_reason``: ``MXNET_COMPILED_STEP=0``, a parameter with
@@ -121,17 +142,31 @@ import torch
 
 from . import autograd
 from . import config as _config
+from . import engine as _engine
 from . import program_store as _pstore
 from . import serving as _serving
+from . import telemetry as _telemetry
 from .base import MXNetError
 from .gluon.block import traced_call
+from .ndarray import ndarray as _ndmod
 from .ndarray.ndarray import NDArray, _wrap
+from .optimizer import fused as _fused
+from .optimizer.optimizer import state_leaves as _state_leaves
 from .parallel import moe as _moe
 
 __all__ = ["TrainStep", "enabled", "trace_count", "dispatch_count",
-           "cache_stats", "reset_counters"]
+           "cache_stats", "deferred_read_count", "reset_counters"]
 
 _NS = _pstore.namespace("train_step")
+_DEFERRED_READ = _telemetry.counter(
+    "cached_step.deferred_read",
+    "host reads of a lagged all-finite flag (the deferred AMP gate, "
+    "MXNET_AMP_LAG): each reads step N-1's flag after step N is launched")
+
+
+def deferred_read_count() -> int:
+    """Host reads of a lagged all-finite flag (the deferred AMP gate)."""
+    return int(_DEFERRED_READ.value)
 
 
 def trace_count() -> int:
@@ -180,6 +215,55 @@ def _fold_aux(auxes, heads) -> list:
     return list(heads) + [(at * aux_w).float()]
 
 
+class _AmpGate:
+    """The AMP gate's device state of one step on one device: ``vals``,
+    fp32 (scale, scale if the previous step overflowed, divisor, divisor if
+    it overflowed), written when they change; ``prev_ok``, the flag the
+    last program left (the next one picks its candidates by it); and the
+    pinned host copies of flags still to be read."""
+
+    def __init__(self, device):
+        self.vals = torch.ones(4, dtype=torch.float32, device=device)
+        self.prev_ok = torch.ones((), dtype=torch.bool, device=device)
+        self.host = None
+        self.lag = 0
+        self._written = (1.0, 1.0, 1.0, 1.0)
+        self._flip = 0
+        if device.type == "cuda":
+            self.host = [torch.ones((), dtype=torch.bool, pin_memory=True)
+                         for _ in range(2)]
+
+    def write(self, values) -> None:
+        values = tuple(float(v) for v in values)
+        for i, (v, w) in enumerate(zip(values, self._written)):
+            if v != w:
+                self.vals[i].fill_(v)       # a fill kernel: no host sync
+        self._written = values
+
+    def effective(self):
+        """(scale, divisor) as the device picks them: the first pair after
+        a clean (or no) previous step, else the second."""
+        pick = torch.where(self.prev_ok, self.vals[0::2], self.vals[1::2])
+        return pick[0], pick[1]
+
+    def leave(self, ok) -> None:
+        """Inside the program: the flag this step leaves for the next."""
+        self.prev_ok.copy_(ok)
+
+    def pending(self):
+        """The flag the last program left, to be read later without waiting
+        on programs launched after it: on a CUDA device a copy to pinned
+        memory and an event behind it; elsewhere a copy."""
+        if self.host is None:
+            return self.prev_ok.clone(), None
+        buf = self.host[self._flip]
+        self._flip ^= 1
+        buf.copy_(self.prev_ok, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        return buf, ev
+
+
 class TrainStep:
     """One training step as one captured program
     (``Trainer.compile_step``); see the module docstring."""
@@ -222,6 +306,11 @@ class TrainStep:
         self._rows: Optional[int] = None
         # the training-integrity sentinel (sentinel.Sentinel), if attached
         self._sentinel = None
+        # the AMP gate's device state by device, and the flag of the last
+        # program not read yet on the host (the deferred gate)
+        self._amp: Dict[torch.device, _AmpGate] = {}
+        self._pending_ok = None
+        _engine.register_drainable(self)
 
     def attach_sentinel(self, sentinel):
         """Attach a ``sentinel.Sentinel``: it picks the dispatches that run
@@ -258,6 +347,73 @@ class TrainStep:
     @property
     def last_step_compiled(self) -> bool:
         return self.last_fallback_reason is None
+
+    # -- the AMP gate -------------------------------------------------------
+    def _scaler(self):
+        return getattr(self._trainer, "_amp_loss_scaler", None)
+
+    def drain(self) -> None:
+        """Read the pending all-finite flag, if any, and apply the loss
+        scale policy, so that the host's scaler catches up with the device
+        (``engine.waitall``, the eager tape and the lag window's close call
+        it); after it the scaler is the synchronous gate's, bitwise."""
+        prev, self._pending_ok = self._pending_ok, None
+        if prev is not None:
+            self._read_flag(prev, "drain", deferred=True)
+
+    def _read_flag(self, pending, where: str, deferred: bool) -> None:
+        """The one host read of a step's flag, and the scale policy."""
+        buf, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        _ndmod._HOST_SYNC.inc()
+        if deferred:
+            _DEFERRED_READ.inc()
+        overflow = not bool(buf)
+        if overflow:
+            _telemetry.event("amp_overflow", "cached_step", where=where)
+        scaler = self._scaler()
+        if scaler is not None:
+            scaler.update_scale(overflow)
+
+    def _gate(self, device, batch_size, accum: int = 1):
+        """The gate of this dispatch, or None without a scaler: the lag
+        (a closed window first drains), the scale candidates written to
+        the device, and the gate's state."""
+        scaler = self._scaler()
+        if scaler is None:
+            return None
+        lag = _engine.amp_lag()
+        if not lag:
+            self.drain()
+        if lag and self._pending_ok is not None:
+            s_clean, s_over = scaler.branch_scales()
+        else:
+            s_clean = s_over = scaler.loss_scale
+        tr = self._trainer
+        tr._amp_original_scale = getattr(tr, "_amp_original_scale",
+                                         tr._scale)
+        base = tr._amp_original_scale
+        gate = self._amp.get(device)
+        if gate is None:
+            gate = self._amp[device] = _AmpGate(device)
+        gate.write((s_clean, s_over, base / (s_clean * batch_size * accum),
+                    base / (s_over * batch_size * accum)))
+        gate.lag = lag
+        return gate
+
+    def _after_update(self, gate) -> None:
+        """After an update program's launch: hold its flag (lag 1), reading
+        the previous one now, or read its own (lag 0)."""
+        if gate is None:
+            return
+        pending = gate.pending()
+        if gate.lag:
+            prev, self._pending_ok = self._pending_ok, pending
+            if prev is not None:
+                self._read_flag(prev, "deferred", deferred=True)
+        else:
+            self._read_flag(pending, "sync", deferred=False)
 
     def __call__(self, *args, batch_size: Optional[int] = None):
         if batch_size is None:
@@ -343,10 +499,15 @@ class TrainStep:
                 f"accum_steps={self._accum_steps} requires the compiled "
                 "step (one update a window); the eager tape cannot honor "
                 f"the window, fallback reason: {self.last_fallback_reason}")
+        # a pending flag lands first: this step reads the host's scale
+        self.drain()
+        scaler = self._scaler()
         with autograd.record():
             with _moe.aux_scope() as auxes:
                 loss = self._loss_fn(self._net, *args)
             heads = _fold_aux(auxes, _heads(loss))
+            if scaler is not None and scaler.loss_scale != 1.0:
+                heads = [h * scaler.loss_scale for h in heads]
         autograd.backward(heads)
         hook = getattr(self._net, "compiled_grad_transform", None)
         if hook is not None:
@@ -356,7 +517,12 @@ class TrainStep:
             for n, g in hook(dict(named)).items():
                 if named.get(n) is not g:
                     params[n]._data.grad = g
-        self._trainer.step(batch_size)
+        tr = self._trainer
+        if scaler is not None:
+            base = getattr(tr, "_amp_original_scale", tr._scale)
+            tr._amp_original_scale = base
+            tr._scale = base / scaler.loss_scale
+        tr.step(batch_size)
         return loss
 
     # -- shape bucketing --------------------------------------------------
@@ -445,6 +611,23 @@ class TrainStep:
                        if not isinstance(a, torch.Tensor))
         return tensors, others
 
+    def _gated_update(self, gate, opt, weights, grads, states) -> None:
+        """Inside a program: the update, gated by the all-finite flag with
+        a scaler (AND over the mesh), which it leaves for the next."""
+        if gate is None:
+            opt.step(weights, grads, states)
+            return
+        ok = _fused.all_finite(grads, device=gate.prev_ok.device)
+        if self._mesh is not None and self._mesh.size > 1:
+            from .parallel import collectives as _coll
+
+            ok = _coll.all_reduce(ok.to(torch.float32),
+                                  tuple(self._mesh.axis_names), op="min",
+                                  mesh=self._mesh) > 0
+        opt.step(weights, grads, states, ok=ok,
+                 rescale=gate.effective()[1])
+        gate.leave(ok)
+
     def _compiled_step(self, args, batch_size):
         tr = self._trainer
         opt = tr._optimizer
@@ -454,19 +637,22 @@ class TrainStep:
         # the tensors the body reads and updates in place, by identity
         held = [p._data for p in self._net.collect_params().values()]
         held += [p._data for p in trainable]
-        held += [s for s in states if isinstance(s, torch.Tensor)]
+        held += _state_leaves(states)
+        gate = self._gate(held[0].device, batch_size)
+        if gate is not None:
+            held += [gate.vals, gate.prev_ok]
         tensors, others = self._call_parts(args)
         key = (_pstore.tensor_key(tensors), others, tuple(self._nd),
                _pstore.knob_key(), type(opt).__name__, opt.fixed_signature(),
                tuple(map(id, trainable)), _pstore.storage_key(held),
-               self._mesh_key())
+               self._mesh_key(), gate is not None)
 
         def build(digest=False):
-            fb = self._forward_backward(args)
+            fb = self._forward_backward(args, gate)
 
             def body(*inputs):
                 loss, weights, grads = fb(*inputs)
-                opt.step(weights, grads, states)
+                self._gated_update(gate, opt, weights, grads, states)
                 if not digest:
                     return loss
                 from . import sentinel as _sentinel
@@ -476,6 +662,11 @@ class TrainStep:
                     weights, _state_leaves(states), grads)
             return body
 
+        loss = self._dispatch_step(key, build, tensors, held, states, opt)
+        self._after_update(gate)
+        return loss
+
+    def _dispatch_step(self, key, build, tensors, held, states, opt):
         snt = self._sentinel
         if self._mesh is not None and not enabled():
             if snt is not None and snt.want_digest():
@@ -514,7 +705,7 @@ class TrainStep:
         the update would make them."""
         for d in {t.device for t in held}:
             opt.scalars(d)
-        keep = list(held) + _state_leaves(states) + [
+        keep = list(held) + [
             t for sc in opt._scalars.values() for t in sc.values()]
         with torch.no_grad():
             saved = [t.detach().clone() for t in keep]
@@ -632,13 +823,14 @@ class TrainStep:
                  if spec and t.shape == w.shape else t.detach()).clone()
                 for t in leaves if isinstance(t, torch.Tensor)]
 
-    def _forward_backward(self, args):
+    def _forward_backward(self, args, gate=None):
         """The body's forward and backward over its static inputs: the
         eager tape's, inside the port's trace (``traced_call``), with each
         trainable parameter read through a fresh leaf that shares its
-        storage (so ``.grad`` and the parameters' hooks stay untouched).
-        Returns fb(*inputs) -> (detached loss, the parameters' tensors,
-        their gradients)."""
+        storage (so ``.grad`` and the parameters' hooks stay untouched);
+        with an AMP ``gate`` the heads are multiplied by its loss scale
+        inside the recorded region. Returns fb(*inputs) -> (detached loss,
+        the parameters' tensors, their gradients)."""
         net, loss_fn = self._net, self._loss_fn
         trainable = self._trainer._params
         slots = [i for i, a in enumerate(args) if isinstance(a, torch.Tensor)]
@@ -692,6 +884,9 @@ class TrainStep:
                                 * seed]
                         heads = _fold_aux(auxes, [_tensor(h) for h in
                                                   _heads(loss)])
+                        if gate is not None:
+                            scale = gate.effective()[0]
+                            heads = [h * scale for h in heads]
                     grads = torch.autograd.grad(
                         heads, leaves,
                         [torch.ones_like(h) if mesh is None
@@ -773,13 +968,18 @@ class TrainStep:
         accs = self._accum_bufs
         held = [p._data for p in self._net.collect_params().values()]
         held += weights + accs
+        # one pair of candidates for the whole window: the pending flag is
+        # read only at the window's close
+        gate = self._gate(weights[0].device, batch_size, self._accum_steps)
+        if gate is not None:
+            held += [gate.vals, gate.prev_ok]
         tensors, others = self._call_parts(args)
         key = ("accum_grad", _pstore.tensor_key(tensors), others,
                tuple(self._nd), _pstore.knob_key(), tuple(map(id, trainable)),
-               _pstore.storage_key(held), self._mesh_key())
+               _pstore.storage_key(held), self._mesh_key(), gate is not None)
 
         def build_grad():
-            fb = self._forward_backward(args)
+            fb = self._forward_backward(args, gate)
 
             def body(*inputs):
                 loss, _weights, grads = fb(*inputs)
@@ -799,13 +999,17 @@ class TrainStep:
         self._accum_i = 0
         states = tr._init_states()
         opt.rescale_grad = tr._scale / (batch_size * self._accum_steps)
-        uheld = weights + accs + [s for s in states
-                                  if isinstance(s, torch.Tensor)]
+        uheld = weights + accs + _state_leaves(states)
+        if gate is not None:
+            uheld += [gate.vals, gate.prev_ok]
         ukey = ("accum_update", type(opt).__name__, opt.fixed_signature(),
-                _pstore.storage_key(uheld))
+                _pstore.storage_key(uheld), _pstore.knob_key(),
+                gate is not None)
 
         def update():
-            opt.step(weights, accs, states)
+            # the flag of the summed gradients: an overflow in any
+            # micro-batch survives the sum
+            self._gated_update(gate, opt, weights, accs, states)
             with torch.no_grad():
                 torch._foreach_zero_(accs)
             return ()
@@ -815,19 +1019,8 @@ class TrainStep:
         else:
             _pstore.run(self._update_programs, ukey, lambda: update, [],
                         device=weights[0].device, keep=uheld)
+        self._after_update(gate)
         return loss
-
-
-def _state_leaves(states) -> list:
-    """The optimizer states' tensors in order (a state may be a tensor or
-    a tuple of them)."""
-    out = []
-    for s in states:
-        if isinstance(s, torch.Tensor):
-            out.append(s)
-        elif isinstance(s, (list, tuple)):
-            out.extend(t for t in s if isinstance(t, torch.Tensor))
-    return out
 
 
 def _tensor_ops(mesh):

@@ -236,6 +236,22 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "ServingEngine's staging queue, floored at 2 so the double "
            "buffer survives depth 0. MXNET_ENGINE_TYPE=NaiveEngine forces "
            "0.", cached=False),
+    EnvVar("MXNET_AMP_LAG", int, 1,
+           "Deferred AMP gate lag window (cached_step.TrainStep): 1 = step "
+           "N-1's all-finite flag is read on the host after step N is "
+           "launched; step N carries both scale candidates "
+           "(LossScaler.branch_scales) and the device picks by the flag, "
+           "so the read never waits on the current program and the result "
+           "is bitwise the synchronous gate's. 0 = the flag read after its "
+           "own step; values above 1 clamp to 1. "
+           "MXNET_ENGINE_TYPE=NaiveEngine forces 0.", cached=False,
+           validator=lambda v: v >= 0),
+    EnvVar("MXNET_FUSED_OPTIMIZER", int, 1,
+           "Trainer.step under an AMP loss scaler: 1 = one all-finite "
+           "reduction whose device flag gates the update (where(ok, new, "
+           "old) on every weight and state) and one host read for the "
+           "scale policy; 0 = the scalar path: read the overflow first and "
+           "skip the update on the host.", cached=False),
     EnvVar("MXNET_TELEMETRY_EVENTS", int, 4096,
            "Telemetry event-bus capacity: the bounded buffer keeps the "
            "newest N structured events (shed, preempt, fault, admit, "

@@ -44,7 +44,7 @@ from . import config as _config
 from . import program_store as _pstore
 from . import telemetry as _telemetry
 
-__all__ = ["bulk", "set_bulk_size", "waitall", "engine_type", "is_naive",
+__all__ = ["amp_lag", "bulk", "set_bulk_size", "waitall", "engine_type", "is_naive",
            "prefetch", "DevicePrefetcher", "prefetch_depth",
            "register_drainable", "drainable_count", "naive_sync",
            "sync_count", "synchronize"]
@@ -79,6 +79,15 @@ def prefetch_depth() -> int:
     if is_naive():
         return 0
     return max(0, int(_config.get("MXNET_ENGINE_PREFETCH")))
+
+
+def amp_lag() -> int:
+    """The deferred AMP gate's lag window (``MXNET_AMP_LAG``, clamped to
+    0..1: one unread flag at most); NaiveEngine forces 0, the synchronous
+    gate (reference ``engine.py:88-95``)."""
+    if is_naive():
+        return 0
+    return min(1, max(0, int(_config.get("MXNET_AMP_LAG"))))
 
 
 def sync_count() -> int:

@@ -14,7 +14,17 @@ give ``compile_step`` the mesh of ``parallel.spmd.mesh_for_store``
 on which the step reduces the gradients inside its program. ``step()``,
 the eager update, applies this rank's gradients as they are. The
 ``dist_*`` stores (parameter servers) are the port's ``kvstore/``, ROADMAP
-A9, and raise. There is no AMP in the port yet (ROADMAP A7b).
+A9, and raise. ``update_on_kvstore`` is kept for AMP's refusal: the port's
+stores never update on the store side.
+
+AMP (reference ``trainer.py:240-290``): after ``amp.init_trainer`` the
+trainer holds a ``LossScaler``, and ``step`` skips an overflowed update.
+With ``MXNET_FUSED_OPTIMIZER`` on (the default) one all-finite reduction
+(``optimizer.fused.all_finite``) gives a device flag that gates the update
+on the device (``where(ok, new, old)``), then one host read of it moves
+the scale; with it off, the scalar path reads the overflow first and
+skips the update on the host. A trainer with ``update_on_kvstore`` and a
+scaler refuses the step before any reduction.
 
 States (reference ``trainer.py:387-410``): :meth:`save_states` /
 :meth:`load_states` write and read the optimizer's states (momentum, Adam's
@@ -45,7 +55,7 @@ _MESH_STORES = ("tpu", "nccl")
 
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore="device"):
+                 kvstore="device", update_on_kvstore=None):
         kv = kvstore.lower() if isinstance(kvstore, str) else kvstore
         if isinstance(kv, str) and kv.startswith("dist"):
             raise NotImplementedError(
@@ -55,6 +65,7 @@ class Trainer:
             raise ValueError(f"unknown kvstore {kvstore!r}; the port takes "
                              f"{_LOCAL_STORES + _MESH_STORES}")
         self._kv_type = kv
+        self._update_on_kvstore = update_on_kvstore
         if isinstance(params, dict):
             params = [params[k] for k in sorted(params)]
         elif not isinstance(params, (list, tuple)):
@@ -87,7 +98,8 @@ class Trainer:
         for i, p in enumerate(self._params):
             if i not in self._states:
                 w = p._check()
-                self._states[i] = self._optimizer.create_state(w)
+                self._states[i] = \
+                    self._optimizer.create_state_multi_precision(w)
                 self._optimizer.scalars(w.device)
         return [self._states[i] for i in range(len(self._params))]
 
@@ -109,8 +121,17 @@ class Trainer:
                          accum_steps=accum_steps)
 
     def step(self, batch_size) -> None:
-        """Normalize the gradients by ``batch_size`` and update."""
+        """Normalize the gradients by ``batch_size`` and update (with an AMP
+        loss scaler, skipping an overflowed update; see the module
+        docstring)."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None and self._update_on_kvstore:
+            from ..base import MXNetError
+
+            raise MXNetError(
+                "AMP loss scaling cannot skip server-side kvstore updates; "
+                "recreate the Trainer with update_on_kvstore=False")
         states = self._init_states()
         weights, grads = [], []
         for p in self._params:
@@ -118,7 +139,21 @@ class Trainer:
             weights.append(w)
             grads.append(w.grad if w.grad is not None
                          else torch.zeros_like(w))
-        self._optimizer.step(weights, grads, states)
+        if scaler is None:
+            self._optimizer.step(weights, grads, states)
+            return
+        from .. import config as _config
+        from ..optimizer import fused as _fused
+
+        if _config.get("MXNET_FUSED_OPTIMIZER"):
+            ok = _fused.all_finite(grads)
+            self._optimizer.step(weights, grads, states, ok=ok)
+            scaler.update_scale(not bool(ok))
+            return
+        overflow = scaler.has_overflow(self._params)
+        scaler.update_scale(overflow)
+        if not overflow:
+            self._optimizer.step(weights, grads, states)
 
     # -- states ----------------------------------------------------------
     def _state_scalars(self) -> Dict[str, torch.Tensor]:

@@ -20,7 +20,9 @@ import torch as _torch
 from .. import random as _random
 from ..context import Context, cpu, current_context
 from ..ops import elemwise as _elemwise  # noqa: F401  (registers the ops)
+from ..ops import extra as _extra_ops  # noqa: F401
 from ..ops import init as _init_ops  # noqa: F401
+from ..ops import misc as _misc_ops  # noqa: F401
 from ..ops import nn as _nn_ops  # noqa: F401
 from ..ops import optimizer as _optimizer_ops  # noqa: F401
 from ..ops import random as _random_ops  # noqa: F401

@@ -51,6 +51,13 @@ from ..ops.tensor import set_index
 __all__ = ["NDArray", "invoke", "tensor_op", "array", "invoke_count",
            "host_sync_count"]
 
+# installed by amp.init(): fn(op_name, [tensors]) -> [tensors], applied to an
+# op's inputs inside the op (reference ``ndarray.py:45-49, :855-860``);
+# _amp_generation bumps at every amp.init / uninit, and every captured
+# program's key holds it (program_store.knob_key)
+_amp_policy = None
+_amp_generation = 0
+
 
 class NDArray:
     """An n-dimensional array on a device context."""
@@ -617,6 +624,8 @@ def host_sync_count() -> int:
 
 
 def _call(schema: OpSchema, tensors, attrs):
+    if _amp_policy is not None:
+        tensors = _amp_policy(schema.name, list(tensors))
     if schema.num_inputs == -1:
         return schema.fn(list(tensors), **attrs)
     return schema.fn(*tensors, **attrs)
@@ -641,17 +650,16 @@ def invoke(op: Union[str, OpSchema], inputs: Sequence, attrs: dict,
 
 
 def _invoke_body(schema: OpSchema, inputs: Sequence, attrs: dict, out):
-    # marked place: the AMP cast policy wraps schema.fn here (reference
-    # ``_amp_policy``, ``ndarray.py:855-860``; ROADMAP A9)
+    # the AMP cast policy applies inside _call, within what autograd
+    # records, so each input's cotangent comes back in its own dtype
+    # (reference ``_amp_policy``, ``ndarray.py:855-860``)
     for i in inputs:
         if isinstance(i, NDArray):
             ctx = i._ctx
             break
     else:
         if inputs and out is None:          # tensors in, tensors out
-            if schema.num_inputs == -1:
-                return schema.fn(list(inputs), **attrs)
-            return schema.fn(*inputs, **attrs)
+            return _call(schema, inputs, attrs)
         ctx = current_context()
     if autograd.is_recording() and schema.differentiable:
         raw = _call(schema, [_recorded_input(i) for i in inputs], attrs)
@@ -684,10 +692,16 @@ def tensor_op(name: str):
     :func:`invoke` does, and calls the op's function as it is, with its
     signature (a variadic op takes its tensors as one list), skipping
     invoke's lookup and flavor test."""
-    fn, inc = get_op(name).fn, _INVOKE.inc
+    schema = get_op(name)
+    fn, inc, variadic = schema.fn, _INVOKE.inc, schema.num_inputs == -1
 
     def call(*args, **attrs):
         inc()
+        if _amp_policy is not None:         # the AMP casts, as in _call
+            if variadic:
+                args = (_amp_policy(name, list(args[0])),) + args[1:]
+            else:
+                args = tuple(_amp_policy(name, list(args)))
         return fn(*args, **attrs)
     call.__name__ = call.__qualname__ = f"tensor_op[{name}]"
     return call

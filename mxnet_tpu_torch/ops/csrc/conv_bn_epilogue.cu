@@ -24,8 +24,9 @@
 // fours); any M >= 1: rows past M are zero-filled on load, so they add 0
 // to the sums, and their stores are clipped.
 //
-// bf16: all three kernels are one persistent TMA + wgmma GEMM,
-// `gemm_wgmma<BN, NRB, KIND>` of gemm_wgmma_sm90.cuh (which describes the
+// bf16 and fp16: all three kernels are one persistent TMA + wgmma GEMM,
+// `gemm_wgmma<BN, NRB, KIND, T>` of gemm_wgmma_sm90.cuh (T the 16-bit
+// element type, of the same rate on the tensor cores) (which describes the
 // ring, the producer threads, the TMA stores and the statistics' running
 // sums and final sum), that differ after the product. The n-tile runs
 // fastest in the static walk, so the n-tiles of one m-tile run together: x
@@ -61,6 +62,7 @@
 // flight at once. matmul_stats there is held by the consumers: each
 // 128 x 128 tile is one k-box of products, then its column sums.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,7 +76,8 @@ using namespace mxt::conv;
 using Dense32 = DenseA<float, 1>;
 
 // ---------------------------------------------------------------------------
-// bf16: persistent TMA + wgmma GEMM with the epilogue or the statistics
+// bf16 / fp16: persistent TMA + wgmma GEMM with the epilogue or the
+// statistics
 // ---------------------------------------------------------------------------
 
 namespace wg {
@@ -108,13 +111,13 @@ auto dispatch(int N, int K, F&& f) {
 // matmul_bn_stats's y (null for matmul_stats); res: the residual or null;
 // grid: min(tiles, SMs) for matmul_epilogue, R x n-tiles for the
 // statistics.
-template <int BN, int NRB, int KIND>
+template <class T, int BN, int NRB, int KIND>
 cudaError_t launch(const void* x, const void* wt, const void* res, void* out,
                    const float* scale, const float* shift, float* parts,
                    float* sums, unsigned* counters, int M, int N, int K,
                    int relu, int grid, cudaStream_t st) {
   using L = Smem<BN, NRB>;
-  const CUtensorMapDataType ty = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType ty = Elem<T>::kMap;
   CUtensorMap m[4];
   cudaError_t err = encode_rows_map(&m[0], x, 1, M, K, TM, ty);
   if (err == cudaSuccess) err = encode_rows_map(&m[1], wt, 1, N, K, BN, ty);
@@ -126,23 +129,26 @@ cudaError_t launch(const void* x, const void* wt, const void* res, void* out,
   m[2] = m[3];
   if (res != nullptr) err = encode_rows_map(&m[2], res, 1, M, N, TM, ty);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_wgmma<BN, NRB, KIND>,
+    err = cudaFuncSetAttribute(gemm_wgmma<BN, NRB, KIND, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::BYTES);
   if (err != cudaSuccess) return err;
-  gemm_wgmma<BN, NRB, KIND><<<grid, THREADS, L::BYTES, st>>>(
+  gemm_wgmma<BN, NRB, KIND, T><<<grid, THREADS, L::BYTES, st>>>(
       m[0], m[1], m[2], m[3], scale, shift, parts, sums, counters, M, N, K,
       res != nullptr, relu, ConvGeom{});
   return cudaGetLastError();
 }
 
-// The statistics kernels (y null: matmul_stats). scratch: the (2, rows, N)
-// fp32 partial sums, then one uint32 counter per n-tile, which are zeroed
-// here: each launch has its own, so launches may run at the same time.
+// The statistics kernels (y null: matmul_stats) of dtype code 1 (bf16) or
+// 2 (fp16). scratch: the (2, rows, N) fp32 partial sums, then one uint32
+// counter per n-tile, which are zeroed here: each launch has its own, so
+// launches may run at the same time.
 cudaError_t launch_stats_wgmma(const void* x, const void* wt, void* y,
                                void* scratch, void* sums, int M, int N, int K,
-                               int rows, int relu, cudaStream_t st) {
-  if (M <= 0 || N < 8 || K < 8 || N % 8 != 0 || K % 8 != 0)
+                               int rows, int relu, int dtype,
+                               cudaStream_t st) {
+  if (M <= 0 || N < 8 || K < 8 || N % 8 != 0 || K % 8 != 0 ||
+      (dtype != 1 && dtype != 2))
     return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t err = sm_count(&sms);
@@ -157,17 +163,20 @@ cudaError_t launch_stats_wgmma(const void* x, const void* wt, void* y,
   unsigned* c = reinterpret_cast<unsigned*>(p + 2 * (size_t)rows * N);
   err = cudaMemsetAsync(c, 0, n_nt * sizeof(unsigned), st);
   if (err != cudaSuccess) return err;
-  if (y == nullptr)
-    return dispatch<kStats>(N, K, [&](auto tag) {
-      return launch<decltype(tag)::BN, 0, kStats>(
-          x, wt, nullptr, nullptr, nullptr, nullptr, p, s, c, M, N, K, 0,
-          grid, st);
+  return by_elem(dtype, [&](auto et) {
+    using E = typename decltype(et)::type;
+    if (y == nullptr)
+      return dispatch<kStats>(N, K, [&](auto tag) {
+        return launch<E, decltype(tag)::BN, 0, kStats>(
+            x, wt, nullptr, nullptr, nullptr, nullptr, p, s, c, M, N, K, 0,
+            grid, st);
+      });
+    return dispatch<kStatsStore>(N, K, [&](auto tag) {
+      using T = decltype(tag);
+      return launch<E, T::BN, T::NRB, kStatsStore>(
+          x, wt, nullptr, y, nullptr, nullptr, p, s, c, M, N, K, relu, grid,
+          st);
     });
-  return dispatch<kStatsStore>(N, K, [&](auto tag) {
-    using T = decltype(tag);
-    return launch<T::BN, T::NRB, kStatsStore>(x, wt, nullptr, y, nullptr,
-                                              nullptr, p, s, c, M, N, K, relu,
-                                              grid, st);
   });
 }
 
@@ -228,7 +237,7 @@ __global__ void __launch_bounds__(FNT)
 
 bool bad_shape(int M, int N, int K, int dtype) {
   return M <= 0 || N < 8 || K < 8 || N % 8 != 0 || K % 8 != 0 || dtype < 0 ||
-         dtype > 1 || grid_of(M, N).y > 65535;
+         dtype > 2 || grid_of(M, N).y > 65535;
 }
 
 template <bool RES, bool RELU>
@@ -250,17 +259,19 @@ void launch_stats_fp32(const float* x, const float* wt, float* y, float* ps,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry point returns a cudaError_t:
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
+// cudaError_t:
 // cudaErrorInvalidValue for arguments the kernels do not take (or, for a
 // TMA kernel, a map cuTensorMapEncodeTiled refuses), else the first error
 // of the launch, else cudaGetLastError() right after it.
 
 // Rows of x per CTA of the per-tile (fp32) statistics kernels, hence rows
-// of their partial-sum scratch per m-tile; -1 for bf16, which has none.
+// of their partial-sum scratch per m-tile; -1 for bf16 and fp16, which have
+// none.
 extern "C" int mxt_conv_bn_m_tile(int dtype) { return m_tile(dtype); }
 
-// The per-tile statistics kernels, fp32 only (dtype 0; bf16 runs the wgmma
-// kernels below). ps, pss: (ceil(M / m_tile), N) fp32 partial column sums
+// The per-tile statistics kernels, fp32 only (dtype 0; bf16 and fp16 run
+// the wgmma kernels below). ps, pss: (ceil(M / m_tile), N) fp32 partial column sums
 // of z and z^2.
 extern "C" int mxt_matmul_stats(const void* x, const void* wt, void* ps,
                                 void* pss, int M, int N, int K, int dtype,
@@ -290,7 +301,7 @@ extern "C" int mxt_matmul_bn_stats(const void* x, const void* wt, void* y,
   return (int)cudaGetLastError();
 }
 
-// Rows of the bf16 statistics kernels' partial-sum scratch for M x N
+// Rows of the 16-bit statistics kernels' partial-sum scratch for M x N
 // outputs on the current device, or -1 if the device cannot be queried.
 extern "C" int mxt_stats_rows(int M, int N) {
   int sms = 0;
@@ -298,30 +309,33 @@ extern "C" int mxt_stats_rows(int M, int N) {
   return wg::stats_rows(M, N, sms, wg::stats_tile_n(N));
 }
 
-// The bf16 statistics kernels (K and N multiples of 8, M >= 1). scratch:
-// 2 x rows x N fp32 partial sums, rows = mxt_stats_rows(M, N), followed by
-// room for ceil(N / 64) uint32 counters, which the launch zeroes; sums:
-// (2, N) fp32, the column sums of z and z^2 (of act(z) with y).
+// The 16-bit statistics kernels (dtype 1 = bf16, 2 = fp16; K and N
+// multiples of 8, M >= 1). scratch: 2 x rows x N fp32 partial sums, rows =
+// mxt_stats_rows(M, N), followed by room for ceil(N / 64) uint32 counters,
+// which the launch zeroes; sums: (2, N) fp32, the column sums of z and z^2
+// (of act(z) with y).
 extern "C" int mxt_matmul_stats_wgmma(const void* x, const void* wt,
                                       void* scratch, void* sums, int M, int N,
-                                      int K, int rows, void* stream) {
+                                      int K, int rows, int dtype,
+                                      void* stream) {
   return (int)wg::launch_stats_wgmma(x, wt, nullptr, scratch, sums, M, N, K,
-                                     rows, 0,
+                                     rows, 0, dtype,
                                      static_cast<cudaStream_t>(stream));
 }
 
-// y: (M, N) bf16, act(z); the rest as for mxt_matmul_stats_wgmma.
+// y: (M, N) in x's dtype, act(z); the rest as for mxt_matmul_stats_wgmma.
 extern "C" int mxt_matmul_bn_stats_wgmma(const void* x, const void* wt,
                                          void* y, void* scratch, void* sums,
                                          int M, int N, int K, int rows,
-                                         int relu, void* stream) {
+                                         int relu, int dtype, void* stream) {
   return (int)wg::launch_stats_wgmma(x, wt, y, scratch, sums, M, N, K, rows,
-                                     relu,
+                                     relu, dtype,
                                      static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory in bytes (what = 0), ring stages (1) or tile
-// buffers (2) of the bf16 statistics kernel for an (M, K) x (K, N) product,
+// buffers (2) of the 16-bit statistics kernel (either element type) for an
+// (M, K) x (K, N) product,
 // with the store of y (matmul_bn_stats) or without (matmul_stats).
 extern "C" int mxt_stats_config(int N, int K, int store, int what) {
   return store ? wg::config<wg::kStatsStore>(N, K, what)
@@ -338,7 +352,7 @@ extern "C" int mxt_matmul_epilogue(const void* x, const void* wt,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
-  if (dtype == 1) {
+  if (dtype != 0) {
     int sms = 0;
     cudaError_t err = wg::sm_count(&sms);
     if (err != cudaSuccess) return (int)err;
@@ -347,11 +361,14 @@ extern "C" int mxt_matmul_epilogue(const void* x, const void* wt,
                             ((N + bn - 1) / bn);
     if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
     const int grid = (int)(tiles < sms ? tiles : sms);
-    return (int)wg::dispatch<wg::kEpilogue>(N, K, [&](auto tag) {
-      using T = decltype(tag);
-      return wg::launch<T::BN, T::NRB, wg::kEpilogue>(
-          x, wt, residual, out, sc, sh, nullptr, nullptr, nullptr, M, N, K,
-          relu, grid, st);
+    return (int)wg::by_elem(dtype, [&](auto et) {
+      using E = typename decltype(et)::type;
+      return wg::dispatch<wg::kEpilogue>(N, K, [&](auto tag) {
+        using T = decltype(tag);
+        return wg::launch<E, T::BN, T::NRB, wg::kEpilogue>(
+            x, wt, residual, out, sc, sh, nullptr, nullptr, nullptr, M, N, K,
+            relu, grid, st);
+      });
     });
   }
   const float* xf = static_cast<const float*>(x);
@@ -372,13 +389,13 @@ extern "C" int mxt_matmul_epilogue(const void* x, const void* wt,
   return (int)cudaGetLastError();
 }
 
-// Columns per tile of the bf16 matmul_epilogue kernel for N output
-// columns, and of the bf16 statistics kernels.
+// Columns per tile of the 16-bit matmul_epilogue kernel for N output
+// columns, and of the 16-bit statistics kernels.
 extern "C" int mxt_matmul_epilogue_tile_n(int N) { return wg::tile_n(N); }
 extern "C" int mxt_stats_tile_n(int N) { return wg::stats_tile_n(N); }
 
 // Dynamic shared memory in bytes (what = 0), ring stages (1) or tile
-// buffers (2) of the bf16 matmul_epilogue kernel for an (M, K) x (K, N)
+// buffers (2) of the 16-bit matmul_epilogue kernel for an (M, K) x (K, N)
 // product.
 extern "C" int mxt_matmul_epilogue_config(int N, int K, int what) {
   return wg::config<wg::kEpilogue>(N, K, what);

@@ -16,7 +16,8 @@
 // Design: an implicit GEMM, M = N Ho Wo output pixels, K = kh kw Cin,
 // N = Cout. The TPU kernel copies each image into a padded fp32 VMEM
 // buffer and sums kh*kw shifted matmuls; no padded copy of x exists here.
-// bf16 runs the persistent TMA + wgmma GEMM of the 1x1 statistics kernels
+// bf16 and fp16 run the persistent TMA + wgmma GEMM of the 1x1 statistics
+// kernels
 // (gemm_wgmma_sm90.cuh, KIND kConvStats), which also describes the
 // statistics: running column sums per thread across the CTA's tiles, one
 // scratch row per CTA, the final sum by the last CTA of each n-tile, all in
@@ -32,8 +33,8 @@
 // (tools/torch_kxk_int8_ablation.py times these two). The im2col map's
 // bounding box takes corners in [-128, 127] (`im2col_fits`); wider kernels
 // or pads run the fp32 kernel (the wrapper converts x and w and rounds z).
-// bf16 products are exact in fp32, so the sums are the TPU kernel's fp32
-// sums in another order.
+// bf16 and fp16 products are exact in fp32, so the sums are the TPU
+// kernel's fp32 sums in another order.
 //
 // fp32 (a correctness route): conv_gemm_sm90.cuh's ConvA loader and FMA
 // tiles, never TF32, per-CTA partial statistics in an (m_tiles, Cout)
@@ -50,6 +51,7 @@
 #include <climits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -113,12 +115,12 @@ auto pick(int bn, F&& f) {
                      : f(Tag<64, 2>{});
 }
 
-template <int BN, int NRB>
+template <class T, int BN, int NRB>
 cudaError_t launch(const void* x, const void* w, void* z, float* parts,
                    float* sums, unsigned* counters, const Conv& c, int grid,
                    cudaStream_t st) {
   using L = Smem<BN, NRB>;
-  const CUtensorMapDataType ty = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapDataType ty = Elem<T>::kMap;
   const int taps = c.kh * c.kw;
   CUtensorMap m[3];
   cudaError_t err = encode_im2col_4d(&m[0], x, c.n, c.h, c.w, c.cin, c.kh,
@@ -129,12 +131,12 @@ cudaError_t launch(const void* x, const void* w, void* z, float* parts,
   if (err == cudaSuccess)
     err = encode_rows_map(&m[2], z, 1, c.M(), c.cout, TM, ty);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_wgmma<BN, NRB, kConvStats>,
+    err = cudaFuncSetAttribute(gemm_wgmma<BN, NRB, kConvStats, T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::BYTES);
   if (err != cudaSuccess) return err;
   const ConvGeom g{c.ho * c.wo, c.wo, c.ph, c.pw, c.kw, c.ncb(), c.n_kb()};
-  gemm_wgmma<BN, NRB, kConvStats><<<grid, THREADS, L::BYTES, st>>>(
+  gemm_wgmma<BN, NRB, kConvStats, T><<<grid, THREADS, L::BYTES, st>>>(
       m[0], m[1], m[2], m[2], nullptr, nullptr, parts, sums, counters,
       c.M(), c.cout, taps * c.cin, 0, 0, g);
   return cudaGetLastError();
@@ -142,8 +144,9 @@ cudaError_t launch(const void* x, const void* w, void* z, float* parts,
 
 cudaError_t launch_wgmma(const void* x, const void* w, void* z,
                          void* scratch, void* sums, const Conv& c, int rows,
-                         cudaStream_t st) {
-  if (!im2col_fits(c.kh, c.kw, c.ph, c.pw)) return cudaErrorInvalidValue;
+                         int dtype, cudaStream_t st) {
+  if (!im2col_fits(c.kh, c.kw, c.ph, c.pw) || (dtype != 1 && dtype != 2))
+    return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
@@ -156,28 +159,32 @@ cudaError_t launch_wgmma(const void* x, const void* w, void* z,
   unsigned* cnt = reinterpret_cast<unsigned*>(p + 2 * (size_t)rows * c.cout);
   err = cudaMemsetAsync(cnt, 0, n_nt * sizeof(unsigned), st);
   if (err != cudaSuccess) return err;
-  return pick(bn, [&](auto tag) {
-    using T = decltype(tag);
-    return launch<T::BN, T::NRB>(x, w, z, p, static_cast<float*>(sums), cnt,
-                                 c, rows * n_nt, st);
+  return by_elem(dtype, [&](auto et) {
+    using E = typename decltype(et)::type;
+    return pick(bn, [&](auto tag) {
+      using T = decltype(tag);
+      return launch<E, T::BN, T::NRB>(x, w, z, p, static_cast<float*>(sums),
+                                      cnt, c, rows * n_nt, st);
+    });
   });
 }
 
 }  // namespace wg
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Each entry point returns a cudaError_t:
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each entry point returns a
+// cudaError_t:
 // cudaErrorInvalidValue for arguments the kernel does not take (or a map
 // cuTensorMapEncode* refuses), else the first error of the launch, else
 // cudaGetLastError() right after it.
 
 // Output pixels per CTA of the per-tile (fp32) kernel, hence rows of its
-// partial-sum scratch per m-tile; -1 for bf16, which has none.
+// partial-sum scratch per m-tile; -1 for bf16 and fp16, which have none.
 extern "C" int mxt_convkxk_m_tile(int dtype) { return m_tile(dtype); }
 
-// The fp32 kernel (dtype 0; bf16 runs mxt_convkxk_bn_stats_wgmma). z: (n,
-// ho, wo, cout) fp32; ps, pss: (ceil(n ho wo / m_tile), cout) fp32 partial
-// channel sums of z and z^2.
+// The fp32 kernel (dtype 0; bf16 and fp16 run mxt_convkxk_bn_stats_wgmma).
+// z: (n, ho, wo, cout) fp32; ps, pss: (ceil(n ho wo / m_tile), cout) fp32
+// partial channel sums of z and z^2.
 extern "C" int mxt_convkxk_bn_stats(const void* x, const void* w, void* z,
                                     void* ps, void* pss, int n, int h,
                                     int wd, int cin, int cout, int kh,
@@ -198,13 +205,13 @@ extern "C" int mxt_convkxk_bn_stats(const void* x, const void* w, void* z,
   return (int)cudaGetLastError();
 }
 
-// Whether the bf16 kernel's im2col map takes a kernel (kh, kw) with
+// Whether the 16-bit kernel's im2col map takes a kernel (kh, kw) with
 // padding (ph, pw): the map's bounding-box corners within [-128, 127].
 extern "C" int mxt_convkxk_tma_fits(int kh, int kw, int ph, int pw) {
   return mxt::sm90::im2col_fits(kh, kw, ph, pw) ? 1 : 0;
 }
 
-// Rows of the bf16 kernel's partial-sum scratch for M output pixels and
+// Rows of the 16-bit kernel's partial-sum scratch for M output pixels and
 // Cout channels on the current device, or -1 if the device cannot be
 // queried.
 extern "C" int mxt_convkxk_stats_rows(int M, int cout) {
@@ -213,7 +220,7 @@ extern "C" int mxt_convkxk_stats_rows(int M, int cout) {
   return wg::stats_rows(M, cout, sms, wg::conv_tile_n(M, cout, sms));
 }
 
-// Columns per tile of the bf16 kernel for M output pixels and cout
+// Columns per tile of the 16-bit kernel for M output pixels and cout
 // channels on the current device, or -1 if it cannot be queried.
 extern "C" int mxt_convkxk_tile_n(int M, int cout) {
   int sms = 0;
@@ -221,7 +228,8 @@ extern "C" int mxt_convkxk_tile_n(int M, int cout) {
   return wg::conv_tile_n(M, cout, sms);
 }
 
-// The bf16 kernel. z: (n, ho, wo, cout) bf16; scratch: 2 x rows x cout
+// The 16-bit kernel (dtype 1 = bf16, 2 = fp16). z: (n, ho, wo, cout) in
+// x's dtype; scratch: 2 x rows x cout
 // fp32 partial sums, rows = mxt_convkxk_stats_rows(n ho wo, cout),
 // followed by room for ceil(cout / 64) uint32 counters, which the launch
 // zeroes; sums: (2, cout) fp32, the channel sums of z and z^2.
@@ -229,16 +237,18 @@ extern "C" int mxt_convkxk_bn_stats_wgmma(const void* x, const void* w,
                                           void* z, void* scratch, void* sums,
                                           int n, int h, int wd, int cin,
                                           int cout, int kh, int kw, int ph,
-                                          int pw, int rows, void* stream) {
+                                          int pw, int rows, int dtype,
+                                          void* stream) {
   Conv c;
   if (!conv_of(&c, n, h, wd, cin, cout, kh, kw, ph, pw))
     return (int)cudaErrorInvalidValue;
-  return (int)wg::launch_wgmma(x, w, z, scratch, sums, c, rows,
+  return (int)wg::launch_wgmma(x, w, z, scratch, sums, c, rows, dtype,
                                static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory in bytes (what = 0), ring stages (1) or tile
-// buffers (2) of the bf16 kernel for tile_n-column tiles.
+// buffers (2) of the 16-bit kernel (either element type) for tile_n-column
+// tiles.
 extern "C" int mxt_convkxk_config(int tile_n, int what) {
   return wg::pick(tile_n, [&](auto tag) {
     using T = decltype(tag);

@@ -5,7 +5,9 @@
 // code: tile rules, tensor maps, launches.
 //
 // z = A @ B^T for 16-bit A (M rows, K columns) and B (N rows, K columns),
-// both K-major, fp32 accumulators. One CTA per SM walks the (m-tile,
+// both K-major, of one element type T (bf16 or fp16: the wgmma form, the
+// TMA maps' element type and the stores' pair conversions follow it), fp32
+// accumulators. One CTA per SM walks the (m-tile,
 // n-tile) grid statically, tile blockIdx.x + i * gridDim.x with the n-tile
 // fastest. A tile is 128 rows (two consumer warpgroups of 64) by BN columns.
 // A and B arrive through a ring of k-boxes (64 columns of K, 128-byte
@@ -33,7 +35,7 @@
 //
 // After the product, by KIND:
 //   kEpilogue: z * scale + shift, the residual added in fp32, the relu,
-//     rounded once to bf16 into the tile buffer in place;
+//     rounded once to T into the tile buffer in place;
 //   kStats: the column sums of z and z^2; nothing stored;
 //   kStatsStore, kConvStats: act(z) (kConvStats: no relu) rounded into the
 //     tile buffer, and the column sums of act(z) from the fp32 values.
@@ -55,7 +57,9 @@
 // the running sums (`Cols`).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,7 +72,7 @@ namespace gemm {
 using namespace mxt::sm90;
 
 constexpr int WG = 128;       // threads of a warpgroup
-constexpr int RB = 128;       // bytes of a 64-column bf16 tile row
+constexpr int RB = 128;       // bytes of a 64-column 16-bit tile row
 constexpr int TM = 128;       // rows per tile: two consumer warpgroups
 constexpr int CONSUMERS = 2 * WG, THREADS = 3 * WG;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
@@ -251,8 +255,38 @@ __device__ __forceinline__ void fold_rows(const float* parts,
   }
 }
 
-// The bf16 pair (v0, v1) of tile row r, columns 8j + 2c4 and + 1, in a
-// tile buffer in the 128-byte swizzle (64-column chunks of TM rows).
+// The 16-bit element types: the pair type of two adjacent columns, its
+// conversions from and to two floats (rounded to nearest even), and the
+// TMA maps' element type.
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static __device__ __forceinline__ Pair pack(float a, float b) {
+    return __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ float2 unpack(Pair v) {
+    return __bfloat1622float2(v);
+  }
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+
+template <>
+struct Elem<__half> {
+  using Pair = __half2;
+  static __device__ __forceinline__ Pair pack(float a, float b) {
+    return __floats2half2_rn(a, b);
+  }
+  static __device__ __forceinline__ float2 unpack(Pair v) {
+    return __half22float2(v);
+  }
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
+// The pair (v0, v1) of tile row r, columns 8j + 2c4 and + 1, in a tile
+// buffer in the 128-byte swizzle (64-column chunks of TM rows).
 __device__ __forceinline__ unsigned char* pair_at(unsigned char* tb, int r,
                                                   int j, int c4) {
   return tb + (j / 8) * TM * RB + r * RB + (((j % 8) ^ (r % 8)) * 16) +
@@ -261,7 +295,7 @@ __device__ __forceinline__ unsigned char* pair_at(unsigned char* tb, int r,
 
 // The products of ring k-box `it` into acc once its stage is full: four
 // k16 wgmma with both operands from shared memory, committed as one group.
-template <int BN, class L>
+template <class T, int BN, class L>
 __device__ __forceinline__ void kbox_products(float (&acc)[BN / 2],
                                               unsigned char* sm,
                                               uint64_t* full, int it,
@@ -273,7 +307,7 @@ __device__ __forceinline__ void kbox_products(float (&acc)[BN / 2],
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<0>(Op<__nv_bfloat16>(), acc, desc_k_major(xs + 32 * kk),
+    wgmma_ss<0>(Op<T>(), acc, desc_k_major(xs + 32 * kk),
                 desc_k_major(ws + 32 * kk), 1);
   wgmma_commit();
 }
@@ -290,7 +324,7 @@ struct Finish {
 // A finished tile li of the statistics kernels: the relu; with STORE, y
 // rounded once into tile buffer li % NRB for its TMA store; the column sums
 // added to the running ones, from the fp32 values.
-template <int BN, int NRB, bool STORE, class L>
+template <class T, int BN, int NRB, bool STORE, class L>
 __device__ __forceinline__ void finish_tile(float (&acc)[BN / 2],
                                             float (&rs)[Cols<BN>::NV],
                                             float (&rq)[Cols<BN>::NV],
@@ -307,16 +341,17 @@ __device__ __forceinline__ void finish_tile(float (&acc)[BN / 2],
     for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<__nv_bfloat162*>(pair_at(tb, f.rl + 8 * i, j,
-                                                   f.c4)) =
-            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        *reinterpret_cast<typename Elem<T>::Pair*>(
+            pair_at(tb, f.rl + 8 * i, j, f.c4)) =
+            Elem<T>::pack(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
     fence_proxy_async();
     mbar_arrive(&f.tready[b]);
   }
   add_tile<BN>(rs, rq, acc);
 }
 
-template <int BN, int NRB, int KIND>
+// T last, so that the bf16 kernels' names begin as before the fp16 forms
+template <int BN, int NRB, int KIND, class T>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap tx,
                const __grid_constant__ CUtensorMap tw,
@@ -451,7 +486,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       // z = A B^T: the products of k-box kb run while the ring fills;
       // stage kb - 1 is released once they are known complete
       for (int kb = 0; kb < n_kb; ++kb, ++it) {
-        kbox_products<BN, L>(acc, sm, full, it, wgi);
+        kbox_products<T, BN, L>(acc, sm, full, it, wgi);
         wgmma_wait<1>();
         fence_regs(acc);
         if (kb > 0) mbar_arrive(&empty[(it - 1) % NST]);
@@ -461,7 +496,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_arrive(&empty[(it - 1) % NST]);
 
       if constexpr (KIND != kEpilogue) {
-        finish_tile<BN, NRB, KIND != kStats, L>(acc, rs, rq, fin, li);
+        finish_tile<T, BN, NRB, KIND != kStats, L>(acc, rs, rq, fin, li);
         continue;
       }
       // out = act(z * scale + shift [+ residual]), rounded once, in place
@@ -483,8 +518,8 @@ __global__ void __launch_bounds__(THREADS, 1)
           float v0 = fmaf(acc[4 * j + 2 * i], sc.x, sh.x);
           float v1 = fmaf(acc[4 * j + 2 * i + 1], sc.y, sh.y);
           if (has_res) {
-            const float2 rv = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(p));
+            const float2 rv = Elem<T>::unpack(
+                *reinterpret_cast<const typename Elem<T>::Pair*>(p));
             v0 += rv.x;
             v1 += rv.y;
           }
@@ -492,8 +527,8 @@ __global__ void __launch_bounds__(THREADS, 1)
             v0 = fmaxf(v0, 0.f);
             v1 = fmaxf(v1, 0.f);
           }
-          *reinterpret_cast<__nv_bfloat162*>(p) =
-              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<typename Elem<T>::Pair*>(p) =
+              Elem<T>::pack(v0, v1);
         }
       }
       fence_proxy_async();
@@ -542,6 +577,20 @@ template <int BN_, int NRB_>
 struct Tag {
   static constexpr int BN = BN_, NRB = NRB_;
 };
+
+// Calls f with an ElemTag of the element type of dtype code 1 (bf16) or 2
+// (fp16); cudaErrorInvalidValue for another code.
+template <class T>
+struct ElemTag {
+  using type = T;
+};
+
+template <class F>
+cudaError_t by_elem(int dtype, F&& f) {
+  if (dtype == 1) return f(ElemTag<__nv_bfloat16>{});
+  if (dtype == 2) return f(ElemTag<__half>{});
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace gemm
 }  // namespace mxt

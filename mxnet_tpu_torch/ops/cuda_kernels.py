@@ -55,7 +55,9 @@ __all__ = ["flash_attention", "flash_attention_fwd_reference",
            "convkxk_fits", "convkxk_bn_stats", "convkxk_bn_stats_reference",
            "convkxk_bn_stats_train", "int_mm_fits", "s8_matmul_s32",
            "int8_fits", "int8_matmul", "int8_matmul_reference",
-           "launch_counts", "reset_launch_counts", "kernel_of"]
+           "launch_counts", "launch_counts_by_dtype",
+           "reset_launch_counts", "kernel_of",
+           "kernel_dtype"]
 
 _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                              "flash_attention_bwd_dq": 0,
@@ -70,20 +72,42 @@ _LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
 _FLASH_DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 
 
+# the conv / batch-norm kernels' launches by kernel name and element type
+# ("fp32", "bf16", "fp16"), counted where _LAUNCHES counts them
+_LAUNCHES_BY_DTYPE: Dict[Tuple[str, str], int] = {}
+_DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16",
+                torch.float16: "fp16"}
+
+
+def _count(name: str, dtype) -> None:
+    """One launch of kernel ``name`` on ``dtype`` operands."""
+    _LAUNCHES[name] += 1
+    key = (name, _DTYPE_NAMES[dtype])
+    _LAUNCHES_BY_DTYPE[key] = _LAUNCHES_BY_DTYPE.get(key, 0) + 1
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far, by kernel name."""
     return dict(_LAUNCHES)
 
 
+def launch_counts_by_dtype() -> Dict[Tuple[str, str], int]:
+    """The conv / batch-norm kernels' launches so far, by (kernel name,
+    element type)."""
+    return dict(_LAUNCHES_BY_DTYPE)
+
+
 def reset_launch_counts() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+    _LAUNCHES_BY_DTYPE.clear()
 
 
 # The csrc kernels' names as a trace shows them, demangled ("void
-# gemm_wgmma<128, 2, 1>(...)") or mangled ("_Z10gemm_wgmmaILi128ELi2ELi1E..."),
-# by the wrapper that launches them. gemm_wgmma's KIND and stats_fp32's
-# operand and STORE flag tell its four users apart.
+# gemm_wgmma<128, 2, 1, __half>(...)") or mangled
+# ("_Z10gemm_wgmmaILi128ELi2ELi1E6__halfE..."), by the wrapper that launches
+# them. gemm_wgmma's KIND and stats_fp32's operand and STORE flag tell its
+# four users apart; gemm_wgmma's element type tells bf16 from fp16.
 _NOT_AFTER = r"(?<![A-Za-z])"
 _TRACE_NAMES = (
     (re.compile(_NOT_AFTER + r"fwd_(?:wgmma|fp32)(?![a-z])"),
@@ -96,7 +120,9 @@ _TRACE_NAMES = (
     (re.compile(_NOT_AFTER + r"int8_wgmma(?![a-z])"), "int8_matmul"),
 )
 _GEMM_NAME = re.compile(r"(?<![A-Za-z])gemm_wgmma(?:<\s*\d+\s*,\s*\d+\s*,"
-                        r"\s*(\d)\s*>|ILi\d+ELi\d+ELi(\d)E)")
+                        r"\s*(\d)\s*(?:,\s*(__nv_bfloat16|__half)\s*)?>"
+                        r"|ILi\d+ELi\d+ELi(\d)E(?:\d+(__nv_bfloat16|__half))?)")
+_ELEM_NAMES = {"__nv_bfloat16": "bf16", "__half": "fp16"}
 _GEMM_KINDS = {"0": "matmul_epilogue", "1": "matmul_stats",
                "2": "matmul_bn_stats", "3": "convkxk_bn_stats"}
 _STATS_FP32_NAME = re.compile(
@@ -109,7 +135,7 @@ def kernel_of(name: str) -> Optional[str]:
     ``name``, or None for a kernel that is not the port's own."""
     m = _GEMM_NAME.search(name)
     if m:
-        return _GEMM_KINDS.get(m[1] or m[2])
+        return _GEMM_KINDS.get(m[1] or m[3])
     m = _STATS_FP32_NAME.search(name)
     if m:
         if (m[1] or m[3]) == "Conv32":
@@ -120,6 +146,16 @@ def kernel_of(name: str) -> Optional[str]:
         if pattern.search(name):
             return wrapper
     return None
+
+
+def kernel_dtype(name: str) -> Optional[str]:
+    """The element type, ``"bf16"`` or ``"fp16"``, of a conv / batch-norm
+    TMA + wgmma kernel a profiler trace names ``name``; None for another
+    kernel (the fp32 ones included)."""
+    m = _GEMM_NAME.search(name)
+    if not m:
+        return None
+    return _ELEM_NAMES.get(m[2] or m[4])
 
 
 def flash_head_dim_ok(head_dim: int) -> bool:
@@ -404,13 +440,14 @@ def flash_attention(q, k, v, causal: bool = True,
 # _mm_statsonly_kernel and _mm_epilogue_kernel)
 # ---------------------------------------------------------------------------
 
-# dtype codes of csrc/conv_bn_epilogue.cu
-_MM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype codes of csrc/conv_bn_epilogue.cu and csrc/convkxk_bn_stats.cu: the
+# 16-bit ones run the TMA + wgmma kernels (gemm_wgmma<.., T>)
+_MM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def epilogue_fits(m: int, k: int, n: int, dtype) -> bool:
     """Whether the matmul-stats and matmul-epilogue kernels take an (m, k) x
-    (k, n) product: fp32 or bf16, k and n multiples of 8 (the TMA maps' row
+    (k, n) product: fp32, bf16 or fp16, k and n multiples of 8 (the TMA maps' row
     strides are multiples of 16 bytes; the other kernels read 16-byte
     vectors), any m >= 1 (the copies zero-fill the ragged last m-tile and
     the stores clip it). A Hopper rule of the port's own: the TPU's
@@ -465,7 +502,8 @@ def _check_mm(what: str, x, w, **vectors) -> None:
     m, k = x.shape
     n = w.shape[1]
     if w.dtype != x.dtype or not epilogue_fits(m, k, n, x.dtype):
-        raise ValueError(f"{what} takes fp32 or bf16 x and w of one dtype "
+        raise ValueError(f"{what} takes fp32, bf16 or fp16 x and w of one "
+                         f"dtype "
                          f"with K and N multiples of 8, got ({m}, {k}) x "
                          f"({k}, {n}) {x.dtype}/{w.dtype}")
     for name, v in vectors.items():
@@ -533,8 +571,9 @@ def _stat_parts(source: str, symbol: str, code: int, m: int, n: int,
 
 def _launch_stats_wgmma(what: str, x, wt, y, relu: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 statistics kernel (y None: matmul_stats): (s, ss) summed on
-    the card, by the last CTA of each n-tile, from the per-CTA rows."""
+    """The 16-bit (bf16 or fp16) statistics kernel (y None: matmul_stats):
+    (s, ss) summed on the card, by the last CTA of each n-tile, from the
+    per-CTA rows."""
     (m, k), n = x.shape, wt.shape[0]
     with torch.cuda.device(x.device):
         rows = _build.load("conv_bn_epilogue").mxt_stats_rows(m, n)
@@ -545,20 +584,21 @@ def _launch_stats_wgmma(what: str, x, wt, y, relu: bool
     scratch = torch.empty(2 * rows * n + -(-n // 64), dtype=torch.float32,
                           device=x.device)
     sums = torch.empty((2, n), dtype=torch.float32, device=x.device)
+    code = _MM_DTYPES[x.dtype]
     if y is None:
         _run(what, "mxt_matmul_stats_wgmma", (x, wt, scratch, sums),
-             (m, n, k, rows), x.device)
+             (m, n, k, rows, code), x.device)
     else:
         _run(what, "mxt_matmul_bn_stats_wgmma", (x, wt, y, scratch, sums),
-             (m, n, k, rows, int(bool(relu))), x.device)
+             (m, n, k, rows, int(bool(relu)), code), x.device)
     return sums[0], sums[1]
 
 
 def _launch_matmul_stats(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
     wt = _kernel_operands("matmul_stats", x, w)
-    if x.dtype == torch.bfloat16:
+    if x.dtype != torch.float32:
         s, ss = _launch_stats_wgmma("matmul_stats", x, wt, None, False)
-        _LAUNCHES["matmul_stats"] += 1
+        _count("matmul_stats", x.dtype)
         return s, ss
     (m, k), n = x.shape, w.shape[1]
     code = _MM_DTYPES[x.dtype]
@@ -566,7 +606,7 @@ def _launch_matmul_stats(x, w) -> Tuple[torch.Tensor, torch.Tensor]:
                         n, x.device)
     _run("matmul_stats", "mxt_matmul_stats", (x, wt, parts[0], parts[1]),
          (m, n, k, code), x.device)
-    _LAUNCHES["matmul_stats"] += 1
+    _count("matmul_stats", x.dtype)
     # the second pass: the per-m-tile partials summed in a fixed order
     s, ss = parts.sum(1)
     return s, ss
@@ -597,7 +637,7 @@ def _launch_matmul_epilogue(x, w, scale, shift, residual, relu
     _run("matmul_epilogue", "mxt_matmul_epilogue",
          (x, wt, scale, shift, residual, out),
          (m, n, k, int(bool(relu)), _MM_DTYPES[x.dtype]), x.device)
-    _LAUNCHES["matmul_epilogue"] += 1
+    _count("matmul_epilogue", x.dtype)
     return out
 
 
@@ -783,9 +823,9 @@ def _launch_matmul_bn_stats(x, w, relu):
     wt = _kernel_operands("matmul_bn_stats", x, w)
     (m, k), n = x.shape, w.shape[1]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    if x.dtype == torch.bfloat16:
+    if x.dtype != torch.float32:
         s, ss = _launch_stats_wgmma("matmul_bn_stats", x, wt, y, relu)
-        _LAUNCHES["matmul_bn_stats"] += 1
+        _count("matmul_bn_stats", x.dtype)
         return y, s, ss
     code = _MM_DTYPES[x.dtype]
     parts = _stat_parts("conv_bn_epilogue", "mxt_conv_bn_m_tile", code, m,
@@ -793,7 +833,7 @@ def _launch_matmul_bn_stats(x, w, relu):
     _run("matmul_bn_stats", "mxt_matmul_bn_stats",
          (x, wt, y, parts[0], parts[1]), (m, n, k, int(bool(relu)), code),
          x.device)
-    _LAUNCHES["matmul_bn_stats"] += 1
+    _count("matmul_bn_stats", x.dtype)
     s, ss = parts.sum(1)
     return y, s, ss
 
@@ -900,7 +940,8 @@ def conv1x1_bn_stats_train(x, w, bias=None
 def convkxk_fits(xshape, cout: int, kernel=(3, 3), pad=(1, 1),
                  dtype=torch.bfloat16) -> bool:
     """Whether the convkxk-bn-stats kernel takes a stride-1 conv of an NHWC
-    input of shape ``xshape`` to ``cout`` channels: fp32 or bf16, Cin and
+    input of shape ``xshape`` to ``cout`` channels: fp32, bf16 or fp16, Cin
+    and
     Cout multiples of 8 (a TMA map's strides are multiples of 16 bytes; the
     fp32 kernel reads 16-byte vectors of one tap), 0 <= pad < kernel per
     dim, a non-empty output, and output pixels and K = kh·kw·Cin below 2³¹.
@@ -942,7 +983,7 @@ def _launch_convkxk_bn_stats(x, w, pad):
     m = n * ho * wo
     geometry = (n, h, wd, cin, cout, kh, kw, ph, pw)
     lib = _build.load("convkxk_bn_stats")
-    if x.dtype == torch.bfloat16:
+    if x.dtype != torch.float32:
         if lib.mxt_convkxk_tma_fits(kh, kw, ph, pw):
             z = torch.empty((n, ho, wo, cout), dtype=x.dtype,
                             device=x.device)
@@ -960,13 +1001,14 @@ def _launch_convkxk_bn_stats(x, w, pad):
             sums = torch.empty((2, cout), dtype=torch.float32,
                                device=x.device)
             _run("convkxk_bn_stats", "mxt_convkxk_bn_stats_wgmma",
-                 (x, w, z, scratch, sums), (*geometry, rows), x.device,
+                 (x, w, z, scratch, sums),
+                 (*geometry, rows, _MM_DTYPES[x.dtype]), x.device,
                  source="convkxk_bn_stats")
-            _LAUNCHES["convkxk_bn_stats"] += 1
+            _count("convkxk_bn_stats", x.dtype)
             return (z, *_mean_var(sums[0], sums[1], m))
         # a kernel or pad beyond the im2col map's reach: the fp32 kernel,
-        # whose fp32 sums of the exact bf16 products are the bf16 kernel's
-        # arithmetic, z rounded once to bf16
+        # whose fp32 sums of the exact 16-bit products are the 16-bit
+        # kernel's arithmetic, z rounded once to x's dtype
         z, mean, var = _launch_convkxk_bn_stats(x.float(), w.float(), pad)
         return z.to(x.dtype), mean, var
     z = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
@@ -975,7 +1017,7 @@ def _launch_convkxk_bn_stats(x, w, pad):
     _run("convkxk_bn_stats", "mxt_convkxk_bn_stats",
          (x, w, z, parts[0], parts[1]), (*geometry, _MM_DTYPES[x.dtype]),
          x.device, source="convkxk_bn_stats")
-    _LAUNCHES["convkxk_bn_stats"] += 1
+    _count("convkxk_bn_stats", x.dtype)
     # the second pass: the per-m-tile partials summed in a fixed order
     s, ss = parts.sum(1)
     return (z, *_mean_var(s, ss, m))
@@ -996,8 +1038,8 @@ def convkxk_bn_stats(x, w, pad=(1, 1)
                          f"{tuple(w.shape)}")
     if w.dtype != x.dtype or not convkxk_fits(
             x.shape, w.shape[0], tuple(w.shape[1:3]), pad, x.dtype):
-        raise ValueError(f"convkxk_bn_stats takes fp32 or bf16 x and w of "
-                         f"one dtype, Cin and Cout multiples of 8 and pad < "
+        raise ValueError(f"convkxk_bn_stats takes fp32, bf16 or fp16 x and "
+                         f"w of one dtype, Cin and Cout multiples of 8 and pad < "
                          f"kernel, got x {tuple(x.shape)} {x.dtype}, w "
                          f"{tuple(w.shape)} {w.dtype}, pad {pad}")
     if w.device != x.device:

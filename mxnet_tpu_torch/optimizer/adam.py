@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .optimizer import Optimizer, groups, register
+from .optimizer import Optimizer, register
 
 __all__ = ["Adam"]
 
@@ -31,7 +31,8 @@ class Adam(Optimizer):
         self.epsilon = epsilon
 
     def fixed_signature(self) -> tuple:
-        return (float(self.beta1), float(self.beta2), float(self.epsilon))
+        return super().fixed_signature() + (
+            float(self.beta1), float(self.beta2), float(self.epsilon))
 
     def scalars(self, device):
         s = super().scalars(device)
@@ -42,26 +43,26 @@ class Adam(Optimizer):
     def create_state(self, weight):
         return (torch.zeros_like(weight), torch.zeros_like(weight))
 
-    @torch.no_grad()
-    def step(self, weights, grads, states) -> None:
-        b1, b2 = self.beta1, self.beta2
+    def _begin_step(self, weights) -> None:
+        # t counts every step, a skipped (overflowed) one too, as the
+        # reference's update counts do
         for device in {w.device for w in weights}:
             self.scalars(device)["t"].add_(1)
-        for device, ws, gs, st in groups(weights, grads, states):
-            s = self.scalars(device)
-            t = s["t"]
-            lr_t = s["lr"] * torch.sqrt(1.0 - torch.pow(b2, t)) \
-                / (1.0 - torch.pow(b1, t))
-            means = [m for m, _ in st]
-            vars_ = [v for _, v in st]
-            g = torch._foreach_mul(gs, s["rescale_grad"])
-            torch._foreach_add_(g, torch._foreach_mul(ws, s["wd"]))
-            torch._foreach_mul_(means, b1)
-            torch._foreach_add_(means, torch._foreach_mul(g, 1 - b1))
-            torch._foreach_mul_(vars_, b2)
-            torch._foreach_add_(vars_, torch._foreach_mul(
-                torch._foreach_mul(g, g), 1 - b2))
-            den = torch._foreach_add(torch._foreach_sqrt(vars_),
-                                     self.epsilon)
-            num = torch._foreach_mul(means, lr_t.to(ws[0].dtype))
-            torch._foreach_sub_(ws, torch._foreach_div(num, den))
+
+    def _update(self, ws, gs, st, s) -> None:
+        b1, b2 = self.beta1, self.beta2
+        t = s["t"]
+        lr_t = s["lr"] * torch.sqrt(1.0 - torch.pow(b2, t)) \
+            / (1.0 - torch.pow(b1, t))
+        means = [m for m, _ in st]
+        vars_ = [v for _, v in st]
+        g = torch._foreach_mul(gs, s["rescale_grad"])
+        torch._foreach_add_(g, torch._foreach_mul(ws, s["wd"]))
+        torch._foreach_mul_(means, b1)
+        torch._foreach_add_(means, torch._foreach_mul(g, 1 - b1))
+        torch._foreach_mul_(vars_, b2)
+        torch._foreach_add_(vars_, torch._foreach_mul(
+            torch._foreach_mul(g, g), 1 - b2))
+        den = torch._foreach_add(torch._foreach_sqrt(vars_), self.epsilon)
+        num = torch._foreach_mul(means, lr_t.to(ws[0].dtype))
+        torch._foreach_sub_(ws, torch._foreach_div(num, den))

@@ -7,12 +7,14 @@ dtype as the reference's expression rounds it. ``lr``, ``wd`` and
 ``rescale_grad`` are read from the optimizer's device scalars
 (:meth:`Optimizer.scalars`); ``momentum`` is fixed at construction. With
 momentum 0 this is ``w -= lr · g``, the reference's plain ``sgd_update``.
+``Optimizer.step`` adds the AMP flag and the fp32 master weights
+(``multi_precision``).
 """
 from __future__ import annotations
 
 import torch
 
-from .optimizer import Optimizer, groups, register
+from .optimizer import Optimizer, register
 
 __all__ = ["SGD"]
 
@@ -24,17 +26,14 @@ class SGD(Optimizer):
         self.momentum = momentum
 
     def fixed_signature(self) -> tuple:
-        return (float(self.momentum),)
+        return super().fixed_signature() + (float(self.momentum),)
 
     def create_state(self, weight):
         return torch.zeros_like(weight)
 
-    @torch.no_grad()
-    def step(self, weights, grads, states) -> None:
-        for device, ws, gs, ms in groups(weights, grads, states):
-            s = self.scalars(device)
-            g = torch._foreach_mul(gs, s["rescale_grad"])
-            torch._foreach_add_(g, torch._foreach_mul(ws, s["wd"]))
-            torch._foreach_mul_(ms, self.momentum)
-            torch._foreach_sub_(ms, torch._foreach_mul(g, s["lr"]))
-            torch._foreach_add_(ws, ms)
+    def _update(self, ws, gs, ms, s) -> None:
+        g = torch._foreach_mul(gs, s["rescale_grad"])
+        torch._foreach_add_(g, torch._foreach_mul(ws, s["wd"]))
+        torch._foreach_mul_(ms, self.momentum)
+        torch._foreach_sub_(ms, torch._foreach_mul(g, s["lr"]))
+        torch._foreach_add_(ws, ms)

@@ -26,8 +26,17 @@ Quarantine (reference ``spmd.py:200-232``): the CUDA device a rank takes
 (:func:`world_device`) skips every device index in the sentinel's active
 quarantine (:func:`admitted_devices`), so a restart after a corrupt
 device was quarantined runs without it; when every device is
-quarantined the list is ignored, with a warning and the reference's
-``corruption`` event ``spmd.quarantine_excluded``.
+quarantined the list is ignored, with a warning. A quarantined RANK
+(``Quarantine.add_rank``, a suspect's restart or a heartbeat verdict) is
+left out of the mesh: ``make_mesh`` and ``auto_mesh`` over such a world
+build the mesh over the admitted ranks (:func:`admitted_ranks`; a
+``DeviceMesh`` of those ranks and a ``torch.distributed.new_group`` of
+them for the mesh-wide collectives, each made on every rank of the
+world, as group creation needs), and the quarantined rank's process
+raises ``MXNetError`` naming the quarantine once it has taken its part
+in making them. Every exclusion emits the reference's ``corruption``
+event ``spmd.quarantine_excluded``; quarantining every rank is ignored
+the same loud way as every device.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ from ..context import resolve_device
 
 __all__ = ["AXIS_NAMES", "Mesh", "make_mesh", "auto_mesh", "current_mesh",
            "set_mesh", "mesh_scope", "world_size", "world_device",
-           "admitted_devices"]
+           "admitted_devices", "admitted_ranks"]
 
 AXIS_NAMES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
@@ -108,6 +117,30 @@ def admitted_devices(devices: Sequence) -> List:
     return kept
 
 
+def admitted_ranks() -> List[int]:
+    """The world's ranks minus those the sentinel's active quarantine names,
+    in order; every rank, loudly, when all of them are quarantined (and
+    ``[0]`` without a world)."""
+    from .. import sentinel as _sentinel
+    from .. import telemetry as _telemetry
+
+    ranks = list(range(world_size()))
+    q = _sentinel.active_quarantine()
+    if q is None or _dist() is None:
+        return ranks
+    out = set(q.ranks())
+    kept = [r for r in ranks if r not in out]
+    if not kept:
+        warnings.warn("every rank is quarantined (entries: "
+                      f"{q.entries()}); ignoring the quarantine list for "
+                      "mesh resolution", stacklevel=2)
+        return ranks
+    if len(kept) < len(ranks):
+        _telemetry.event("corruption", "spmd.quarantine_excluded",
+                         ranks=[r for r in ranks if r not in kept])
+    return kept
+
+
 class Mesh:
     """Named axes over ranks. ``shape`` maps each axis to its size;
     ``device`` is this rank's device; ``device_mesh`` the
@@ -116,12 +149,16 @@ class Mesh:
     ``sharding.constraint``, as the reference's ``with mesh:``."""
 
     def __init__(self, axis_names: Sequence[str], device: torch.device,
-                 shape: Optional[Dict[str, int]] = None, device_mesh=None):
+                 shape: Optional[Dict[str, int]] = None, device_mesh=None,
+                 world_group=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(shape) if shape is not None else \
             {a: 1 for a in self.axis_names}
         self.device = device
         self.device_mesh = device_mesh
+        # the process group of every rank of the mesh: None where that is
+        # the whole world (the default group)
+        self.world_group = world_group
 
     @property
     def size(self) -> int:
@@ -180,18 +217,44 @@ def make_mesh(axes: Dict[str, int],
     if any(s < 1 for s in shape):
         raise ValueError(f"mesh {sizes}: every axis needs size >= 1")
     n = math.prod(shape) if shape else 1
-    world = world_size()
-    if n != world:
+    ranks = admitted_ranks()
+    if n != len(ranks):
+        less = "" if len(ranks) == world_size() else " less the quarantined"
         raise ValueError(
-            f"mesh {sizes} needs {n} devices, {world} available (the ranks "
-            "of the torch.distributed world"
-            + ("; none is initialized)" if _dist() is None else ")"))
+            f"mesh {sizes} needs {n} devices, {len(ranks)} available (the "
+            "ranks of the torch.distributed world"
+            + ("; none is initialized)" if _dist() is None else f"{less})"))
     device = world_device(devices)
     if _dist() is None:
         return Mesh(order, device)
+    shape_t, names = tuple(shape) or (1,), tuple(order) or ("dp",)
+    if len(ranks) == world_size():
+        return Mesh(order, device, shape={a: sizes[a] for a in order},
+                    device_mesh=_device_mesh(device.type, shape_t, names))
+    return _admitted_mesh(order, device, sizes, ranks, shape_t, names)
+
+
+def _admitted_mesh(order, device, sizes, ranks, shape, names) -> Mesh:
+    """The mesh over the admitted ``ranks`` of a world with quarantined
+    ones: every rank of the world makes the groups (a collective), then a
+    quarantined rank raises."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from .. import sentinel as _sentinel
+    from ..base import MXNetError
+
+    dist = _dist()
+    dm = DeviceMesh(device.type, torch.tensor(ranks).reshape(shape),
+                    mesh_dim_names=names)
+    group = dist.new_group(ranks)
+    rank = dist.get_rank()
+    if rank not in ranks:
+        q = _sentinel.active_quarantine()
+        raise MXNetError(
+            f"rank {rank} is quarantined ({q.entries() if q else []}); the "
+            f"mesh {sizes} runs on the admitted ranks {ranks}")
     return Mesh(order, device, shape={a: sizes[a] for a in order},
-                device_mesh=_device_mesh(device.type, tuple(shape) or (1,),
-                                         tuple(order) or ("dp",)))
+                device_mesh=dm, world_group=group)
 
 
 # DeviceMeshes of the current world by (device type, shape, names): making
@@ -221,10 +284,10 @@ def _device_mesh(device_type: str, shape: tuple, names: tuple):
 def auto_mesh(n_devices: Optional[int] = None, *, dp: Optional[int] = None,
               tp: int = 1, sp: int = 1, ep: int = 1, pp: int = 1,
               fsdp: int = 1) -> Mesh:
-    """A mesh over ``n_devices`` (the world's ranks when None) with ``dp``
-    filling the rest (reference :60-81)."""
+    """A mesh over ``n_devices`` (the world's admitted ranks when None)
+    with ``dp`` filling the rest (reference :60-81)."""
     if n_devices is None:
-        n_devices = world_size()
+        n_devices = len(admitted_ranks())
     fixed = tp * sp * ep * pp * fsdp
     if dp is None:
         if n_devices % fixed:

@@ -341,7 +341,7 @@ def broadcast_(tensors, mesh) -> None:
     with torch.no_grad():
         for t in tensors:
             if isinstance(t, torch.Tensor):
-                dist.broadcast(t, src=src)
+                dist.broadcast(t, src=src, group=mesh.world_group)
 
 
 def local_rows(t, mesh, axes: Sequence[str] = (DATA_AXIS,)):

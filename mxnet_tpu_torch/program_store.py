@@ -535,8 +535,11 @@ def run(cache: ScopeCache, key, build: Callable[[], Callable],
 
 def knob_key() -> tuple:
     """The Python state a captured body reads besides its inputs: the
-    route knobs and torch's math-mode flags."""
-    return (tuple(_config.get(k) for k in ROUTE_KNOBS),
+    route knobs, the AMP generation (``amp.init`` / ``uninit`` change the
+    casts inside every op) and torch's math-mode flags."""
+    from .ndarray import ndarray as _nd
+
+    return (tuple(_config.get(k) for k in ROUTE_KNOBS), _nd._amp_generation,
             torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32,
             torch.backends.cudnn.benchmark,

@@ -452,15 +452,21 @@ def quarantine_ranks(ranks: Sequence[int], reason: str = "") -> int:
 # ---------------------------------------------------------------------------
 
 def _rank_values(v: int) -> List[int]:
-    """Every rank's ``v`` in rank order (this one alone without a
-    world)."""
+    """Every rank's ``v`` in rank order (this one alone without a world):
+    the ranks of the current mesh's group where a quarantine left ranks out
+    of it, else the world's."""
     import torch.distributed as dist
 
-    if not (dist.is_available() and dist.is_initialized()) or \
-            dist.get_world_size() <= 1:
+    from .parallel.mesh import current_mesh
+
+    if not (dist.is_available() and dist.is_initialized()):
         return [v]
-    out: List[Any] = [None] * dist.get_world_size()
-    dist.all_gather_object(out, v)
+    group = getattr(current_mesh(), "world_group", None)
+    n = dist.get_world_size(group)
+    if n <= 1:
+        return [v]
+    out: List[Any] = [None] * n
+    dist.all_gather_object(out, v, group=group)
     return [int(x) for x in out]
 
 

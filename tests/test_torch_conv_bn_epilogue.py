@@ -224,7 +224,8 @@ def test_fused_op_writes_the_bias_gradient():
     (1001, 8, 8, torch.float32, True),        # ragged m is masked
     (64, 12, 64, torch.float32, False),       # k not a multiple of 8
     (64, 64, 20, torch.bfloat16, False),      # n not a multiple of 8
-    (64, 64, 64, torch.float16, False),       # fp16: not a kernel dtype
+    (64, 64, 64, torch.float16, True),        # fp16: the AMP kernels
+    (64, 64, 64, torch.float64, False),       # fp64: not a kernel dtype
     (0, 64, 64, torch.float32, False)])
 def test_epilogue_fits(m, k, n, dtype, ok):
     assert ck.epilogue_fits(m, k, n, dtype) is ok
@@ -235,8 +236,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="multiples of 8"):
         ck.matmul_stats(x, w)
     with pytest.raises(ValueError, match="multiples of 8"):
-        ck.matmul_epilogue(torch.zeros(16, 16, dtype=torch.float16),
-                           torch.zeros(16, 16, dtype=torch.float16),
+        ck.matmul_epilogue(torch.zeros(16, 16, dtype=torch.float64),
+                           torch.zeros(16, 16, dtype=torch.float64),
                            torch.ones(16), torch.zeros(16))
     with pytest.raises(ValueError, match="residual"):
         ck.matmul_epilogue(torch.zeros(16, 8), torch.zeros(8, 8),

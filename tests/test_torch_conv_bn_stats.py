@@ -267,7 +267,8 @@ def test_bias_gradient_is_written():
     ((8, 57, 57, 12), 64, (4, 4), (0, 0), torch.float32, False),  # Cin 12
     ((2, 9, 9, 8), 20, (3, 3), (1, 1), torch.float32, False),     # Cout 20
     ((2, 9, 9, 8), 8, (3, 3), (3, 3), torch.float32, False),      # pad 3
-    ((2, 9, 9, 8), 8, (3, 3), (1, 1), torch.float16, False),      # fp16
+    ((2, 9, 9, 8), 8, (3, 3), (1, 1), torch.float16, True),       # fp16
+    ((2, 9, 9, 8), 8, (3, 3), (1, 1), torch.float64, False),      # fp64
     ((2, 2, 2, 8), 8, (5, 5), (1, 1), torch.float32, False),      # empty
     ((2, 9, 9, 8), 8, (3, 5), (1, 2), torch.float32, True)])
 def test_convkxk_fits(xshape, cout, kernel, pad, dtype, ok):

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Phases 11 (serving), 12 (speculative decoding), 13 (the
-mixture-of-experts LM), 14 (the mesh of one), 15 (the LM on a mesh) and 16
+mixture-of-experts LM), 14 (the mesh of one), 15 (the LM on a mesh), 16
 (the runtime around the step: prefetch, device metrics, the sentinel, the
-preemption drill) of ``chip_smoke.py`` alone, on one card: a quicker look
-at those paths than the whole script.
+preemption drill) and 17 (mixed precision: the fp16 conv + batch-norm
+kernels, the AMP steps with the loss scaler and the deferred gate) of
+``chip_smoke.py`` alone, on one card: a quicker look at those paths than
+the whole script.
 
     python3 tools/torch_chip_smoke_phases.py [11] [12] [13] [14] [15] [16]
+        [17]
 
 A phase may be named more than once (``12 12 12`` runs phase 12 three
-times in one process). With no argument it runs 12, 13, 14, 15 and 16. It
+times in one process). With no argument it runs 12 to 17. It
 builds the port's kernels first (phase 1 of the script: phases 13 and 15
 run the flash-attention kernels, phase 14 the conv + batch-norm and
-epilogue kernels, phase 16 the conv + batch-norm kernels) and exits with
+epilogue kernels, phase 16 the conv + batch-norm kernels, phase 17 both
+routes' kernels in fp16 and bf16) and exits with
 the script's failure code at the first failed gate.
 """
 import json
@@ -74,6 +78,11 @@ def main(which) -> int:
             out = c.runtime_phase(mx, ck, config, card_line, counts, traced)
             print(f"phase 16 launch counts of the pipelined, synchronous and "
                   f"sentinel runs {counts}, traced in the replay {traced}")
+        elif phase == "17":
+            counts, traced = {}, {}
+            out = c.amp_phase(mx, ck, config, card_line, counts, traced)
+            print(f"phase 17 launch counts of the AMP steps {counts}, traced "
+                  f"in the replays {traced}")
         else:
             print(f"torch_chip_smoke_phases: no phase {phase}",
                   file=sys.stderr)
@@ -87,4 +96,4 @@ def main(which) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15", "16"]))
+    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15", "16", "17"]))

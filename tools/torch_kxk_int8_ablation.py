@@ -64,12 +64,12 @@ FIRST_FILES = (f"{KXK}.cu", f"{INT8}.cu", "conv_gemm_sm90.cuh")
 FIRST = "mma.sync (first kernel)"
 # edits of the diagnostic variants: the tile's products, z's writes into
 # the tile buffer, the statistics, z's TMA store (handshakes kept)
-WGMMA = ("    wgmma_ss<0>(Op<__nv_bfloat16>(), acc, desc_k_major(xs + 32 "
-         "* kk),\n                desc_k_major(ws + 32 * kk), 1);", "    ;")
-Z_WRITE = ("        *reinterpret_cast<__nv_bfloat162*>(pair_at(tb, f.rl + 8 "
-           "* i, j,\n                                                   "
-           "f.c4)) =\n            __floats2bfloat162_rn(acc[4 * j + 2 * i], "
-           "acc[4 * j + 2 * i + 1]);", "        (void)tb;")
+WGMMA = ("    wgmma_ss<0>(Op<T>(), acc, desc_k_major(xs + 32 * kk),\n"
+         "                desc_k_major(ws + 32 * kk), 1);", "    ;")
+Z_WRITE = ("        *reinterpret_cast<typename Elem<T>::Pair*>(\n"
+           "            pair_at(tb, f.rl + 8 * i, j, f.c4)) =\n"
+           "            Elem<T>::pack(acc[4 * j + 2 * i], acc[4 * j + 2 * i + "
+           "1]);", "        (void)tb;")
 ADD_TILE = ("  add_tile<BN>(rs, rq, acc);\n}", "}")
 Z_STORE = ("          tma_store_3d(&tout, tb + c * TM * RB, n0 + 64 * c, m0, "
            "0);", "          (void)tb;")
@@ -167,7 +167,7 @@ def bind(lib):
     passed without them is cut to 32 bits)."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if hasattr(lib, "mxt_convkxk_bn_stats_wgmma"):
-        lib.mxt_convkxk_bn_stats_wgmma.argtypes = [vp] * 5 + [ci] * 10 + [vp]
+        lib.mxt_convkxk_bn_stats_wgmma.argtypes = [vp] * 5 + [ci] * 11 + [vp]
     if hasattr(lib, "mxt_convkxk_bn_stats"):
         lib.mxt_convkxk_bn_stats.argtypes = [vp] * 5 + [ci] * 10 + [vp]
     if hasattr(lib, "mxt_int8_matmul"):   # the first kernel's: no wt
@@ -204,7 +204,7 @@ class Kxk:
             sums = torch.empty(2, cout, device="cuda")
             rc = self.lib.mxt_convkxk_bn_stats_wgmma(
                 x.data_ptr(), w.data_ptr(), z.data_ptr(), scratch.data_ptr(),
-                sums.data_ptr(), *geometry, rows, st)
+                sums.data_ptr(), *geometry, rows, 1, st)
             s, ss = sums
         if rc:
             raise SystemExit(f"B8 launch: cudaError_t {rc}")

@@ -176,8 +176,8 @@ def bind(lib):
     """lib with the argument types of its statistics entry points set (a
     pointer passed without them is cut to 32 bits)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn, n_ptr, n_int in (("mxt_matmul_stats_wgmma", 4, 4),
-                             ("mxt_matmul_bn_stats_wgmma", 5, 5),
+    for fn, n_ptr, n_int in (("mxt_matmul_stats_wgmma", 4, 5),
+                             ("mxt_matmul_bn_stats_wgmma", 5, 6),
                              ("mxt_matmul_stats", 4, 4),
                              ("mxt_matmul_bn_stats", 5, 5)):
         if hasattr(lib, fn):   # the first kernels' library has no wgmma
@@ -217,11 +217,11 @@ class Stats:
         sums = torch.empty((2, n), device="cuda")
         if y is None:
             rc = self.lib.mxt_matmul_stats_wgmma(
-                p(x), p(wt), p(scratch), p(sums), m, n, k, rows, st)
+                p(x), p(wt), p(scratch), p(sums), m, n, k, rows, 1, st)
         else:
             rc = self.lib.mxt_matmul_bn_stats_wgmma(
                 p(x), p(wt), p(y), p(scratch), p(sums), m, n, k, rows, 0,
-                st)
+                1, st)
         if rc:
             raise SystemExit(f"wgmma kernel: cudaError_t {rc}")
         if not self.fold:
