@@ -122,9 +122,11 @@ Phases, in order; any failure exits non-zero before the result line:
    or call and none after warm-up; launches and fused sites per step as
    eager's; no fallback on a timed step; each call's output its own. Then
    eager against captured wall (10 host-clock calls, unprofiled), device
-   busy, event span, the host's ms a call, idle share and peak memory of
-   each path, and a JSON line of them. The captured wall must be below the
-   eager wall for the LM forward at (4, 128) and the LM train step.
+   busy and idle share (of the captured paths: the eager ones are not
+   profiled, and print "not measured"), event span, the host's ms a call
+   and peak memory of each path, and a JSON line of them. The captured
+   wall must be below the eager wall for the LM forward at (4, 128) and
+   the LM train step.
    Phases 6-7b drive the eager classic loop (MXNET_COMPILED_STEP=0: a
    hybridized block's recorded forward runs eagerly); 8g graphs it.
 8d. ``bench.py``'s ResNet lane through ``parallel.ShardedTrainer``
@@ -323,8 +325,8 @@ Phases, in order; any failure exits non-zero before the result line:
    printed: the overhead of ``every=20`` against off over
    SENTINEL_OVERHEAD_STEPS steps, the plain and the digest form's memory
    pools and the fold's peak memory. (c) ``tools/torch_elastic_drill.py``'s
-   three children, each a fresh ``python3`` on the card: uninterrupted,
-   preempted by a real SIGTERM at step 7 (``run_elastic(preemption=
+   three children, each a fresh ``python3`` on the card (the first two side
+   by side): uninterrupted, preempted by a real SIGTERM at step 7 (``run_elastic(preemption=
    True)``, async checkpoints every 4 steps, the drain force-saving the
    last completed step), restarted: 0 steps replayed, the restored hash
    the saved one, the final state bitwise the uninterrupted child's, no
@@ -360,6 +362,29 @@ Phases, in order; any failure exits non-zero before the result line:
    calls across ``amp.init`` / ``uninit``. The path's launches are those
    of (a)-(c), name ``amp``; the kernels line gains a row per fp16 form.
    A JSON line holds phase 17's numbers.
+18. The serving fleet (``serving_router``, ``serving_remote``,
+   ``drills``), which launches none of B1-B8. (a) Two co-hosted
+   ``GenerativeEngine`` replicas of ``TinyCausalLM`` at DECODE_WIDTH (fp32,
+   seed 0, each on its own pool, the full bucket grid warmed) behind
+   ``ReplicaRouter(breaker_errs=2, breaker_cooldown_s=0.5)``: each of the
+   32 storm prompts run alone on one replica first (the solo streams);
+   then the storm from STORM_CONCURRENCY threads three times: steady;
+   with replica 0's program dispatch made to raise mid-decode (the kill);
+   and, replica 0 restored, through a router with ``hedge_pctl=95``. Every
+   pass delivers all 32 (0 dropped), every stream bitwise its solo run,
+   the kill fails over and opens the breaker; after ``engine.waitall()``
+   both pools hold 0 pages and audit clean, and nothing was captured after
+   the warm-up. Printed: steady p50/p99, failover p99, fleet tokens/s,
+   failovers, hedges, cancellations and breaker transitions. (b) Every
+   scenario of ``drills.ROUTER_SCENARIOS`` on the card, held to
+   ``tools/torch_check_availability_budget.py``'s budget (the scale storm's
+   and the host loss's replicas are processes on the card), and (c)
+   ``decode_drain``, ``sigterm_drain``, ``sigkill_between_saves``,
+   ``corrupt_latest`` and ``loss_spike`` held to
+   ``tools/torch_check_recovery_budget.py``'s (a world of one on the card);
+   (b) and (c) run FLEET_WORKERS scenarios at a time. (d)
+   ``tools/torch_check_dispatch_budget.py``'s router and spec lanes on the
+   card. A JSON line holds phase 18's numbers.
 10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
@@ -2947,12 +2972,13 @@ def call_host_ms(fn, n=CAPTURE_TIMED) -> float:
 
 def mode_numbers(what, mode, fn, kept, card_line) -> dict:
     """One path's numbers: wall ms (median of CAPTURE_TIMED host-clock
-    calls after 3 warm-up, unprofiled), device ms (profile's busy time, or
-    where the trace holds none the CUDA-event span of a call), the host's
-    ms a call (``call_host_ms``), idle share, and peak memory: the most
-    allocated during the timed calls above what was live before them, plus
-    ``kept``, the memory a captured path's program holds (reserved at its
-    capture)."""
+    calls after 3 warm-up, unprofiled), device busy ms (a profile's, for
+    the captured modes; None where no profile ran or the trace holds no
+    device time), the CUDA-event span of a call, the host's ms a call
+    (``call_host_ms``), idle share (1 - busy / wall, None where busy is),
+    and peak memory: the most allocated during the timed calls above what
+    was live before them, plus ``kept``, the memory a captured path's
+    program holds (reserved at its capture)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2960,20 +2986,26 @@ def mode_numbers(what, mode, fn, kept, card_line) -> dict:
     peak = torch.cuda.max_memory_allocated() - base + kept
     span = event_ms(fn)
     host = call_host_ms(fn)
-    busy = profile(fn, PROFILE_STEPS, f"{what}, {mode}", card_line)
+    # the eager modes are not profiled: tracing the thousands of launches
+    # of an eager step cost more of the script's time limit than its
+    # numbers were worth. Their event span covers the host's launch gaps,
+    # so it does not stand in for busy time and their idle share is not
+    # measured
+    busy = (None if mode.startswith("eager") else
+            profile(fn, PROFILE_STEPS, f"{what}, {mode}", card_line))
     wall = statistics.median(times)
-    device = busy if busy else span
+    idle = 1 - busy / wall if busy else None
     print(f"{what}, {mode}: wall median {wall:.3f} ms over "
           f"{CAPTURE_TIMED} (min {min(times):.3f}, max "
           f"{max(times):.3f}); device busy "
-          + (f"{busy:.3f} ms" if busy else
-             "not in the trace (the event span stands in)")
+          + (f"{busy:.3f} ms" if busy else "not measured")
           + f"; event span {span:.3f} ms; host {host:.3f} ms a call from an "
-          f"idle device; idle share {1 - device / wall:.1%}; peak memory "
-          f"{peak / 2**30:.3f} GiB [{card_line}]")
+          f"idle device; idle share "
+          + (f"{idle:.1%}" if idle is not None else "not measured")
+          + f"; peak memory {peak / 2**30:.3f} GiB [{card_line}]")
     return dict(wall_ms=wall, wall_min_ms=min(times), wall_max_ms=max(times),
                 busy_ms=busy, span_ms=span, host_ms=host,
-                idle_share=1 - device / wall, peak_gib=peak / 2**30)
+                idle_share=idle, peak_gib=peak / 2**30)
 
 
 def capture_numbers(what, fns, kept, card_line) -> dict:
@@ -7147,6 +7179,261 @@ def amp_phase(mx, ck, config, card_line, counts, traced) -> dict:
             "launches_fp16": dict(counted_fp16)}
 
 
+# -- 18. the serving fleet ---------------------------------------------------
+# the card's recovery matrix: the train drills as a world of one, and the
+# decode drain (topology_change and bitflip_param need a world of several
+# ranks: gloo worlds on the CPU, covered by the CPU tests)
+FLEET_RECOVERY = ("decode_drain", "sigterm_drain", "sigkill_between_saves",
+                  "corrupt_latest", "loss_spike")
+FLEET_WORKERS = 4                # drill scenarios at a time on the card
+FLEET_BREAKER = dict(breaker_errs=2, breaker_cooldown_s=0.5)
+FLEET_HEDGE_PCTL = 95
+
+
+def port_fleet():
+    """(serving_router, drills, the three fleet gates) beside this file."""
+    from mxnet_tpu_torch import drills, serving_router
+    from tools import (torch_check_availability_budget,
+                       torch_check_dispatch_budget,
+                       torch_check_recovery_budget)
+    return (serving_router, drills, torch_check_availability_budget,
+            torch_check_recovery_budget, torch_check_dispatch_budget)
+
+
+def pctl(vals, q):
+    vals = sorted(vals)
+    return vals[min(len(vals) - 1, int(len(vals) * q))] if vals else None
+
+
+def router_pass(router, prompts, strike=None):
+    """The prompts through ``router`` from STORM_CONCURRENCY threads, each
+    thread a stride of the list; ``strike()`` runs once the threads are
+    started. Returns (tokens or the error of each request, latencies in
+    s, wall s)."""
+    outs, lat = [None] * len(prompts), []
+    lock = threading.Lock()
+
+    def worker(k):
+        for i in range(k, len(prompts), STORM_CONCURRENCY):
+            t0 = time.perf_counter()
+            try:
+                toks = router.generate(prompts[i], max_new_tokens=STORM_NEW)
+            except BaseException as e:
+                outs[i] = repr(e)
+                continue
+            with lock:
+                outs[i] = toks
+                lat.append(time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(STORM_CONCURRENCY)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if strike is not None:
+        strike()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        fail("18a: a router storm thread hung")
+    return outs, lat, time.perf_counter() - t0
+
+
+def router_phase(sd, sr, card_line) -> dict:
+    """18a: two co-hosted replicas at DECODE_WIDTH behind the router."""
+    t_phase = time.perf_counter()
+    model = sd.TinyCausalLM(**DECODE_WIDTH)
+    params = model.init_params(0, device="cuda")
+    pools = [sd.PagePool(), sd.PagePool()]
+    engines = [sd.GenerativeEngine(model, params=params, pool=pools[i],
+                                   name=f"fleet{i}", device="cuda")
+               for i in range(2)]
+    out = {}
+    t0 = time.perf_counter()
+    out["warmup_programs"] = [e.warmup() for e in engines]
+    out["warmup_s"] = time.perf_counter() - t0
+    t_warm = sd.trace_count()
+    prompts = storm_prompts(model.vocab)
+    t0 = time.perf_counter()
+    solo = [engines[1].generate(p, max_new_tokens=STORM_NEW)
+            for p in prompts]
+    out["solo_s"] = time.perf_counter() - t0
+
+    def clear():
+        for p in pools:
+            p.clear_prefix_cache()
+
+    def check(what, outs):
+        bad = [i for i, o in enumerate(outs) if not isinstance(o, list)]
+        if bad:
+            fail(f"18a {what}: requests {bad} not delivered: "
+                 f"{[outs[i] for i in bad][:3]}")
+        diff = [i for i, o in enumerate(outs) if o != solo[i]]
+        if diff:
+            at = first_difference(outs[diff[0]], solo[diff[0]])
+            fail(f"18a {what}: streams {diff} differ from their solo runs "
+                 f"(the first at token {at})")
+
+    clear()
+    router = sr.ReplicaRouter(engines, name="fleet", hedge_pctl=0,
+                              **FLEET_BREAKER)
+    outs, lat, wall = router_pass(router, prompts)
+    check("steady", outs)
+    tokens = sum(len(o) for o in outs)
+    out["steady"] = {"p50_ms": pctl(lat, 0.5) * 1e3,
+                     "p99_ms": pctl(lat, 0.99) * 1e3,
+                     "tokens_s": tokens / wall, "wall_s": wall}
+    clear()
+
+    def boom(*a, **kw):
+        raise RuntimeError("replica 0 killed mid-decode")
+
+    def strike():
+        d0 = engines[0]._stats["decode_steps"]
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            if engines[0]._stats["decode_steps"] > d0 and engines[0]._live:
+                break
+            time.sleep(0.001)
+        engines[0]._call = boom
+
+    s0 = dict(router.stats())
+    outs, lat, wall = router_pass(router, prompts, strike)
+    check("kill", outs)
+    st = router.stats()
+    out["kill"] = {"p99_ms": pctl(lat, 0.99) * 1e3,
+                   "tokens_s": sum(len(o) for o in outs) / wall,
+                   "wall_s": wall,
+                   "failed_over": st["failovers"] - s0["failovers"],
+                   "breaker_opens": st["breaker_opens"]}
+    if not out["kill"]["failed_over"] or not st["breaker_opens"]:
+        fail(f"18a kill: {out['kill']['failed_over']} failovers, "
+             f"{st['breaker_opens']} breaker opens (want >= 1 each)")
+    del engines[0]._call              # replica 0 restored
+    router.close()
+    clear()
+    hedge = sr.ReplicaRouter(engines, name="fleet_hedge",
+                             hedge_pctl=FLEET_HEDGE_PCTL, **FLEET_BREAKER)
+    outs, lat, wall = router_pass(hedge, prompts)
+    check("hedge", outs)
+    hs = hedge.stats()
+    out["hedge"] = {"p50_ms": pctl(lat, 0.5) * 1e3,
+                    "p99_ms": pctl(lat, 0.99) * 1e3,
+                    "tokens_s": sum(len(o) for o in outs) / wall,
+                    "wall_s": wall, "hedged": hs["hedges"],
+                    "hedge_wins": hs["hedge_wins"],
+                    "cancelled": hs["hedge_cancelled"]}
+    out["breaker_transitions"] = (st["breaker_opens"]
+                                  + st["breaker_half_opens"]
+                                  + st["breaker_closes"]
+                                  + hs["breaker_opens"]
+                                  + hs["breaker_half_opens"]
+                                  + hs["breaker_closes"])
+    hedge.close()
+    from mxnet_tpu_torch import engine as _engine
+    _engine.waitall()
+    in_use = [e.pool_in_use() for e in engines]
+    audit = [m for e in engines for m in e.pool_audit()]
+    if any(in_use) or audit:
+        fail(f"18a: pages in use {in_use} after waitall, audit {audit[:4]}")
+    out["captures_after_warmup"] = sd.trace_count() - t_warm
+    if out["captures_after_warmup"]:
+        fail(f"18a: {out['captures_after_warmup']} capture(s) after the "
+             "warm-up")
+    for e in engines:
+        e.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"18a: two replicas of TinyCausalLM {DECODE_WIDTH} fp32 (warm-up "
+          f"{out['warmup_programs']} programs in {out['warmup_s']:.1f} s): "
+          f"{STORM_REQUESTS} greedy requests x {STORM_NEW} tokens from "
+          f"{STORM_CONCURRENCY} threads, 0 dropped in every pass, every "
+          f"stream bitwise its solo run; steady p50 "
+          f"{out['steady']['p50_ms']:.1f} ms, p99 "
+          f"{out['steady']['p99_ms']:.1f} ms, fleet "
+          f"{out['steady']['tokens_s']:.0f} tokens/s; replica 0 killed "
+          f"mid-decode: failover p99 {out['kill']['p99_ms']:.1f} ms, "
+          f"{out['kill']['failed_over']} failed over, "
+          f"{out['kill']['tokens_s']:.0f} tokens/s; hedge_pctl "
+          f"{FLEET_HEDGE_PCTL}: {out['hedge']['hedged']} hedged, "
+          f"{out['hedge']['cancelled']} cancelled, p99 "
+          f"{out['hedge']['p99_ms']:.1f} ms; breaker transitions "
+          f"{out['breaker_transitions']}; 0 pages in use, 0 captures after "
+          f"warm-up; {out['phase_s']:.1f} s  ok [{card_line}]")
+    return out
+
+
+def fleet_drills_phase(drills, avail, recov, card_line) -> dict:
+    """18b and 18c: the availability and recovery matrices on the card,
+    FLEET_WORKERS scenarios at a time, each held to its gate's budget."""
+    import concurrent.futures
+    import tempfile
+    t0 = time.perf_counter()
+    names = list(drills.ROUTER_SCENARIOS) + list(FLEET_RECOVERY)
+    with tempfile.TemporaryDirectory(prefix="mxt_fleet_") as root:
+        fails = []
+
+        def run(name, ref=None):
+            if ref is not None:       # a train drill reads the reference
+                ref.result()
+                if fails:
+                    fail(f"18c: the reference train run failed: {fails}")
+            return drills.run_drill(name, root, device="cuda")
+
+        with concurrent.futures.ThreadPoolExecutor(FLEET_WORKERS) as ex:
+            # the train drills' shared reference run goes first, beside the
+            # serving drills; the train drills are queued last
+            ref = ex.submit(drills._ensure_reference, root, fails, 1,
+                            "cuda")
+            futs = {n: ex.submit(run, n, ref if n in drills.SCENARIOS
+                                 and n != "decode_drain" else None)
+                    for n in names}
+            reports = {n: f.result() for n, f in futs.items()}
+    failures = []
+    out = {}
+    for n in names:
+        gate = avail if n in drills.ROUTER_SCENARIOS else recov
+        failures += gate.budget_failures(n, reports[n])
+        out[n] = {k: reports[n].get(k) for k in gate.LINE_KEYS}
+        print(f"18{'b' if gate is avail else 'c'}: "
+              f"{json.dumps(out[n], default=str)} [{card_line}]")
+    if failures:
+        fail("18b/18c: " + "; ".join(failures)[:4000])
+    secs = time.perf_counter() - t0
+    print(f"18b: {len(drills.ROUTER_SCENARIOS)} availability scenarios "
+          f"inside tools/torch_check_availability_budget.py's budget; 18c: "
+          f"{len(FLEET_RECOVERY)} recovery scenarios inside "
+          f"tools/torch_check_recovery_budget.py's; {secs:.1f} s  ok "
+          f"[{card_line}]")
+    out["phase_s"] = secs
+    return out
+
+
+def fleet_phase(sd, card_line) -> dict:
+    """Phase 18 (see the module docstring)."""
+    t0 = time.perf_counter()
+    sr, drills, avail, recov, disp = port_fleet()
+    out = {"router": router_phase(sd, sr, card_line)}
+    torch.cuda.empty_cache()
+    out["drills"] = fleet_drills_phase(drills, avail, recov, card_line)
+    t1 = time.perf_counter()
+    router, spec = disp.measure_router("cuda"), disp.measure_spec("cuda")
+    failures = disp.gate(router, spec)
+    if failures:
+        fail(f"18d: {failures}")
+    out["dispatch"] = {"router": router, "spec": spec}
+    print(f"18d: router lane {router['bare_dispatches']} dispatches bare "
+          f"and routed, +{router['extra_retraces']} captures, "
+          f"+{router['extra_host_syncs']} host syncs; spec lane "
+          f"{spec['programs']} programs (grid {spec['warmup_programs']}), "
+          f"{spec['retraces_after_warm']} captures after warm-up, "
+          f"acceptance {spec['acceptance']:.3f}, "
+          f"{spec['target_dispatches_per_token']:.3f} target dispatches a "
+          f"token; {time.perf_counter() - t1:.1f} s  ok [{card_line}]")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 18 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7389,6 +7676,17 @@ def main() -> int:
     print(json.dumps({"amp": amp}, default=str))
     torch.cuda.empty_cache()
 
+    # -- 18. the serving fleet ------------------------------------------------
+    ck.reset_launch_counts()
+    fleet = fleet_phase(sd, card_line)
+    torch.cuda.synchronize()
+    fleet_counts = ck.launch_counts()
+    print(f"phase 18 launch counts of this process's fleet runs (18a, 18d; "
+          f"no TPU kernel lies on the fleet paths, and the drills' children "
+          f"are processes of their own): {fleet_counts}")
+    print(json.dumps({"fleet": {"card": card_line, **fleet}}, default=str))
+    torch.cuda.empty_cache()
+
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
              "resnet_train": resnet_counts, "resnet_conv_bn": cbn_counts,
@@ -7397,7 +7695,7 @@ def main() -> int:
              "serving": serving_counts, "speculative": spec_counts,
              "moe": moe_counts, "mesh": mesh_counts,
              "mesh_lm": mesh_lm_counts, "runtime": runtime_counts,
-             "amp": amp_counts}
+             "amp": amp_counts, "fleet": fleet_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were

@@ -33,12 +33,16 @@ accumulated on the device (``metric``), ``profiler`` with its
 and checkpoints with elastic restore (``parallel.elastic``); and mixed
 precision (``amp``: the cast policy, the dynamic loss scaler and the
 deferred all-finite gate of the compiled step), with fp16 forms of the
-conv + batch-norm kernels.
+conv + batch-norm kernels; and the serving fleet: ``serving_router``
+(``ReplicaRouter`` with failover, hedging, circuit breakers and elastic
+membership; ``FleetSupervisor``), ``serving_remote`` (replicas in other
+processes over a framed socket protocol) and ``drills`` (the recovery and
+availability drill matrix in real processes).
 """
-from . import (amp, autograd, base, config, contrib, engine, faults, gluon,
-               initializer, metric, models, ndarray, optimizer, preemption,
-               profiler, random, runtime, sentinel, serving, serving_decode,
-               telemetry)
+from . import (amp, autograd, base, config, contrib, drills, engine, faults,
+               gluon, initializer, metric, models, ndarray, optimizer,
+               preemption, profiler, random, runtime, sentinel, serving,
+               serving_decode, serving_remote, serving_router, telemetry)
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from .ndarray import NDArray
@@ -50,4 +54,5 @@ __all__ = ["Context", "MXNetError", "NDArray", "amp", "autograd", "base",
            "config", "contrib", "cpu", "current_context", "engine", "faults", "gluon",
            "gpu", "init", "initializer", "metric", "models", "nd", "ndarray",
            "num_gpus", "optimizer", "preemption", "profiler", "random",
-           "runtime", "sentinel", "serving", "serving_decode", "telemetry"]
+           "runtime", "sentinel", "serving", "serving_decode",
+           "serving_remote", "serving_router", "drills", "telemetry"]

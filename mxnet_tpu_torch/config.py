@@ -325,6 +325,122 @@ VARIABLES: Dict[str, EnvVar] = {v.name: v for v in (
            "Replica divergences a device may accumulate before the "
            "sentinel quarantines it.", cached=False,
            validator=lambda v: v >= 1),
+    # -- the replica router and the elastic fleet (serving_router.py,
+    # serving_remote.py; reference config.py:537-660)
+    EnvVar("MXNET_ROUTER_PREFIX_AFFINITY", float, 1.0,
+           "ReplicaRouter prefix-affinity weight: each leading page-block "
+           "of a request's prompt hash chain already resident in a "
+           "replica's KV pool lowers that replica's dispatch score by this "
+           "much (one unit == one queued request of load), so "
+           "shared-prefix traffic converges on the replica holding the "
+           "warm pages. 0 disables affinity; ignored when "
+           "MXNET_PREFIX_CACHE is off.", cached=False,
+           validator=lambda v: v >= 0),
+    EnvVar("MXNET_ROUTER_BREAKER_ERRS", int, 3,
+           "ReplicaRouter circuit breaker: dispatch failures within the "
+           "last MXNET_ROUTER_BREAKER_WINDOW outcomes that OPEN a "
+           "replica's breaker (the replica stops receiving traffic until a "
+           "half-open probe succeeds). A wedged dispatch or replica death "
+           "trips the breaker immediately, regardless of this count.",
+           cached=False, validator=lambda v: v >= 1),
+    EnvVar("MXNET_ROUTER_BREAKER_WINDOW", int, 16,
+           "ReplicaRouter circuit breaker: size of the per-replica rolling "
+           "dispatch-outcome window the error threshold "
+           "(MXNET_ROUTER_BREAKER_ERRS) is evaluated over.", cached=False,
+           validator=lambda v: v >= 1),
+    EnvVar("MXNET_ROUTER_BREAKER_COOLDOWN_S", float, 2.0,
+           "ReplicaRouter circuit breaker: seconds an OPEN breaker stays "
+           "open before transitioning to HALF-OPEN, where exactly one "
+           "probe request is admitted: success closes the breaker "
+           "(replica re-admitted), failure re-opens it for another "
+           "cooldown. This is the probe budget the availability gate "
+           "(tools/torch_check_availability_budget.py) holds re-admission "
+           "to.", cached=False, validator=lambda v: v > 0),
+    EnvVar("MXNET_ROUTER_HEDGE_PCTL", int, 0,
+           "ReplicaRouter hedged requests: 0 (default) = off; N in [50, "
+           "99] = a dispatch still outstanding past the fleet's p<N> "
+           "dispatch latency issues ONE duplicate on a different healthy "
+           "replica, first completion wins and the loser is cancelled "
+           "(counted hedge_cancelled). Hedging stays dormant until 16 "
+           "latency samples exist; greedy decode keeps the duplicate "
+           "token-exact, so first-wins is safe.", cached=False,
+           validator=lambda v: v == 0 or 50 <= v <= 99),
+    EnvVar("MXNET_ROUTER_WEDGE_S", float, 30.0,
+           "ReplicaRouter liveness: a dispatch outstanding this many "
+           "seconds with NO heartbeat from its replica (beats are stamped "
+           "per dispatch completion on the in-memory HeartbeatMonitor) "
+           "declares the replica WEDGED: its breaker trips open, the "
+           "dispatch is abandoned, and the request fails over to a healthy "
+           "replica. Tune well above a legitimate worst-case dispatch.",
+           cached=False, validator=lambda v: v > 0),
+    EnvVar("MXNET_ROUTER_EAGER_FALLBACK", bool, False,
+           "ReplicaRouter last-resort degraded mode: with EVERY replica "
+           "breaker open, serve single requests through the eager path "
+           "(eager_generate for generative routers, the engine's unpadded "
+           "eager forward for one-shot inference) instead of shedding "
+           "ShedError(kind='unavailable'). Default off: shedding loudly is "
+           "usually better than silently serving at eager throughput.",
+           cached=False),
+    EnvVar("MXNET_ROUTER_AUTOSCALE", bool, False,
+           "Elastic fleet autoscaling (FleetSupervisor.start()): a "
+           "supervisor thread prices scale-up/down every "
+           "MXNET_ROUTER_SCALE_INTERVAL_S from live telemetry (mean queued "
+           "work per SERVING replica, worst KV page-pool pressure, fleet "
+           "p99) inside [MXNET_ROUTER_MIN_REPLICAS, "
+           "MXNET_ROUTER_MAX_REPLICAS] with one action per "
+           "MXNET_ROUTER_SCALE_COOLDOWN_S. Scale-down is a scheduled "
+           "graceful preemption: drain_replica (typed draining handback, "
+           "clean page audit) then SIGTERM -> exit "
+           "MXNET_PREEMPTION_EXIT_CODE for process-backed replicas. "
+           "Default off: FleetSupervisor.start() is a no-op (no thread, no "
+           "timer, dispatch identical to the static router).",
+           cached=False),
+    EnvVar("MXNET_ROUTER_MIN_REPLICAS", int, 1,
+           "Elastic fleet floor: the autoscaler never drains below this "
+           "many SERVING replicas, and scales UP toward it regardless of "
+           "load/cooldown when the fleet falls under (self-healing after a "
+           "host loss).", cached=False, validator=lambda v: v >= 1),
+    EnvVar("MXNET_ROUTER_MAX_REPLICAS", int, 4,
+           "Elastic fleet ceiling: the autoscaler never joins past this "
+           "many SERVING replicas, however saturated the fleet signals "
+           "are.", cached=False, validator=lambda v: v >= 1),
+    EnvVar("MXNET_ROUTER_SCALE_COOLDOWN_S", float, 10.0,
+           "Autoscaler stability: at most one scaling action (up or down) "
+           "per this many seconds, so a bursty load cannot flap the fleet, "
+           "except scaling up toward MXNET_ROUTER_MIN_REPLICAS, which is "
+           "urgent and bypasses the cooldown.", cached=False,
+           validator=lambda v: v >= 0),
+    EnvVar("MXNET_ROUTER_SCALE_INTERVAL_S", float, 1.0,
+           "Autoscaler cadence: seconds between supervisor ticks (each "
+           "tick reads the fleet signals and executes at most one scaling "
+           "action).", cached=False, validator=lambda v: v > 0),
+    EnvVar("MXNET_ROUTER_SCALE_UP_QUEUE", float, 1.5,
+           "Autoscaler scale-up threshold: mean queued work per SERVING "
+           "replica (engine load(): queue_depth + in_flight occupancy) at "
+           "or above which a tick prices a scale-up. Measured from the "
+           "same load() surface the router balances on, never a static "
+           "request count.", cached=False, validator=lambda v: v > 0),
+    EnvVar("MXNET_ROUTER_SCALE_DOWN_QUEUE", float, 0.1,
+           "Autoscaler scale-down threshold: mean queued work per SERVING "
+           "replica at or below which (with page-pool pressure also low) "
+           "a tick prices a scale-down, never below "
+           "MXNET_ROUTER_MIN_REPLICAS.", cached=False,
+           validator=lambda v: v >= 0),
+    EnvVar("MXNET_ROUTER_SCALE_POOL_HIGH", float, 0.85,
+           "Autoscaler KV-pressure threshold: worst per-replica page-pool "
+           "pressure (1 - free/total) at or above which a tick prices a "
+           "scale-up even with short queues (pool exhaustion sheds, so "
+           "headroom is capacity). Scale-down additionally requires "
+           "pressure under half this value.", cached=False,
+           validator=lambda v: 0 < v <= 1),
+    EnvVar("MXNET_ROUTER_REMOTE_TIMEOUT_S", float, 120.0,
+           "RemoteReplica transport ceiling: seconds a framed call may "
+           "wait on connect/reply before the client raises a "
+           "TransientFault (breaker-blamed, request fails over). The "
+           "ambient request deadline tightens this per call; the ceiling "
+           "bounds deadline-less dispatches so a dead host can never hang "
+           "a router worker thread forever.", cached=False,
+           validator=lambda v: v > 0),
 )}
 
 _CACHE: Dict[str, Any] = {}

@@ -16,8 +16,14 @@ exponential backoff, ``inject(site)`` before every attempt).
 Pure operations retry; mutating operations fail fast. The serving engines
 inject at ``serving.infer`` (the batched dispatch; failure falls back to
 single requests) and ``serving.admit`` (admission; failure sheds), and
-the preemption drain at ``preemption.drain``. ``MXNET_FAULT_PLAN``
-installs a plan at import, for subprocess tests.
+the preemption drain at ``preemption.drain``. The replica router
+(``serving_router.py``, ``serving_remote.py``) registers three more:
+``router.dispatch`` (every dispatch attempt, the failover retry loop),
+``router.remote`` (every framed round trip to a remote replica, so a plan
+can sever the wire without killing a process) and ``router.scale``
+(every membership change: ``add_replica``, ``drain_replica``); they are
+listed in :data:`SITES`. ``MXNET_FAULT_PLAN`` installs a plan at import,
+for subprocess tests.
 """
 from __future__ import annotations
 
@@ -36,8 +42,15 @@ __all__ = [
     "ShedError",
     "FaultPlan", "install", "uninstall", "active", "inject", "retry_call",
     "is_retryable", "counters", "events", "record_event", "reset",
-    "deadline_scope", "deadline_remaining_us", "deadline_site",
+    "deadline_scope", "deadline_remaining_us", "deadline_site", "SITES",
 ]
+
+# the named injection sites the port compiles in, each exercised by a test
+SITES = ("serving.infer", "serving.admit", "preemption.drain",
+         "engine.prefetch", "spmd.put", "checkpoint.write",
+         "checkpoint.async", "checkpoint.restore", "elastic.step",
+         "elastic.restore", "sentinel.rollback", "sentinel.quarantine",
+         "router.dispatch", "router.remote", "router.scale")
 
 
 class FaultInjected(RuntimeError):

@@ -196,10 +196,14 @@ class CheckpointManager:
     """Atomic, retained, optionally asynchronous checkpoints (see the module
     docstring). Layout: ``<directory>/ckpt-<step>.pkl`` (with a
     ``-h<rank>`` suffix in a world of several ranks), its ``.sha256``, and
-    ``ckpt-<step>.meta``."""
+    ``ckpt-<step>.meta``. ``mesh``, where given, is the mesh the saved
+    state lives on: its ranks number the files and their count is the
+    saved world (the world's ranks otherwise)."""
 
-    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True,
+                 mesh=None):
         self.directory = directory
+        self.mesh = mesh
         self.keep = keep
         self.async_save = async_save
         os.makedirs(directory, exist_ok=True)
@@ -238,8 +242,19 @@ class CheckpointManager:
                 pass                      # alive, or not ours: keep
 
     # -- paths ----------------------------------------------------------
-    def _suffix(self) -> str:
+    def _world(self) -> tuple:
+        """(this process's index, the number of processes) among the ranks
+        that save: ``mesh``'s where it holds this rank (a mesh that left
+        quarantined ranks out, ``mesh.admitted_ranks``, saves as a world of
+        its own ranks), else the world's."""
         rank, world = _world()
+        ranks = list(self.mesh.ranks) if self.mesh is not None else []
+        if world > 1 and rank in ranks:
+            return ranks.index(rank), len(ranks)
+        return rank, world
+
+    def _suffix(self) -> str:
+        rank, world = self._world()
         return f"-h{rank}" if world > 1 else ""
 
     def _path(self, step: int) -> str:
@@ -272,7 +287,7 @@ class CheckpointManager:
             with open(self._meta_path(step)) as f:
                 return int(f.read().strip())
         except (OSError, ValueError):
-            return _world()[1]
+            return self._world()[1]
 
     def complete_steps(self) -> List[int]:
         """Steps whose files exist for every rank of the world that saved
@@ -370,7 +385,7 @@ class CheckpointManager:
             raise
         meta_tmp = f"{self._meta_path(step)}.{os.getpid()}.tmp"
         with open(meta_tmp, "w") as f:
-            f.write(str(_world()[1]))
+            f.write(str(self._world()[1]))
         os.replace(meta_tmp, self._meta_path(step))
         self._gc()
 
@@ -700,7 +715,7 @@ def run_elastic(step_fn: Callable, state: Any, inputs: Iterable,
             and getattr(kvstore, "_heartbeat", None) is None \
             and _config.get("MXNET_BARRIER_TIMEOUT") > 0:
         hb = HeartbeatMonitor(os.path.join(ckpt.directory, "heartbeats"),
-                              rank=_world()[0]).start()
+                              rank=ckpt._world()[0]).start()
         kvstore.attach_heartbeat(hb)
     if preemption:
         _preemption.install()

@@ -34,9 +34,9 @@ build the mesh over the admitted ranks (:func:`admitted_ranks`; a
 them for the mesh-wide collectives, each made on every rank of the
 world, as group creation needs), and the quarantined rank's process
 raises ``MXNetError`` naming the quarantine once it has taken its part
-in making them. Every exclusion emits the reference's ``corruption``
-event ``spmd.quarantine_excluded``; quarantining every rank is ignored
-the same loud way as every device.
+in making them. Every mesh made without quarantined ranks emits the
+reference's ``corruption`` event ``spmd.quarantine_excluded``;
+quarantining every rank is ignored the same loud way as every device.
 """
 from __future__ import annotations
 
@@ -120,9 +120,8 @@ def admitted_devices(devices: Sequence) -> List:
 def admitted_ranks() -> List[int]:
     """The world's ranks minus those the sentinel's active quarantine names,
     in order; every rank, loudly, when all of them are quarantined (and
-    ``[0]`` without a world)."""
+    ``[0]`` without a world). Meshes are made over these ranks."""
     from .. import sentinel as _sentinel
-    from .. import telemetry as _telemetry
 
     ranks = list(range(world_size()))
     q = _sentinel.active_quarantine()
@@ -135,9 +134,6 @@ def admitted_ranks() -> List[int]:
                       f"{q.entries()}); ignoring the quarantine list for "
                       "mesh resolution", stacklevel=2)
         return ranks
-    if len(kept) < len(ranks):
-        _telemetry.event("corruption", "spmd.quarantine_excluded",
-                         ranks=[r for r in ranks if r not in kept])
     return kept
 
 
@@ -241,9 +237,12 @@ def _admitted_mesh(order, device, sizes, ranks, shape, names) -> Mesh:
     from torch.distributed.device_mesh import DeviceMesh
 
     from .. import sentinel as _sentinel
+    from .. import telemetry as _telemetry
     from ..base import MXNetError
 
     dist = _dist()
+    _telemetry.event("corruption", "spmd.quarantine_excluded",
+                     ranks=[r for r in range(world_size()) if r not in ranks])
     dm = DeviceMesh(device.type, torch.tensor(ranks).reshape(shape),
                     mesh_dim_names=names)
     group = dist.new_group(ranks)

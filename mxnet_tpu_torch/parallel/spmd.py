@@ -64,7 +64,7 @@ from .. import config as _config
 from .. import faults as _faults
 from .. import telemetry as _telemetry
 from . import collectives as _coll
-from .mesh import Mesh, make_mesh, world_size
+from .mesh import Mesh, admitted_ranks, make_mesh, world_size
 from .sharding import NamedSharding, PartitionSpec, _legalize
 
 __all__ = ["DATA_AXIS", "MODEL_AXIS", "TENSOR_AXIS", "PIPE_AXIS",
@@ -156,7 +156,9 @@ def reset_counters() -> None:
 def resolve_mesh(spec: Optional[str] = None) -> Optional[Mesh]:
     """``MXNET_SPMD_MESH`` (or ``spec``) as a mesh over the world's ranks,
     or None when SPMD is off (reference :234-286): ``auto`` (the default)
-    puts every rank on ``dp`` and a world of one resolves to None;
+    puts every admitted rank (the world's less the quarantined,
+    ``mesh.admitted_ranks``) on ``dp`` and a world of one resolves to
+    None;
     ``0`` / ``off`` / ``none`` disable; ``<int>`` puts that many ranks on
     ``dp`` (``1`` gives a mesh of one); ``dp=4,fsdp=2`` goes through
     :func:`mesh.make_mesh` and must name ``dp``. A size the world cannot
@@ -167,9 +169,12 @@ def resolve_mesh(spec: Optional[str] = None) -> Optional[Mesh]:
         return None
     n_dev = world_size()
     if raw in ("auto", ""):
-        if n_dev < 2:
+        # every ADMITTED rank: a restart after the sentinel quarantined a
+        # rank re-places onto a mesh without it (reference :254-262)
+        n_adm = len(admitted_ranks())
+        if n_adm < 2:
             return None
-        return make_mesh({DATA_AXIS: n_dev})
+        return make_mesh({DATA_AXIS: n_adm})
     if raw.isdigit():
         n = int(raw)
         if n < 1:

@@ -451,17 +451,18 @@ def quarantine_ranks(ranks: Sequence[int], reason: str = "") -> int:
 # the sentinel
 # ---------------------------------------------------------------------------
 
-def _rank_values(v: int) -> List[int]:
+def _rank_values(v: int, mesh=None) -> List[int]:
     """Every rank's ``v`` in rank order (this one alone without a world):
-    the ranks of the current mesh's group where a quarantine left ranks out
-    of it, else the world's."""
+    the ranks of ``mesh``'s (else the current mesh's) group where a
+    quarantine left ranks out of it, else the world's."""
     import torch.distributed as dist
 
     from .parallel.mesh import current_mesh
 
     if not (dist.is_available() and dist.is_initialized()):
         return [v]
-    group = getattr(current_mesh(), "world_group", None)
+    group = getattr(mesh if mesh is not None else current_mesh(),
+                    "world_group", None)
     n = dist.get_world_size(group)
     if n <= 1:
         return [v]
@@ -517,6 +518,7 @@ class Sentinel:
         else:
             self.quarantine = Quarantine(None)
         install_quarantine(self.quarantine)
+        self._step = step
         if step is not None:
             step.attach_sentinel(self)
         _engine.register_drainable(self)
@@ -613,7 +615,13 @@ class Sentinel:
         _DIGESTS.inc()
         fold, psum, gnorm = host.tolist()
         fold = int(fold)
-        values = _rank_values(fold) if self.vote else [fold]
+        mesh = getattr(self._step, "mesh", None)
+        if not self.vote:
+            values = [fold]
+        elif mesh is not None:
+            values = _rank_values(fold, mesh)
+        else:
+            values = _rank_values(fold)
         counts: Dict[int, int] = {}
         for v in values:
             counts[v] = counts.get(v, 0) + 1

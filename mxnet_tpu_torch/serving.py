@@ -437,10 +437,14 @@ class ServingEngine:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
-        try:
-            self._staged.put_nowait(None)
-        except _queue.Full:
-            pass
+        if self._threads:
+            # the stop sentinel for the dispatcher; an engine that never
+            # started its threads has no consumer for it, and an unconsumed
+            # item would hold drain() to its timeout
+            try:
+                self._staged.put_nowait(None)
+            except _queue.Full:
+                pass
         for t in self._threads:
             t.join(timeout=5.0)
         self._threads = []
@@ -832,6 +836,15 @@ class ServingEngine:
         if ulp_only:
             self._stats.inc("verify_ulp_accepts")
             _faults.record_event("serving.infer", "verify_ulp_accept")
+
+    def eager_infer(self, *args):
+        """One request through the eager forward alone, on this engine's
+        device, answered as :meth:`infer` answers it: the replica router's
+        last-resort degraded mode (``MXNET_ROUTER_EAGER_FALLBACK``)."""
+        leaves, nd = _leaves(args)
+        req = _Request(leaves, int(leaves[0].shape[0]), nd)
+        out = self._eager_forward(req)
+        return self._wrap(req, out, _outputs(out))
 
     def _eager_forward(self, req: _Request):
         """The unpadded reference: the net's own forward (its hybridized

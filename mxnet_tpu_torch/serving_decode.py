@@ -80,6 +80,7 @@ poisoned (ROADMAP Queue C).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import heapq
 import math
@@ -109,7 +110,7 @@ __all__ = ["PagePool", "PagePoolExhausted", "ShedError", "DecodeModel",
            "token_key", "prng_key", "fold_in", "threefry_2x32",
            "random_bits", "gumbel", "uniform", "spec_trace_count",
            "spec_dispatch_count", "high_agreement_pair", "FORMS",
-           "sampling_form"]
+           "sampling_form", "cancel_scope", "RequestCancelled"]
 
 _NS = _pstore.namespace("serving_decode")
 # the speculative programs (draft prefill, draft round, verify) in their own
@@ -1189,10 +1190,35 @@ def eager_generate(model: DecodeModel, params, prompt: Sequence[int],
 # ---------------------------------------------------------------------------
 # Requests + per-row state
 # ---------------------------------------------------------------------------
+_CANCEL = threading.local()
+
+
+@contextlib.contextmanager
+def cancel_scope(token: threading.Event):
+    """Requests this thread submits to a :class:`GenerativeEngine` inside
+    the scope carry ``token``: once it is set, the engine retires the
+    request at its next step boundary (a queued one before its prefill, a
+    live row after the decode step in flight, whose replay cannot be
+    aborted), frees its KV pages and raises :class:`RequestCancelled` in
+    the caller. The replica router cancels a hedge's loser this way."""
+    prev = getattr(_CANCEL, "token", None)
+    _CANCEL.token = token
+    try:
+        yield token
+    finally:
+        _CANCEL.token = prev
+
+
+class RequestCancelled(ShedError):
+    """The request's cancel token was set (:func:`cancel_scope`)."""
+
+    kind = "cancelled"
+
+
 class _GenRequest:
     __slots__ = ("prompt", "max_new", "eos", "out", "event", "error",
                  "t_enqueue", "t_done", "preempts", "joined", "trace_id",
-                 "sampling")
+                 "sampling", "cancel")
 
     def __init__(self, prompt: List[int], max_new: int,
                  eos: Optional[int],
@@ -1214,6 +1240,9 @@ class _GenRequest:
         # admission order, stamped at the first prefill and kept across
         # preemption re-queues (youngest-first victims)
         self.joined: Optional[int] = None
+        # the submitting thread's cancel token (cancel_scope), if any
+        self.cancel: Optional[threading.Event] = getattr(_CANCEL, "token",
+                                                         None)
 
 
 class _Row:
@@ -1329,6 +1358,9 @@ class GenerativeEngine:
         self._cv = threading.Condition()
         self._queue: "deque[_GenRequest]" = deque()
         self._live: List[_Row] = []
+        # queued or live requests that carry a cancel token (under _cv):
+        # the step boundary scans for cancellations only while it is > 0
+        self._cancellable = 0
         self._joined = 0
         self._thread: Optional[threading.Thread] = None
         self._closed = False
@@ -1423,6 +1455,8 @@ class GenerativeEngine:
         with self._cv:
             self._start_thread()
             self._queue.append(req)
+            if req.cancel is not None:
+                self._cancellable += 1
             self._cv.notify_all()
         if until is None:
             delivered = req.event.wait(timeout=600.0)
@@ -1436,6 +1470,9 @@ class GenerativeEngine:
                         self._queue.remove(req)
                     except ValueError:
                         pass
+                    else:
+                        if req.cancel is not None:
+                            self._cancellable -= 1
                 self._shed("deadline",
                            f"deadline budget exhausted after "
                            f"{(time.monotonic() - req.t_enqueue) * 1e6:.0f}"
@@ -1639,8 +1676,11 @@ class GenerativeEngine:
         for req in reqs:
             self._finish(req, e)
 
-    @staticmethod
-    def _finish(req: _GenRequest, error: Optional[BaseException]) -> None:
+    def _finish(self, req: _GenRequest,
+                error: Optional[BaseException]) -> None:
+        if req.cancel is not None and not req.event.is_set():
+            with self._cv:
+                self._cancellable -= 1
         req.error = error
         req.t_done = time.monotonic()
         req.event.set()
@@ -1674,6 +1714,7 @@ class GenerativeEngine:
         decode step over the live sequences, retire."""
         if _preemption.draining() or self._draining:
             self._requeue_for_drain()
+        self._retire_cancelled()
         while len(self._live) < self._rows:
             with self._cv:
                 if not self._queue:
@@ -2184,8 +2225,8 @@ class GenerativeEngine:
 
     def _spec_autodisable(self, reason: str, **fields) -> None:
         """Sticky degrade to plain decode, for this engine's lifetime, once
-        the measured acceptance collapses: plain decode is always correct,
-        so this costs throughput only."""
+        the measured acceptance collapses or a speculative dispatch fails:
+        plain decode is always correct, so this costs throughput only."""
         if self._spec_disabled:
             return
         self._spec_disabled = True
@@ -2292,10 +2333,13 @@ class GenerativeEngine:
         target positions a row), then the host commit of each row's
         accepted prefix and its resampled or bonus token. False when the
         pages did not fit: the caller runs a plain decode step
-        (speculation is opportunistic). A failing dispatch or capture
-        raises, to the round's requests (the reference instead turns
-        speculation off and decodes plainly, which would hide a fault of
-        the programs behind a slower stream)."""
+        (speculation is opportunistic). False too when the draft or verify
+        dispatch fails: a wedged or poisoned draft must never take plain
+        decode down with it, so speculation is turned off for good (the
+        ``spec.autodisabled`` event names the error) and the caller decodes
+        the step plainly. The target's KV past a row's committed length is
+        only ever read after plain decode has written it again, so a verify
+        that failed part-way leaves nothing to repair."""
         kmax = self._spec_kmax()
         live = list(self._live)
         for row in live:
@@ -2342,34 +2386,40 @@ class GenerativeEngine:
                   if row.req.trace_id is not None]
         if traces:
             step_args["trace_ids"] = traces
-        with _telemetry.span("decode.spec_round", cat="decode",
-                             args=step_args):
-            t0 = time.perf_counter()
-            self._pool.gate.acquire(self._priority)
-            try:
-                with self._pool.exclusive(self._draft_geom):
-                    drafted = self._spec_call(
-                        ("draft_round", kmax, form),
-                        lambda: self._draft_round_fn(kmax, form), dargs)
-            finally:
-                self._pool.gate.release()
-            t1 = time.perf_counter()
-            vargs = [b["pending"], drafted[0][:, :k], b["tables"],
-                     b["lengths"]]
-            if form != "greedy":
-                vargs += [drafted[1][:, :k], *samp]
-            self._pool.gate.acquire(self._priority)
-            try:
-                with self._pool.exclusive(self._geom):
-                    res = self._spec_call(
-                        ("verify", k, form),
-                        lambda: self._verify_fn(k, form), vargs)
-                    # THE one host read per round: accepted counts, next
-                    # tokens and proposals feed the host commit
-                    res = res.tolist()
-            finally:
-                self._pool.gate.release()
-            t2 = time.perf_counter()
+        try:
+            with _telemetry.span("decode.spec_round", cat="decode",
+                                 args=step_args):
+                t0 = time.perf_counter()
+                self._pool.gate.acquire(self._priority)
+                try:
+                    with self._pool.exclusive(self._draft_geom):
+                        drafted = self._spec_call(
+                            ("draft_round", kmax, form),
+                            lambda: self._draft_round_fn(kmax, form), dargs)
+                finally:
+                    self._pool.gate.release()
+                t1 = time.perf_counter()
+                vargs = [b["pending"], drafted[0][:, :k], b["tables"],
+                         b["lengths"]]
+                if form != "greedy":
+                    vargs += [drafted[1][:, :k], *samp]
+                self._pool.gate.acquire(self._priority)
+                try:
+                    with self._pool.exclusive(self._geom):
+                        res = self._spec_call(
+                            ("verify", k, form),
+                            lambda: self._verify_fn(k, form), vargs)
+                        # THE one host read per round: accepted counts, next
+                        # tokens and proposals feed the host commit
+                        res = res.tolist()
+                finally:
+                    self._pool.gate.release()
+                t2 = time.perf_counter()
+        except Exception as e:
+            self._spec_autodisable("draft/verify dispatch failed",
+                                   error=repr(e))
+            self._spec_fallback()
+            return False
         self._ema(("spec", "draft"), t1 - t0)
         self._ema(("spec_verify", k), t2 - t1)
         total_acc = 0
@@ -2562,6 +2612,31 @@ class GenerativeEngine:
         return (len(req.out) >= req.max_new
                 or (req.eos is not None and bool(req.out)
                     and req.out[-1] == req.eos))
+
+    def _retire_cancelled(self) -> None:
+        """The step boundary's cancellation point: requests whose cancel
+        token is set leave the queue and the live rows, their pages
+        freed. Nothing to scan while no request carries a token."""
+        if not self._cancellable:
+            return
+
+        def cancelled(req):
+            return req.cancel is not None and req.cancel.is_set()
+
+        with self._cv:
+            reqs = [r for r in self._queue if cancelled(r)]
+            for r in reqs:
+                self._queue.remove(r)
+        rows = [x for x in self._live if cancelled(x.req)]
+        for row in rows:
+            self._live.remove(row)
+            self._release(row)
+        for req in reqs + [row.req for row in rows]:
+            with _telemetry.trace_scope(trace_id=req.trace_id):
+                _telemetry.event("cancel", self.name,
+                                 tokens_out=len(req.out))
+            self._finish(req, RequestCancelled(
+                f"[{self.name}] request cancelled by its caller"))
 
     def _retire_finished(self) -> None:
         for row in [x for x in self._live if self._done(x)]:

@@ -1,0 +1,1305 @@
+"""The replica router: one ``infer()`` / ``generate()`` front over N
+engine replicas, with health-checked failover, one deadline budget per
+request, hedged retries, circuit breakers, and an elastic fleet.
+
+Counterpart of ``mxnet_tpu/serving_router.py``, whole (host Python: the
+router launches no kernel of its own; its replicas' programs do the device
+work):
+
+1. **One deadline budget.** ``infer(x, deadline_us=...)`` and
+   ``generate(p, deadline_us=...)`` pin an absolute expiry at admission;
+   the engine's admission cost table, its queue wait, every failover
+   retry and every hedge draw from that one budget through
+   :func:`faults.deadline_scope` threaded through :func:`faults.retry_call`.
+   A spent budget is a typed ``ShedError(kind="deadline")``, never a hang.
+2. **Health.** Every replica has a heartbeat on the in-memory
+   :class:`~mxnet_tpu_torch.parallel.elastic.HeartbeatMonitor`, stamped per
+   dispatch completion: a replica with a dispatch outstanding and a beat
+   older than ``MXNET_ROUTER_WEDGE_S`` is WEDGED, its breaker trips and the
+   request fails over. A :class:`CircuitBreaker` (closed -> open ->
+   half-open, ``MXNET_ROUTER_BREAKER_*``) ejects a replica after
+   ``MXNET_ROUTER_BREAKER_ERRS`` failures in its rolling window and
+   re-admits it by one half-open probe request after the cooldown.
+3. **Failover and hedging.** A dispatch lost to a replica's death, an open
+   breaker, a wedge or an overload shed re-dispatches to a healthy replica
+   under the ``router.dispatch`` fault site. Greedy decode makes the re-run
+   token-exact (and a seeded ``SamplingSpec`` replays token-exact too). With
+   ``MXNET_ROUTER_HEDGE_PCTL`` set, a dispatch outstanding past the fleet's
+   p<N> latency issues one duplicate on another replica; the first to
+   finish wins and the loser is cancelled: a hedge's loser cannot abort a
+   CUDA-graph replay already in flight, so the router sets its dispatch's
+   cancel token (``serving_decode.cancel_scope``) and the engine retires
+   the row at its next step boundary, freeing its KV pages.
+4. **Balancing on live telemetry.** ``_pick`` scores each replica's
+   ``load()`` (queue depth, in-flight cost, page-pool pressure), the
+   router's own in-flight count and prefix affinity (``prefix_probe``:
+   replicas whose pool holds the prompt's leading blocks score lower), and
+   its breaker state.
+5. **Degraded modes.** Every breaker open: a typed ``unavailable`` shed, or
+   with ``MXNET_ROUTER_EAGER_FALLBACK`` the eager path. A preemption notice
+   sheds ``draining`` at the router's edge, and the router is an ``engine``
+   drainable, so ``engine.waitall()`` drains its in-flight dispatches.
+6. **Elastic membership.** :meth:`ReplicaRouter.add_replica` and
+   :meth:`~ReplicaRouter.drain_replica` move a replica through JOINING ->
+   SERVING -> DRAINING -> GONE under the ``router.scale`` fault site.
+   Indices are append-only (a retired replica stays as a GONE tombstone)
+   and ``_pick`` only sees SERVING. A replica may live in another process
+   (:class:`~mxnet_tpu_torch.serving_remote.RemoteReplica`).
+   :class:`FleetSupervisor` prices scale-up and scale-down from the same
+   live telemetry and executes scale-down as a scheduled graceful
+   preemption (drain, then SIGTERM -> exit 83 for a process).
+
+One difference by design: the reference's joiner warms through
+``engine.warmup()`` and its persistent program cache, so a warm join
+compiles nothing. A CUDA graph lives in one process and the port has no
+persistent program cache (``program_store.py``), so a joiner captures its
+programs in ``engine.warmup()`` while the others serve (the capture path of
+``program_store``: a process-wide capture lock and ``thread_local`` capture
+mode, so another engine's replays neither fail nor spoil it), and the
+contract becomes 0 captures after warm-up: ``router.fleet.warm_programs``
+counts what each joiner captured, and ``serving_decode.trace_count()``
+does not move once it serves.
+
+The chaos matrix is ``mxnet_tpu_torch/drills.py``'s ``router`` child (a
+replica killed mid-decode, a wedged dispatch, a breaker flap, a deadline
+storm, a shared-prefix storm, a scale storm, a remote host loss, a poisoned
+draft), gated by ``tools/torch_check_availability_budget.py``;
+``tools/torch_check_dispatch_budget.py``'s ``router`` lane holds the
+zero-overhead-off rule (one replica, hedging off, breaker closed, no
+supervisor: dispatches, captures and host syncs identical to the bare
+engine's).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set
+
+from . import config as _config
+from . import faults as _faults
+from . import preemption as _preemption
+from . import telemetry as _telemetry
+from .faults import ShedError
+from .parallel.elastic import HeartbeatMonitor
+from .serving_decode import cancel_scope as _cancel_scope
+
+__all__ = ["ReplicaRouter", "CircuitBreaker", "ReplicaUnavailable",
+           "FleetSupervisor",
+           "BREAKER_CLOSED", "BREAKER_OPEN", "BREAKER_HALF_OPEN",
+           "REPLICA_JOINING", "REPLICA_SERVING", "REPLICA_DRAINING",
+           "REPLICA_GONE"]
+
+BREAKER_CLOSED = "closed"
+BREAKER_OPEN = "open"
+BREAKER_HALF_OPEN = "half_open"
+
+# replica membership lifecycle.  Append-only indices:
+# a retired replica stays in the list as a GONE tombstone so every
+# in-flight ``req.failed`` set, breaker hook, and telemetry record
+# keeps its index meaning forever.
+REPLICA_JOINING = "joining"      # admitted to the fleet, still warming
+REPLICA_SERVING = "serving"      # eligible for _pick / probe / hedge
+REPLICA_DRAINING = "draining"    # no new dispatches; in-flight finishing
+REPLICA_GONE = "gone"            # detached; tombstone only
+
+
+class ReplicaUnavailable(_faults.TransientFault):
+    """One replica failed a dispatch (death, wedge, overload shed) —
+    retryable by the ``router.dispatch`` policy: the next attempt
+    fails over to a different replica."""
+
+    def __init__(self, *args, index: Optional[int] = None):
+        super().__init__(*args)
+        self.index = index
+
+
+class _NoHealthyReplica(RuntimeError):
+    """Every replica is excluded or breaker-open: NOT retryable —
+    the router goes straight to its degraded mode."""
+
+
+class CircuitBreaker:
+    """Per-replica error-rate breaker: CLOSED (traffic flows; failures
+    accumulate in a rolling outcome window) → OPEN (``errs`` failures
+    in the window, a wedge, or a death trip it; no traffic) →
+    HALF-OPEN (after ``cooldown_s``; exactly ONE probe request
+    admitted) → CLOSED on probe success / back to OPEN on failure.
+
+    ``clock`` is injectable so the state machine unit-tests without
+    real waiting.  ``on_transition(old, new, reason)`` feeds the
+    router's counters/events."""
+
+    def __init__(self, errs: Optional[int] = None,
+                 window: Optional[int] = None,
+                 cooldown_s: Optional[float] = None,
+                 clock: Callable[[], float] = time.monotonic,
+                 on_transition: Optional[Callable] = None):
+        self.errs = int(_config.get("MXNET_ROUTER_BREAKER_ERRS")
+                        if errs is None else errs)
+        self.window = int(_config.get("MXNET_ROUTER_BREAKER_WINDOW")
+                          if window is None else window)
+        self.cooldown_s = float(
+            _config.get("MXNET_ROUTER_BREAKER_COOLDOWN_S")
+            if cooldown_s is None else cooldown_s)
+        self._clock = clock
+        self._on_transition = on_transition
+        self._outcomes: "deque[bool]" = deque(maxlen=self.window)
+        self._state = BREAKER_CLOSED
+        self._opened_at: Optional[float] = None
+        self._probe_out = False
+        self._lock = threading.RLock()
+
+    def state(self) -> str:
+        """Current state; applies the lazy OPEN → HALF-OPEN cooldown
+        transition."""
+        with self._lock:
+            if self._state == BREAKER_OPEN and \
+                    self._clock() - self._opened_at >= self.cooldown_s:
+                self._to(BREAKER_HALF_OPEN, "cooldown elapsed")
+            return self._state
+
+    def allow(self) -> bool:
+        """May a dispatch go out now?  CLOSED: always.  HALF-OPEN: one
+        probe at a time (the caller's dispatch IS the probe).  OPEN:
+        never."""
+        with self._lock:
+            st = self.state()
+            if st == BREAKER_CLOSED:
+                return True
+            if st == BREAKER_HALF_OPEN and not self._probe_out:
+                self._probe_out = True
+                return True
+            return False
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._probe_out = False
+            if self._state == BREAKER_HALF_OPEN:
+                self._outcomes.clear()
+                self._to(BREAKER_CLOSED, "probe succeeded")
+            elif self._state == BREAKER_CLOSED:
+                self._outcomes.append(True)
+
+    def record_failure(self, reason: str = "") -> None:
+        with self._lock:
+            self._probe_out = False
+            if self._state == BREAKER_HALF_OPEN:
+                self._to(BREAKER_OPEN, f"probe failed: {reason}")
+                return
+            self._outcomes.append(False)
+            if self._state == BREAKER_CLOSED and \
+                    sum(1 for ok in self._outcomes if not ok) >= self.errs:
+                self._to(BREAKER_OPEN, reason or "error threshold")
+
+    def trip(self, reason: str) -> None:
+        """Immediate ejection (wedge / replica death): OPEN now, with a
+        fresh cooldown."""
+        with self._lock:
+            self._probe_out = False
+            if self._state != BREAKER_OPEN:
+                self._to(BREAKER_OPEN, reason)
+            else:
+                self._opened_at = self._clock()
+
+    def _to(self, new: str, reason: str) -> None:
+        old, self._state = self._state, new
+        if new == BREAKER_OPEN:
+            self._opened_at = self._clock()
+        if self._on_transition is not None:
+            self._on_transition(old, new, reason)
+
+
+class _Replica:
+    __slots__ = ("index", "engine", "breaker", "key", "in_flight",
+                 "state")
+
+    def __init__(self, index: int, engine, breaker: CircuitBreaker,
+                 key: str, state: str = REPLICA_SERVING):
+        self.index = index
+        self.engine = engine
+        self.breaker = breaker
+        self.key = key
+        self.in_flight = 0
+        self.state = state
+
+
+class _Dispatch:
+    """One engine call in flight on a router worker thread."""
+
+    __slots__ = ("replica", "hedge", "t_start", "t_done", "done",
+                 "result", "error", "abandoned", "released", "thread",
+                 "cancel")
+
+    def __init__(self, replica: _Replica, hedge: bool):
+        self.replica = replica
+        self.hedge = hedge
+        self.t_start = time.monotonic()
+        self.t_done = 0.0
+        self.done = threading.Event()
+        self.result: Any = None
+        self.error: Optional[BaseException] = None
+        self.abandoned = False
+        self.released = False
+        self.thread: Optional[threading.Thread] = None
+        # set when the router stops waiting on this dispatch: a local
+        # GenerativeEngine retires the row at its next step boundary
+        self.cancel = threading.Event()
+
+
+class _RouterRequest:
+    __slots__ = ("fn", "until", "label", "eager_fn", "prompt", "failed",
+                 "cv", "hedged", "attempt", "t0", "trace_id")
+
+    def __init__(self, fn, until: Optional[float], label: str,
+                 eager_fn: Optional[Callable],
+                 prompt: Optional[List[int]] = None):
+        self.fn = fn                  # fn(engine) -> result
+        self.until = until            # absolute monotonic expiry
+        self.label = label
+        self.eager_fn = eager_fn
+        self.prompt = prompt          # token ids, for prefix affinity
+        self.failed: Set[int] = set() # replica indices that failed it
+        self.cv = threading.Condition()
+        self.hedged = False
+        self.attempt = 0
+        self.t0 = time.monotonic()
+        # the request's ONE identity, minted at admission and re-entered
+        # by every dispatch/hedge thread it touches; None
+        # with tracing disabled — zero trace fields anywhere
+        self.trace_id: Optional[str] = None
+
+
+def _weak_serving_count(router: "ReplicaRouter"):
+    """Computed-gauge reader for the router's live SERVING count —
+    weakly bound so the registry never pins a dead router (and a
+    collected router reads 0, not a crash, at snapshot time)."""
+    import weakref
+
+    ref = weakref.ref(router)
+
+    def read() -> float:
+        r = ref()
+        if r is None:
+            return 0.0
+        return float(sum(1 for rep in r._replicas
+                         if rep.state == REPLICA_SERVING))
+    return read
+
+
+def _api_kind(engine) -> str:
+    if hasattr(engine, "generate"):
+        return "generate"
+    if hasattr(engine, "infer"):
+        return "infer"
+    raise TypeError(f"replica {type(engine).__name__} exposes neither "
+                    "infer() nor generate()")
+
+
+class ReplicaRouter:
+    """One ``infer()``/``generate()`` front over N engine replicas
+    (all :class:`~mxnet_tpu_torch.serving.ServingEngine`, all
+    :class:`~mxnet_tpu_torch.serving_decode.GenerativeEngine`, or
+    :class:`~mxnet_tpu_torch.serving_remote.RemoteReplica` shims over
+    either); see the module docstring for the design.  Thread-safe and
+    blocking, like the engines it fronts.
+
+    ``replicas`` may hold the engines directly.  Every knob has a
+    constructor override (tests/drills) and an ``MXNET_ROUTER_*``
+    default (deploy).  Membership is dynamic: :meth:`add_replica` /
+    :meth:`drain_replica` (and :class:`FleetSupervisor` driving them
+    from telemetry)."""
+
+    def __init__(self, replicas: Sequence, *, name: Optional[str] = None,
+                 hedge_pctl: Optional[int] = None,
+                 eager_fallback: Optional[bool] = None,
+                 breaker_errs: Optional[int] = None,
+                 breaker_window: Optional[int] = None,
+                 breaker_cooldown_s: Optional[float] = None,
+                 wedge_s: Optional[float] = None):
+        if not replicas:
+            raise ValueError("ReplicaRouter needs at least one replica")
+        kinds = {_api_kind(eng) for eng in replicas}
+        if len(kinds) != 1:
+            raise ValueError(
+                "all replicas must serve the same API (got a mix of "
+                f"{sorted(kinds)})")
+        self._kind = kinds.pop()
+        self.name = name or _telemetry.instance_name("router")
+        self._hedge_pctl = int(_config.get("MXNET_ROUTER_HEDGE_PCTL")
+                               if hedge_pctl is None else hedge_pctl)
+        self._eager_fallback = bool(
+            _config.get("MXNET_ROUTER_EAGER_FALLBACK")
+            if eager_fallback is None else eager_fallback)
+        self._wedge_s = float(_config.get("MXNET_ROUTER_WEDGE_S")
+                              if wedge_s is None else wedge_s)
+        # engine heartbeats: the kvstore HeartbeatMonitor generalized —
+        # in-memory, string-keyed, stamped per dispatch completion
+        self._hb = HeartbeatMonitor(timeout=self._wedge_s)
+        self._stats = _telemetry.CounterGroup(
+            _telemetry.instance_name("serving.router"),
+            _telemetry.ROUTER_COUNTERS,
+            doc=f"ReplicaRouter counters (router {self.name!r})",
+            family="serving.router")
+        # fleet-lifecycle counters: membership and scaling
+        # events, one family the perf gate holds tolerances on
+        self._fleet = _telemetry.CounterGroup(
+            _telemetry.instance_name("router.fleet"),
+            _telemetry.FLEET_COUNTERS,
+            doc=f"Elastic fleet lifecycle counters (router "
+                f"{self.name!r})",
+            family="router.fleet")
+        _telemetry.gauge_fn(
+            f"{self._fleet.prefix}.serving_replicas",
+            _weak_serving_count(self),
+            doc="Live SERVING replica count of this router (computed "
+                "at snapshot; 0 after the router is garbage-collected)",
+            family="router.fleet")
+        # breaker overrides are remembered so a replica joining later
+        # (add_replica / the autoscaler) gets the same configuration
+        # the founding replicas did
+        self._breaker_kw = dict(errs=breaker_errs, window=breaker_window,
+                                cooldown_s=breaker_cooldown_s)
+        self._lock = threading.Lock()
+        self._replicas: List[_Replica] = []
+        for eng in replicas:
+            self._admit_replica(eng, state=REPLICA_SERVING)
+        # fleet dispatch latencies (successes only): the hedge
+        # threshold's distribution + stats percentiles
+        self._lat_dispatch: "deque[float]" = deque(maxlen=4096)
+        self._lat_request: "deque[float]" = deque(maxlen=8192)
+        self._inflight = 0
+        self._closed = False
+        from . import engine as _engine
+
+        _engine.register_drainable(self)
+
+    # -- public -------------------------------------------------------------
+    def infer(self, *args, deadline_us: Optional[int] = None):
+        """Route one one-shot inference request; blocks until a healthy
+        replica delivers (failing over transparently), the deadline
+        budget expires (``ShedError(kind="deadline")``), or every
+        replica is ejected (``ShedError(kind="unavailable")`` /
+        the eager fallback)."""
+        if self._kind != "infer":
+            raise RuntimeError(
+                "this router fronts GenerativeEngine replicas — call "
+                "generate()")
+        first = self._replicas[0].engine
+        return self._submit(
+            lambda eng: eng.infer(*args), deadline_us, "infer",
+            eager_fn=lambda: first.eager_infer(*args))
+
+    def generate(self, prompt, max_new_tokens: int = 32,
+                 eos: Optional[int] = None,
+                 deadline_us: Optional[int] = None,
+                 sampling=None) -> List[int]:
+        """Route one generation request; failover re-runs the FULL
+        request from the original prompt on the new replica — greedy
+        decode makes the re-run token-exact, so a client never sees a
+        replica death, only (bounded) extra latency.  ``sampling`` (a
+        :class:`serving_decode.SamplingSpec`) rides the request to
+        every replica it touches — the position-keyed counter PRNG
+        makes a failed-over or hedged SAMPLED request replay
+        token-exact too, same-seed-same-tokens on any same-config
+        replica (the eager fallback runs the identical sampler)."""
+        if self._kind != "generate":
+            raise RuntimeError(
+                "this router fronts ServingEngine replicas — call "
+                "infer()")
+        first = self._replicas[0].engine
+
+        def eager():
+            from .serving_decode import eager_generate
+
+            return eager_generate(first._model, first._params,
+                                  prompt, max_new_tokens, eos,
+                                  sampling=sampling)
+
+        return self._submit(
+            lambda eng: eng.generate(prompt,
+                                     max_new_tokens=max_new_tokens,
+                                     eos=eos, sampling=sampling),
+            deadline_us, "generate", eager_fn=eager,
+            prompt=[int(t) for t in prompt])
+
+    def stats(self) -> Dict[str, Any]:
+        """Router counters, per-replica health, and request-latency
+        percentiles."""
+        out: Dict[str, Any] = dict(self._stats)
+        out["fleet"] = self.fleet_stats()
+        out["replicas"] = [{
+            "index": r.index,
+            "state": r.state,
+            "breaker": r.breaker.state(),
+            "in_flight": r.in_flight,
+            "beat_age_s": self._hb.age(r.key),
+        } for r in list(self._replicas)]
+        lat = sorted(self._lat_request)
+        if lat:
+            out["p50_us"] = lat[len(lat) // 2] * 1e6
+            out["p99_us"] = lat[min(len(lat) - 1,
+                                    int(len(lat) * 0.99))] * 1e6
+        else:
+            out["p50_us"] = out["p99_us"] = 0.0
+        out["hedge_threshold_s"] = self._hedge_threshold()
+        return out
+
+    def breaker_state(self, index: int) -> str:
+        return self._replicas[index].breaker.state()
+
+    def replica_state(self, index: int) -> str:
+        return self._replicas[index].state
+
+    def serving_replicas(self) -> int:
+        """Live SERVING count (the autoscaler's fleet-size input and
+        the ``router.fleet*.serving_replicas`` computed gauge)."""
+        return sum(1 for r in list(self._replicas)
+                   if r.state == REPLICA_SERVING)
+
+    def fleet_stats(self) -> Dict[str, Any]:
+        """Fleet-lifecycle counters + the per-state membership census."""
+        out: Dict[str, Any] = dict(self._fleet)
+        states = [r.state for r in list(self._replicas)]
+        out["replica_count"] = len(states)
+        for st in (REPLICA_JOINING, REPLICA_SERVING, REPLICA_DRAINING,
+                   REPLICA_GONE):
+            out[st] = states.count(st)
+        return out
+
+    # -- elastic membership ---------------------------------------
+    def _admit_replica(self, eng, state: str) -> _Replica:
+        i = len(self._replicas)
+        breaker = CircuitBreaker(on_transition=self._breaker_hook(i),
+                                 **self._breaker_kw)
+        rep = _Replica(i, eng, breaker, f"{self.name}.replica{i}",
+                       state=state)
+        self._hb.beat(rep.key)          # born live
+        self._replicas.append(rep)
+        return rep
+
+    def add_replica(self, engine, *, warm: bool = True,
+                    warmup_kwargs: Optional[Dict[str, Any]] = None
+                    ) -> int:
+        """Join ``engine`` to the fleet: JOINING (no traffic) → warm
+        via ``engine.warmup()`` + the persistent program cache (0
+        fresh compiles when ``MXNET_PROGRAM_CACHE_DIR`` is warm) →
+        SERVING.  The append happens under the membership lock with a
+        stable new index; dispatch/hedge/probe threads never see the
+        replica until its state flips to SERVING, so a join can never
+        race traffic onto a cold engine.  Returns the new index.
+
+        A failed warmup tombstones the replica (GONE) and re-raises —
+        the fleet is unchanged except for the tombstone."""
+        if self._closed:
+            raise RuntimeError("ReplicaRouter is closed")
+        kind = _api_kind(engine)
+        if kind != self._kind:
+            raise ValueError(
+                f"replica serves {kind}() but this router fronts "
+                f"{self._kind}() replicas")
+        # membership changes share one fault site with the supervisor:
+        # an injected fault here = a scale-up that never happened
+        _faults.inject("router.scale")
+        with self._lock:
+            rep = self._admit_replica(engine, state=REPLICA_JOINING)
+        self._fleet.inc("joins")
+        _telemetry.event("replica_join", self.name, replica=rep.index,
+                         state=REPLICA_JOINING)
+        t0 = time.monotonic()
+        warmed = 0
+        if warm and hasattr(engine, "warmup"):
+            try:
+                warmed = int(engine.warmup(**(warmup_kwargs or {})) or 0)
+            except BaseException as e:
+                rep.state = REPLICA_GONE
+                self._fleet.inc("gone")
+                _telemetry.event("replica_gone", self.name,
+                                 replica=rep.index,
+                                 reason=f"warmup failed: {e!r}")
+                _faults.record_event("router.scale", "join_failed", e,
+                                     router=self.name,
+                                     replica=rep.index)
+                raise
+        self._fleet.inc("warm_programs", warmed)
+        self._hb.beat(rep.key)
+        rep.state = REPLICA_SERVING
+        _telemetry.event("replica_join", self.name, replica=rep.index,
+                         state=REPLICA_SERVING, warmed_programs=warmed,
+                         warm_s=round(time.monotonic() - t0, 3))
+        _faults.record_event("router.scale", "join", router=self.name,
+                             replica=rep.index)
+        return rep.index
+
+    def drain_replica(self, index: int, timeout: float = 60.0) -> bool:
+        """Gracefully retire replica ``index``: DRAINING (``_pick``
+        stops sending traffic), queued work hands back — the engine's
+        ``begin_drain()`` hook sheds its not-yet-live queue typed
+        ``draining``, and each blocked dispatch fails over token-exact
+        to a SERVING replica — in-flight rows finish, the KV pool is
+        audited, and the replica tombstones GONE.
+
+        Idempotent: draining a GONE replica returns True immediately; a
+        concurrent drain of the same replica waits for the owner to
+        finish.  Returns True when the replica detached clean (drained
+        inside ``timeout`` with a clean audit)."""
+        rep = self._replicas[index]
+        if rep.state == REPLICA_GONE:
+            return True
+        _faults.inject("router.scale")
+        with self._lock:
+            if rep.state == REPLICA_GONE:
+                return True
+            owner = rep.state != REPLICA_DRAINING
+            if owner:
+                rep.state = REPLICA_DRAINING
+        if not owner:
+            # another thread owns this drain: wait it out (idempotent
+            # double-drain, not a second lifecycle)
+            deadline = time.monotonic() + timeout
+            while time.monotonic() < deadline:
+                if rep.state == REPLICA_GONE:
+                    return True
+                time.sleep(0.002)
+            return rep.state == REPLICA_GONE
+        self._fleet.inc("drains")
+        _telemetry.event("replica_drain", self.name, replica=index,
+                         in_flight=rep.in_flight)
+        _faults.record_event("router.scale", "drain", router=self.name,
+                             replica=index)
+        # handback: shed the engine's queued-but-not-live work typed
+        # 'draining' so the blocked router dispatches re-route NOW
+        # instead of waiting behind rows that will finish first
+        if hasattr(rep.engine, "begin_drain"):
+            try:
+                rep.engine.begin_drain()
+            except BaseException as e:
+                _faults.record_event("router.scale", "handback_failed",
+                                     e, router=self.name, replica=index)
+        deadline = time.monotonic() + timeout
+        drained = False
+        while time.monotonic() < deadline:
+            if rep.in_flight == 0:
+                drained = True
+                break
+            time.sleep(0.002)
+        audit = self._audit_replica(rep.engine)
+        rep.state = REPLICA_GONE
+        self._fleet.inc("gone")
+        _telemetry.event("replica_gone", self.name, replica=index,
+                         drained=drained, audit_clean=not audit,
+                         audit=audit[:4])
+        _faults.record_event("router.scale", "gone", router=self.name,
+                             replica=index, drained=drained,
+                             audit_clean=not audit)
+        return drained and not audit
+
+    @staticmethod
+    def _audit_replica(engine) -> List[str]:
+        """Detach-time page accounting: every page free/cached/
+        referenced exactly once (local engines via ``pool_audit()``,
+        remote replicas over the wire).  Engines with no KV pool audit
+        clean by construction."""
+        try:
+            if hasattr(engine, "pool_audit"):
+                return list(engine.pool_audit())
+            if hasattr(engine, "pool"):
+                return list((engine.pool() or {}).get("audit") or [])
+        except BaseException as e:
+            return [f"audit unavailable: {e!r}"]
+        return []
+
+    def probe(self, index: Optional[int] = None) -> Dict[int, bool]:
+        """Actively probe open/half-open replicas with a zero-cost
+        liveness call (``engine.load()``): a responsive replica's
+        half-open breaker stays eligible for its one real probe
+        request; a dead one trips.  Traffic-driven probing (the
+        half-open dispatch) is the primary re-admission path — this is
+        the explicit hook for idle fleets and drills."""
+        out: Dict[int, bool] = {}
+        targets = (list(self._replicas) if index is None
+                   else [self._replicas[index]])
+        for r in targets:
+            if r.state != REPLICA_SERVING:
+                continue                 # joining/draining/gone: no probe
+            if r.breaker.state() == BREAKER_CLOSED:
+                continue
+            self._stats.inc("probes")
+            try:
+                if hasattr(r.engine, "load"):
+                    r.engine.load()
+                ok = not getattr(r.engine, "_closed", False)
+            except BaseException:
+                ok = False
+            if not ok:
+                self._stats.inc("probe_failures")
+                r.breaker.trip("liveness probe failed")
+            out[r.index] = ok
+        return out
+
+    def drain(self, timeout: float = 60.0) -> None:
+        """engine.waitall() hook: block until every non-abandoned
+        router dispatch completed (the engines drain themselves — they
+        are registered drainables too)."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._lock:
+                if self._inflight == 0:
+                    return
+            time.sleep(0.002)
+
+    def close(self) -> None:
+        """Stop routing (the engines stay the caller's to close)."""
+        self._closed = True
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- admission / submit -------------------------------------------------
+    def _submit(self, fn, deadline_us: Optional[int], label: str,
+                eager_fn: Optional[Callable],
+                prompt: Optional[List[int]] = None):
+        # the request's end-to-end trace identity is minted HERE (or
+        # inherited from a caller's ambient scope) so the draining shed
+        # below, every dispatch attempt, and the engine's own admission
+        # all stamp one trace_id
+        with _telemetry.trace_scope() as ts:
+            return self._submit_traced(fn, deadline_us, label, eager_fn,
+                                       ts.trace_id, prompt)
+
+    def _submit_traced(self, fn, deadline_us: Optional[int], label: str,
+                       eager_fn: Optional[Callable],
+                       trace_id: Optional[str],
+                       prompt: Optional[List[int]] = None):
+        if self._closed:
+            raise RuntimeError("ReplicaRouter is closed")
+        if _preemption.draining():
+            self._shed("draining",
+                       "router draining after a preemption notice; "
+                       "re-queue on another host or after the restart")
+        self._stats.inc("requests")
+        if trace_id is not None:
+            _telemetry.event("admit", self.name, label=label,
+                             deadline_us=deadline_us)
+        t0 = time.monotonic()
+        # ONE budget: the tighter of the caller's ambient scope and the
+        # per-request deadline_us, pinned absolute so every thread this
+        # request touches draws from the same clock
+        spans = []
+        amb = _faults.deadline_remaining_us()
+        if amb is not None:
+            spans.append(amb / 1e6)
+        if deadline_us is not None:
+            spans.append(deadline_us / 1e6)
+        until = (t0 + min(spans)) if spans else None
+        req = _RouterRequest(fn, until, label, eager_fn, prompt)
+        req.trace_id = trace_id
+        try:
+            result = _faults.retry_call(
+                self._dispatch_attempt, req,
+                site="router.dispatch",
+                retries=max(1, 2 * len(self._replicas)),
+                backoff=0.0,
+                deadline_us=(int((until - t0) * 1e6)
+                             if until is not None else None))
+        except _faults.DeadlineExceeded as e:
+            self._shed("deadline",
+                       f"deadline budget exhausted after "
+                       f"{(time.monotonic() - t0) * 1e6:.0f}us "
+                       f"({req.attempt} dispatch attempt(s))", cause=e)
+        except ShedError as e:
+            if e.kind == "deadline":
+                self._stats.inc("sheds")
+                self._stats.inc("shed_deadline")
+            raise
+        except (ReplicaUnavailable, _NoHealthyReplica) as e:
+            result = self._degraded(req, cause=e)
+        t1 = time.monotonic()
+        self._lat_request.append(t1 - t0)
+        self._stats.inc("delivered")
+        if trace_id is not None:
+            _telemetry.event("retire", self.name, label=label,
+                             attempts=req.attempt, hedged=req.hedged)
+        _telemetry.record_span(
+            "router.request", "serving", int(t0 * 1e9), int(t1 * 1e9),
+            args={"router": self.name, "label": label,
+                  "attempts": req.attempt, "hedged": req.hedged})
+        return result
+
+    def _shed(self, kind: str, reason: str,
+              cause: Optional[BaseException] = None):
+        self._stats.inc("sheds")
+        self._stats.inc("shed_" + kind)
+        _telemetry.event("shed", self.name, shed_kind=kind, reason=reason)
+        _faults.record_event("router.dispatch", "shed", cause,
+                             router=self.name, kind=kind, reason=reason)
+        err = ShedError(f"[{self.name}] {reason}", kind=kind)
+        if cause is not None:
+            raise err from cause
+        raise err
+
+    # -- breaker / health -----------------------------------------------------
+    def _breaker_hook(self, index: int):
+        def hook(old: str, new: str, reason: str) -> None:
+            key = {BREAKER_OPEN: "breaker_opens",
+                   BREAKER_HALF_OPEN: "breaker_half_opens",
+                   BREAKER_CLOSED: "breaker_closes"}[new]
+            self._stats.inc(key)
+            if old == BREAKER_HALF_OPEN and new == BREAKER_OPEN:
+                self._stats.inc("probe_failures")
+            _telemetry.event("breaker", self.name, replica=index,
+                             state=new, prev=old, reason=reason)
+            _faults.record_event("router.dispatch", "breaker",
+                                 router=self.name, replica=index,
+                                 state=new, prev=old, reason=reason)
+        return hook
+
+    def _pick(self, exclude: Set[int],
+              prompt: Optional[List[int]] = None) -> Optional[_Replica]:
+        """Healthiest replica by live telemetry: queue depth + in-flight
+        cost + page-pool pressure (engine ``load()``) + router-side
+        in-flight, minus prefix affinity (replicas whose KV pool
+        already holds the prompt's hash chain score lower — shared
+        prompts converge on the warm pages), breaker-closed replicas
+        first, then ONE half-open probe.  Deterministic tie-break by
+        replica index."""
+        closed_scored = []
+        half: List[_Replica] = []
+        for r in list(self._replicas):
+            if r.index in exclude:
+                continue
+            if r.state != REPLICA_SERVING:
+                # JOINING warms first, DRAINING finishes what it has,
+                # GONE is a tombstone — none take new traffic
+                continue
+            st = r.breaker.state()
+            if st == BREAKER_CLOSED:
+                closed_scored.append((self._score(r, prompt),
+                                      r.index, r))
+            elif st == BREAKER_HALF_OPEN:
+                half.append(r)
+        # a half-open replica is re-admitted BY PROBE: the next request
+        # is the probe (one at a time), even while closed replicas
+        # exist — otherwise a recovered replica starves half-open
+        # forever behind its healthy neighbors
+        for r in half:
+            if r.breaker.allow():
+                self._stats.inc("probes")
+                return r
+        if closed_scored:
+            return min(closed_scored)[2]
+        return None
+
+    def _score(self, r: _Replica,
+               prompt: Optional[List[int]] = None) -> float:
+        try:
+            load = r.engine.load() if hasattr(r.engine, "load") else {}
+        except BaseException:
+            # an unreachable replica (dead remote host) prices itself
+            # to the back of the pick order — scoring never throws;
+            # the dispatch that eventually hits it owns the blame
+            # (breaker + failover)
+            return float("inf")
+        score = (float(r.in_flight)
+                 + float(load.get("queue_depth", 0.0))
+                 + float(load.get("in_flight", 0.0))
+                 + float(load.get("pool_pressure", 0.0)))
+        if prompt and hasattr(r.engine, "prefix_probe"):
+            # each resident leading block is worth
+            # MXNET_ROUTER_PREFIX_AFFINITY units of load: shared-prefix
+            # traffic converges on the replica holding the warm pages
+            # (prefix_probe is 0 with MXNET_PREFIX_CACHE off)
+            weight = float(_config.get("MXNET_ROUTER_PREFIX_AFFINITY"))
+            if weight > 0:
+                score -= weight * r.engine.prefix_probe(prompt)
+        return score
+
+    def _hedge_threshold(self) -> Optional[float]:
+        """p<MXNET_ROUTER_HEDGE_PCTL> of observed successful dispatch
+        latencies (None while hedging is off or the distribution is
+        too thin to trust)."""
+        if not self._hedge_pctl:
+            return None
+        lat = sorted(self._lat_dispatch)
+        if len(lat) < 16:
+            return None
+        return lat[min(len(lat) - 1,
+                       int(len(lat) * self._hedge_pctl / 100))]
+
+    # -- dispatch -------------------------------------------------------------
+    def _dispatch_attempt(self, req: _RouterRequest):
+        """One ``router.dispatch`` attempt: pick a replica, launch the
+        engine call on a worker thread, and supervise it — completing,
+        hedging past the latency threshold, declaring a wedge, or
+        failing over.  Raising :class:`ReplicaUnavailable` hands
+        control back to ``faults.retry_call``, whose next attempt IS
+        the failover."""
+        req.attempt += 1
+        if req.attempt > 1:
+            self._stats.inc("failovers")
+        primary = self._pick(exclude=req.failed, prompt=req.prompt)
+        if primary is None:
+            raise _NoHealthyReplica(
+                f"[{self.name}] no healthy replica "
+                f"({len(req.failed)} failed this request; breakers: "
+                f"{[r.breaker.state() for r in self._replicas]})")
+        if req.attempt > 1:
+            _telemetry.event("failover", self.name,
+                             replica=primary.index,
+                             failed=sorted(req.failed),
+                             attempt=req.attempt, label=req.label)
+        flights = [self._launch(primary, req, hedge=False)]
+        last_err: Optional[BaseException] = None
+        while flights:
+            got = self._await_progress(req, flights)
+            if got == "deadline":
+                for f in flights:
+                    self._abandon(f, "deadline")
+                _faults.record_event(
+                    "router.dispatch", "deadline",
+                    router=self.name, label=req.label)
+                raise _faults.DeadlineExceeded(
+                    f"[{self.name}] request budget exhausted with "
+                    f"{len(flights)} dispatch(es) in flight")
+            if got == "hedge":
+                req.hedged = True
+                spare = self._pick(
+                    exclude=req.failed
+                    | {f.replica.index for f in flights},
+                    prompt=req.prompt)
+                if spare is not None:
+                    self._stats.inc("hedges")
+                    _telemetry.event(
+                        "hedge", self.name, replica=spare.index,
+                        primary=flights[0].replica.index,
+                        threshold_s=self._hedge_threshold())
+                    flights.append(self._launch(spare, req, hedge=True))
+                continue
+            d = got
+            if not d.done.is_set():            # wedged, not completed
+                self._stats.inc("wedged")
+                _telemetry.event("breaker", self.name,
+                                 replica=d.replica.index,
+                                 state="wedged",
+                                 outstanding_s=round(
+                                     time.monotonic() - d.t_start, 3))
+                d.replica.breaker.trip(
+                    f"dispatch wedged > {self._wedge_s}s with no "
+                    "heartbeat")
+                self._abandon(d, "wedged")
+                req.failed.add(d.replica.index)
+                flights.remove(d)
+                last_err = ReplicaUnavailable(
+                    f"replica {d.replica.index} wedged",
+                    index=d.replica.index)
+                if not flights:
+                    raise last_err
+                continue
+            flights.remove(d)
+            if d.error is None:
+                for f in flights:              # first-wins cancellation
+                    self._abandon(f, "hedge lost")
+                    self._stats.inc("hedge_cancelled")
+                if d.hedge:
+                    self._stats.inc("hedge_wins")
+                d.replica.breaker.record_success()
+                self._lat_dispatch.append(d.t_done - d.t_start)
+                return d.result
+            e = d.error
+            if self._request_fault(e):
+                # the REQUEST's own fault (bad arguments, its deadline
+                # budget): no replica to blame, no failover
+                for f in flights:
+                    self._abandon(f, "request fault")
+                raise e
+            if isinstance(e, ShedError) and \
+                    getattr(e, "kind", None) == "draining":
+                # a deliberate drain (scale-down / remote preemption)
+                # handing queued work back — the replica is leaving,
+                # not sick: no breaker blame, just re-route
+                _telemetry.event("handback", self.name,
+                                 replica=d.replica.index,
+                                 label=req.label)
+            else:
+                d.replica.breaker.record_failure(repr(e))
+            req.failed.add(d.replica.index)
+            last_err = e
+            if not flights:
+                raise ReplicaUnavailable(
+                    f"replica {d.replica.index} failed {req.label}: "
+                    f"{e!r}", index=d.replica.index) from e
+        raise last_err or _NoHealthyReplica("no dispatch launched")
+
+    def _request_fault(self, e: BaseException) -> bool:
+        """Errors that belong to the request (or the whole process),
+        not one replica: its deadline budget, a process-wide preemption
+        drain (every co-hosted replica drains together — failover
+        inside the process is futile; the client must re-queue
+        elsewhere), or plainly bad arguments."""
+        if isinstance(e, ShedError):
+            if e.kind == "deadline":
+                return True
+            if e.kind == "draining":
+                # only a PROCESS-WIDE preemption makes a draining shed
+                # the request's problem.  One replica draining (a
+                # scale-down, a remote replica's own preemption) hands
+                # its queued work back: failover re-runs it
+                # token-exact on a SERVING replica
+                return _preemption.draining()
+            return False
+        return isinstance(e, (ValueError, TypeError))
+
+    def _launch(self, replica: _Replica, req: _RouterRequest,
+                hedge: bool) -> _Dispatch:
+        d = _Dispatch(replica, hedge)
+        with self._lock:
+            self._inflight += 1
+            replica.in_flight += 1
+        if req.trace_id is not None:
+            # one record per dispatch attempt: replica id, attempt
+            # index, and its hedge/failover marking — the trace's
+            # "every attempt" contract
+            _telemetry.event("dispatch", self.name,
+                             replica=replica.index, attempt=req.attempt,
+                             hedge=hedge, failover=req.attempt > 1,
+                             label=req.label)
+
+        def run():
+            try:
+                # carry the request's ONE identity (and, below, its ONE
+                # deadline budget) onto this worker thread — the engine
+                # call's admission/shed/span records stamp the same
+                # trace_id the router minted
+                with _telemetry.trace_scope(trace_id=req.trace_id), \
+                        _cancel_scope(d.cancel):
+                    if req.until is not None:
+                        with _faults.deadline_scope(
+                                until=req.until, site="router.dispatch"):
+                            d.result = req.fn(replica.engine)
+                    else:
+                        d.result = req.fn(replica.engine)
+            except BaseException as e:
+                d.error = e
+            finally:
+                d.t_done = time.monotonic()
+                self._hb.beat(replica.key)     # heartbeat per dispatch
+                self._release(d)
+                d.done.set()
+                with req.cv:
+                    req.cv.notify_all()
+
+        self._stats.inc("dispatches")
+        t = threading.Thread(
+            target=run, daemon=True,
+            name=f"mxnet-router-{self.name}-r{replica.index}")
+        d.thread = t
+        t.start()
+        return d
+
+    def _release(self, d: _Dispatch) -> None:
+        with self._lock:
+            if not d.released:
+                d.released = True
+                self._inflight -= 1
+                d.replica.in_flight -= 1
+
+    def _abandon(self, d: _Dispatch, why: str) -> None:
+        """Stop waiting on a dispatch (wedge, hedge loss, deadline):
+        its cancel token is set (a local generative engine retires the
+        row at its next step boundary and frees its pages; a replay in
+        flight cannot be aborted), its thread finishes in the background,
+        it no longer counts toward drain() and its result is
+        discarded."""
+        if not d.abandoned:
+            d.abandoned = True
+            d.cancel.set()
+            self._release(d)
+
+    def _await_progress(self, req: _RouterRequest, flights: List[_Dispatch]):
+        """Block until a flight completes, the hedge threshold passes,
+        a flight wedges, or the deadline budget expires.  Returns the
+        completed/wedged :class:`_Dispatch`, ``"hedge"``, or
+        ``"deadline"``."""
+        while True:
+            now = time.monotonic()
+            for d in flights:
+                if d.done.is_set():
+                    return d
+            timers = []
+            if req.until is not None:
+                timers.append((req.until, "deadline"))
+            if not req.hedged:
+                thr = self._hedge_threshold()
+                if thr is not None:
+                    timers.append((flights[0].t_start + thr, "hedge"))
+            for d in flights:
+                # a replica beats per dispatch completion: while OTHER
+                # dispatches complete on it, this one is slow, not
+                # wedged — the wedge clock restarts at the newest beat
+                age = self._hb.age(d.replica.key)
+                idle = (now - d.t_start if age is None
+                        else min(age, now - d.t_start))
+                timers.append((now + self._wedge_s - idle, d))
+            t, what = min(timers, key=lambda x: x[0])
+            if t <= now:
+                return what
+            with req.cv:
+                for d in flights:
+                    if d.done.is_set():
+                        return d
+                req.cv.wait(timeout=min(t - now, 0.25))
+
+    # -- degraded modes -------------------------------------------------------
+    def _degraded(self, req: _RouterRequest, cause: BaseException):
+        """Every replica ejected: the last-resort eager path
+        (``MXNET_ROUTER_EAGER_FALLBACK``) or a typed ``unavailable``
+        shed — never a hang."""
+        if self._eager_fallback and req.eager_fn is not None:
+            self._stats.inc("eager_fallbacks")
+            _telemetry.event("fallback", self.name,
+                             reason="router eager fallback "
+                                    "(every replica unhealthy)",
+                             label=req.label)
+            _faults.record_event("router.dispatch", "eager_fallback",
+                                 cause, router=self.name)
+            return req.eager_fn()
+        self._shed("unavailable",
+                   f"every replica unhealthy for {req.label} "
+                   f"({cause!r})", cause=cause)
+
+
+class FleetSupervisor:
+    """The autoscaler: a supervisor loop that prices scale-up/down
+    from the SAME live telemetry the router balances on — mean queued
+    work per SERVING replica (engine ``load()``: queue depth +
+    in-flight occupancy), worst page-pool pressure, and the router's
+    request p99 — never static thresholds alone (arXiv:2008.01040).
+
+    - **Scale-up**: ``spawn()`` (caller-supplied: a co-hosted engine,
+      or a :class:`~mxnet_tpu_torch.serving_remote.RemoteReplica` over a
+      process the caller launched) joins via
+      :meth:`ReplicaRouter.add_replica` — warmed before it serves.
+    - **Scale-down**: exactly a scheduled graceful preemption.  The
+      youngest SERVING replica drains (:meth:`~ReplicaRouter.
+      drain_replica`: typed ``draining`` handback + clean audit), and
+      a process-backed replica is then told to ``preempt()`` — SIGTERM
+      → ``engine.waitall()`` → exit ``MXNET_PREEMPTION_EXIT_CODE``
+      (83); the preemption machinery IS the retirement path.
+    - **Stability**: min/max bounds, one scaling action per
+      ``cooldown_s`` (injectable ``clock`` so the state machine
+      unit-tests without waiting), and a decision loop that never
+      raises (errors land in ``router.fleet*.scale_errors`` + the
+      ``router.scale`` fault-site event stream).
+
+    ``start()`` is a no-op unless ``MXNET_ROUTER_AUTOSCALE`` (or the
+    ``enabled=True`` override) — the zero-overhead-off contract: a
+    disabled supervisor adds no thread, no timer, no dispatch."""
+
+    def __init__(self, router: ReplicaRouter, spawn: Callable[[], Any],
+                 *, retire: Optional[Callable[[Any, int], None]] = None,
+                 enabled: Optional[bool] = None,
+                 min_replicas: Optional[int] = None,
+                 max_replicas: Optional[int] = None,
+                 cooldown_s: Optional[float] = None,
+                 interval_s: Optional[float] = None,
+                 up_queue: Optional[float] = None,
+                 down_queue: Optional[float] = None,
+                 pool_high: Optional[float] = None,
+                 warmup_kwargs: Optional[Dict[str, Any]] = None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.router = router
+        self._spawn = spawn
+        self._retire = retire
+        self._enabled = bool(_config.get("MXNET_ROUTER_AUTOSCALE")
+                             if enabled is None else enabled)
+        self._min = int(_config.get("MXNET_ROUTER_MIN_REPLICAS")
+                        if min_replicas is None else min_replicas)
+        self._max = int(_config.get("MXNET_ROUTER_MAX_REPLICAS")
+                        if max_replicas is None else max_replicas)
+        if not (1 <= self._min <= self._max):
+            raise ValueError(
+                f"need 1 <= min_replicas ({self._min}) <= max_replicas "
+                f"({self._max})")
+        self._cooldown_s = float(
+            _config.get("MXNET_ROUTER_SCALE_COOLDOWN_S")
+            if cooldown_s is None else cooldown_s)
+        self._interval_s = float(
+            _config.get("MXNET_ROUTER_SCALE_INTERVAL_S")
+            if interval_s is None else interval_s)
+        self._up_queue = float(
+            _config.get("MXNET_ROUTER_SCALE_UP_QUEUE")
+            if up_queue is None else up_queue)
+        self._down_queue = float(
+            _config.get("MXNET_ROUTER_SCALE_DOWN_QUEUE")
+            if down_queue is None else down_queue)
+        self._pool_high = float(
+            _config.get("MXNET_ROUTER_SCALE_POOL_HIGH")
+            if pool_high is None else pool_high)
+        self._warmup_kwargs = warmup_kwargs
+        self._clock = clock
+        self._last_scale: Optional[float] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._mid_tick = False
+
+    @property
+    def enabled(self) -> bool:
+        return self._enabled
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> "FleetSupervisor":
+        """Spawn the supervisor thread (no-op when autoscaling is off
+        or it is already running)."""
+        if not self._enabled or self._thread is not None:
+            return self
+        from . import engine as _engine
+
+        _engine.register_drainable(self)
+        t = threading.Thread(
+            target=self._loop, daemon=True,
+            name=f"mxnet-fleet-supervisor-{self.router.name}")
+        self._thread = t
+        t.start()
+        return self
+
+    def drain(self, timeout: float = 60.0) -> None:
+        """engine.waitall() hook: wait out any in-progress scaling
+        action (a half-joined replica must finish warming or
+        tombstone).  A PROCESS preemption additionally parks the loop
+        for good — ``_loop`` checks ``preemption.draining()`` — but a
+        routine ``waitall`` leaves the supervisor running."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if not self._mid_tick:
+                return
+            time.sleep(0.002)
+
+    def stop(self, timeout: float = 5.0) -> None:
+        self._stop.set()
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=timeout)
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self._interval_s):
+            if _preemption.draining():
+                return                   # the process is leaving
+            self._mid_tick = True
+            try:
+                self.tick()
+            except BaseException as e:   # the loop never dies
+                self.router._fleet.inc("scale_errors")
+                _faults.record_event("router.scale", "tick_error", e,
+                                     router=self.router.name)
+            finally:
+                self._mid_tick = False
+
+    # -- the decision -------------------------------------------------------
+    def signals(self) -> Dict[str, float]:
+        """The measured inputs one decision prices: mean queued work
+        per SERVING replica, worst page-pool pressure, fleet p99."""
+        reps = [r for r in list(self.router._replicas)
+                if r.state == REPLICA_SERVING]
+        queue = pool = 0.0
+        for r in reps:
+            try:
+                load = (r.engine.load()
+                        if hasattr(r.engine, "load") else {})
+            except BaseException:
+                continue                   # a dead replica prices as 0
+            queue += (float(load.get("queue_depth", 0.0))
+                      + float(load.get("in_flight", 0.0)))
+            pool = max(pool, float(load.get("pool_pressure", 0.0)))
+        lat = sorted(self.router._lat_request)
+        p99 = (lat[min(len(lat) - 1, int(len(lat) * 0.99))]
+               if lat else 0.0)
+        return {"serving": float(len(reps)),
+                "queue_per_replica": queue / max(len(reps), 1),
+                "pool_pressure": pool,
+                "p99_s": p99}
+
+    def decide(self, sig: Optional[Dict[str, float]] = None
+               ) -> Optional[str]:
+        """``"up"``, ``"down"``, or ``None`` — pure pricing, no
+        execution, no cooldown (tick applies those): up when the fleet
+        is saturated (queued work per replica past the knob, or KV
+        pool pressure critical) and under max; down when it is idle
+        and over min."""
+        sig = self.signals() if sig is None else sig
+        n = int(sig["serving"])
+        if n < self._min:
+            return "up"
+        if (sig["queue_per_replica"] >= self._up_queue
+                or sig["pool_pressure"] >= self._pool_high):
+            return "up" if n < self._max else None
+        if sig["queue_per_replica"] <= self._down_queue \
+                and sig["pool_pressure"] < self._pool_high / 2 \
+                and n > self._min:
+            return "down"
+        return None
+
+    def tick(self) -> Optional[str]:
+        """One supervisor step: read the signals, apply cooldown +
+        bounds, execute at most one scaling action.  Returns the
+        action taken (``"up"``/``"down"``) or ``None``.  Callable
+        directly (tests, drills) — the loop thread only calls this."""
+        self.router._fleet.inc("ticks")
+        sig = self.signals()
+        action = self.decide(sig)
+        if action is None:
+            return None
+        now = self._clock()
+        if self._last_scale is not None and \
+                now - self._last_scale < self._cooldown_s \
+                and int(sig["serving"]) >= self._min:
+            return None                  # cooling down (min is urgent)
+        if action == "up":
+            self._scale_up(sig)
+        else:
+            self._scale_down(sig)
+        self._last_scale = self._clock()
+        return action
+
+    def _scale_up(self, sig: Dict[str, float]) -> None:
+        t0 = time.monotonic()
+        engine = self._spawn()
+        index = self.router.add_replica(
+            engine, warmup_kwargs=self._warmup_kwargs)
+        self.router._fleet.inc("scale_ups")
+        _telemetry.event("scale_up", self.router.name, replica=index,
+                         join_s=round(time.monotonic() - t0, 3),
+                         **{k: round(v, 4) for k, v in sig.items()})
+
+    def _scale_down(self, sig: Dict[str, float]) -> None:
+        # retire the YOUNGEST serving replica: replica 0 (the founding
+        # member, often the local engine) is the last to go
+        victims = [r for r in list(self.router._replicas)
+                   if r.state == REPLICA_SERVING]
+        if len(victims) <= self._min:
+            return
+        victim = victims[-1]
+        clean = self.router.drain_replica(victim.index)
+        if self._retire is not None:
+            self._retire(victim.engine, victim.index)
+        elif hasattr(victim.engine, "preempt"):
+            # a process-backed replica exits through the preemption drain:
+            # SIGTERM → typed draining sheds → waitall → exit 83
+            try:
+                victim.engine.preempt()
+            except BaseException as e:
+                _faults.record_event("router.scale", "preempt_failed",
+                                     e, router=self.router.name,
+                                     replica=victim.index)
+        self.router._fleet.inc("scale_downs")
+        _telemetry.event("scale_down", self.router.name,
+                         replica=victim.index, clean=clean,
+                         **{k: round(v, 4) for k, v in sig.items()})

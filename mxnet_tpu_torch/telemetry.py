@@ -57,7 +57,7 @@ __all__ = [
     "clear_spans", "KINDS", "tracing_enabled", "new_trace_id",
     "trace_scope", "current_trace", "current_span_id", "trace",
     "flight_recorder_path", "flush", "merge", "merge_chrome_trace",
-    "report", "main",
+    "report", "main", "ROUTER_COUNTERS", "FLEET_COUNTERS", "FLEET_GAUGES",
 ]
 
 # one lock guards registry structure and every counter value: increments
@@ -65,6 +65,20 @@ __all__ = [
 _LOCK = threading.RLock()
 
 KINDS = ("cumulative", "gauge", "time")
+
+# the replica router's counter groups (serving_router.py): family
+# ``serving.router`` (``serving.router<k>.<name>``, one group a router) and
+# family ``router.fleet`` (the elastic fleet's lifecycle, with the
+# computed gauge ``router.fleet<k>.serving_replicas``)
+ROUTER_COUNTERS = (
+    "requests", "delivered", "dispatches", "failovers", "hedges",
+    "hedge_wins", "hedge_cancelled", "sheds", "shed_unavailable",
+    "shed_deadline", "shed_draining", "breaker_opens", "breaker_half_opens",
+    "breaker_closes", "probes", "probe_failures", "wedged",
+    "eager_fallbacks")
+FLEET_COUNTERS = ("joins", "drains", "gone", "warm_programs", "scale_ups",
+                  "scale_downs", "ticks", "scale_errors")
+FLEET_GAUGES = ("serving_replicas",)
 
 
 class Counter:

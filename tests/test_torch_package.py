@@ -113,6 +113,12 @@ def test_scan_finds_every_port_module():
             "mxnet_tpu_torch/serving_decode.py",
             "mxnet_tpu_torch/convert.py",
             "tools/torch_serving_latency.py",
+            "mxnet_tpu_torch/serving_router.py",
+            "mxnet_tpu_torch/serving_remote.py",
+            "mxnet_tpu_torch/drills.py",
+            "tools/torch_check_availability_budget.py",
+            "tools/torch_check_recovery_budget.py",
+            "tools/torch_check_dispatch_budget.py",
             "chip_smoke.py"} <= names
 
 
@@ -393,3 +399,26 @@ def test_gluon_entry_points_raise_without_cuda(no_cuda):
         gluon.Trainer(dense.collect_params(), "sgd")
     dense.initialize(ctx=cpu())
     gluon.Trainer(dense.collect_params(), "sgd")
+
+
+def test_fleet_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """The drills, their children and the fleet gates run on ``cuda``
+    unless given the CPU."""
+    from mxnet_tpu_torch import drills
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drills.run_drill("sigterm_drain", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drills.main(["decode", "--dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        drills.main(["router", "--dir", str(tmp_path)])
+    sys.path.insert(0, str(ROOT))
+    import tools.torch_check_dispatch_budget as cdb
+
+    assert cdb.main([]) == 1
+    for tool in ("torch_check_availability_budget",
+                 "torch_check_recovery_budget"):
+        mod = importlib.import_module(f"tools.{tool}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(["sigterm_drain" if "recovery" in tool
+                      else "router_kill", "--root", str(tmp_path)])

@@ -380,6 +380,32 @@ def test_spec_low_agreement_auto_disables_stream_stays_exact(spec_on,
     assert eng.pool_in_use() == 0 and eng.pool_audit() == []
 
 
+@pytest.mark.parametrize("program", ["draft_round", "verify"])
+def test_spec_failing_dispatch_disables_and_decodes_plainly(spec_on, engines,
+                                                            program):
+    """A speculative program that raises (a poisoned draft, a failing
+    verify) turns speculation off for good, as the reference's spec round
+    does, and the step decodes plainly: the greedy stream stays token-exact
+    against the eager loop, no request fails and no page leaks."""
+    target, tp, draft, dp = _pair()
+    eng = engines(target, tp, draft, dp, spec_k=4)
+    before = sd._SPEC_STATS["autodisabled"]
+
+    def poisoned(*args, **kw):
+        raise RuntimeError(f"{program} poisoned")
+
+    for form in sd.FORMS:
+        eng._spec_programs.insert((program, 4, form), poisoned)
+    out = eng.generate([5, 1, 3], max_new_tokens=12)
+    assert out == sd.eager_generate(target, tp, [5, 1, 3], 12)
+    st = eng.stats()
+    assert st["spec_disabled"] is True and st["spec_rounds"] == 0
+    assert sd._SPEC_STATS["autodisabled"] == before + 1
+    assert eng.generate([6, 3], max_new_tokens=5) == sd.eager_generate(
+        target, tp, [6, 3], 5)
+    assert eng.pool_in_use() == 0 and eng.pool_audit() == []
+
+
 def test_spec_requires_decode_chunk_and_matching_vocab():
     target, tp, draft, dp = _pair()
     pool = sd.PagePool(pages=8, page=4)
@@ -483,8 +509,10 @@ def test_spec_preemption_releases_draft_pages(spec_on, engines):
 
 
 def test_spec_dispatch_error_reaches_the_requests(spec_on, engines):
-    """A draft round that fails raises to the round's requests (no quiet
-    fall back to plain decode); the engine's pages all return."""
+    """A draft round whose capture fails reaches the round's requests only
+    as a plain decode step: speculation is turned off for good, as the
+    reference's spec round does, the stream stays token-exact and the
+    engine's pages all return."""
     target, tp, draft, dp = _pair()
     eng = engines(target, tp, draft, dp, warm=0, spec_k=2)
 
@@ -494,9 +522,11 @@ def test_spec_dispatch_error_reaches_the_requests(spec_on, engines):
         return fn
 
     eng._draft_round_fn = broken
-    with pytest.raises(RuntimeError, match="draft round failed"):
-        eng.generate([1, 2, 3], max_new_tokens=6)
-    assert not eng.stats()["spec_disabled"]
+    before = sd._SPEC_STATS["autodisabled"]
+    out = eng.generate([1, 2, 3], max_new_tokens=6)
+    assert out == sd.eager_generate(target, tp, [1, 2, 3], 6)
+    assert eng.stats()["spec_disabled"]
+    assert sd._SPEC_STATS["autodisabled"] == before + 1
     assert eng.pool_in_use() == 0 and eng.pool_audit() == []
 
 

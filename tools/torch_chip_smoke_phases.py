@@ -2,16 +2,18 @@
 """Phases 11 (serving), 12 (speculative decoding), 13 (the
 mixture-of-experts LM), 14 (the mesh of one), 15 (the LM on a mesh), 16
 (the runtime around the step: prefetch, device metrics, the sentinel, the
-preemption drill) and 17 (mixed precision: the fp16 conv + batch-norm
-kernels, the AMP steps with the loss scaler and the deferred gate) of
+preemption drill), 17 (mixed precision: the fp16 conv + batch-norm
+kernels, the AMP steps with the loss scaler and the deferred gate) and 18
+(the serving fleet: the router at full width, the availability and
+recovery drill matrices, the dispatch budget's router and spec lanes) of
 ``chip_smoke.py`` alone, on one card: a quicker look at those paths than
 the whole script.
 
     python3 tools/torch_chip_smoke_phases.py [11] [12] [13] [14] [15] [16]
-        [17]
+        [17] [18]
 
 A phase may be named more than once (``12 12 12`` runs phase 12 three
-times in one process). With no argument it runs 12 to 17. It
+times in one process). With no argument it runs 12 to 18. It
 builds the port's kernels first (phase 1 of the script: phases 13 and 15
 run the flash-attention kernels, phase 14 the conv + batch-norm and
 epilogue kernels, phase 16 the conv + batch-norm kernels, phase 17 both
@@ -78,6 +80,12 @@ def main(which) -> int:
             out = c.runtime_phase(mx, ck, config, card_line, counts, traced)
             print(f"phase 16 launch counts of the pipelined, synchronous and "
                   f"sentinel runs {counts}, traced in the replay {traced}")
+        elif phase == "18":
+            ck.reset_launch_counts()
+            out = c.fleet_phase(sd, card_line)
+            torch.cuda.synchronize()
+            print(f"phase 18 launch counts of this process's fleet runs "
+                  f"{ck.launch_counts()}")
         elif phase == "17":
             counts, traced = {}, {}
             out = c.amp_phase(mx, ck, config, card_line, counts, traced)
@@ -96,4 +104,4 @@ def main(which) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15", "16", "17"]))
+    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15", "16", "17", "18"]))

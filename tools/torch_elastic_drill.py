@@ -6,8 +6,9 @@ processes: the elastic drill of the PyTorch/CUDA port.
         [--net resnet50|narrow] [--steps 12] [--save-every 4]
         [--kill-at 7] [--dir DIR] [--twice]
 
-Three children run one after another, each a fresh ``python3`` of this
-file (``--child ...``), over one checkpoint directory:
+Three children run, each a fresh ``python3`` of this file (``--child
+...``), over one checkpoint directory: the first two side by side, the
+third after them:
 
 1. ``plain``: ``--steps`` steps of ``Trainer.compile_step`` without
    interruption (with ``--twice`` a second one, to measure whether two
@@ -37,6 +38,7 @@ flight-recorder shards (``elastic.recovery_s``, ``preemption.drain_s``).
 It prints one JSON line and exits 1 if a gate fails.
 """
 import argparse
+import concurrent.futures
 import hashlib
 import json
 import os
@@ -234,9 +236,14 @@ def drill(args, kernels=("matmul_bn_stats", "convkxk_bn_stats"),
 
     os.makedirs(args.dir, exist_ok=True)
     code = preemption.exit_code()
-    names = ["plain"] + (["plain2"] if args.twice else []) + \
-        ["preempt", "restart"]
-    recs = {n: _run_child(args, n, timeout) for n in names}
+    # the uninterrupted children run beside the preempted one (they share
+    # no file but the telemetry directory, where each writes its own
+    # shard); the restart runs alone, so that its recovery wall is its own
+    first = ["plain"] + (["plain2"] if args.twice else []) + ["preempt"]
+    with concurrent.futures.ThreadPoolExecutor(len(first)) as ex:
+        futs = {n: ex.submit(_run_child, args, n, timeout) for n in first}
+        recs = {n: f.result() for n, f in futs.items()}
+    recs["restart"] = _run_child(args, "restart", timeout)
     fails = []
     plain, pre, rst = recs["plain"], recs["preempt"], recs["restart"]
     if plain["returncode"] != 0 or rst["returncode"] != 0:

@@ -4,7 +4,8 @@
 (``serving_decode.GenerativeEngine``).
 
     python3 tools/torch_serving_latency.py [--serve] [--decode] [--storm]
-        [--shared-prefix] [--speculative] [--device cuda|cpu] [--json]
+        [--shared-prefix] [--speculative] [--router] [--device cuda|cpu]
+        [--json]
 
 The port of ``benchmark/serving_latency.py``'s workers, run in this
 process (the functions are also what ``chip_smoke.py`` phase 11 calls):
@@ -47,9 +48,17 @@ warm-up for decode, programs <= buckets and 0 captures after warm-up for
 the one-shot lane, interference ratio <= 2, prefix hit rate >= 0.9, and
 for the speculative lane the reference's: speedup >= 1.5 at acceptance >=
 0.7, every pass token-exact against the eager loop, the low-agreement
-draft auto-disabled and within 5% of the baseline's tokens/s. The router,
-remote and elastic legs of the reference's workers (their speculative legs
-too) wait for their modules (ROADMAP A8). Every timed number is measured
+draft auto-disabled and within 5% of the baseline's tokens/s.
+- :func:`run_router_storm` and :func:`run_elastic_storm` (``--router``, the
+  reference's router and elastic storms, ``benchmark/serving_latency.py``
+  :326-470), each also with a speculative leg (a high-agreement pair at the
+  fast model's widths behind every replica, ``MXNET_SPEC_DECODE=1``):
+  dropped, hedged, failed over, breaker transitions, p50/p99 and tokens/s
+  of a 2-replica router whose replica 0 is killed mid-storm; and the
+  replica-count timeline, scale events and fleet tokens/s of a
+  ``FleetSupervisor`` growing and shrinking an in-process fleet. Their bar:
+  0 dropped, every delivery token-exact against the eager loop, 0 pages
+  left in use. Every timed number is measured
 on this process's device; on the card, print it beside
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
 """
@@ -427,6 +436,237 @@ def run_storm(device="cuda", **kw) -> dict:
             "pool_audit": storm["pool_audit"]}
 
 
+# ---------------------------------------------------------------------------
+# the fleet: router storm and elastic storm (benchmark/serving_latency.py
+# :326-470), each with its speculative leg
+# ---------------------------------------------------------------------------
+FLEET_NEW = 8                    # the reference's DECODE_NEW_TOKENS
+
+
+def _fleet_model(spec: bool, device):
+    """(model, params, engine kwargs): the lane's fast model, or for the
+    speculative leg a high-agreement pair at the fast model's widths (the
+    draft engaged under MXNET_SPEC_DECODE=1)."""
+    if not spec:
+        m = fast_model()
+        return m, m.init_params(0, device=device), {}
+    target, tp, draft, dp = sd.high_agreement_pair(
+        vocab=128, d_model=64, target_layers=4, draft_layers=1, n_heads=4,
+        max_seq=64, device=device)
+    return target, tp, dict(draft=draft, draft_params=dp, spec_k=4)
+
+
+def _fleet_fire(front, prompts, threads, rate, seed, deadline_us, out):
+    """Poisson arrivals of ``prompts`` from ``threads`` clients through
+    ``front``; fills ``out`` with delivered / shed / errors / outputs."""
+    rng = np.random.RandomState(seed)
+    gaps = rng.exponential(1.0 / rate, size=len(prompts))
+    lock = threading.Lock()
+    out.update(delivered=0, shed=0, errors=[], outs=[None] * len(prompts))
+
+    def fire(idx):
+        def go():
+            for i in idx:
+                time.sleep(gaps[i])
+                try:
+                    toks = front.generate(prompts[i],
+                                          max_new_tokens=FLEET_NEW,
+                                          deadline_us=deadline_us)
+                    with lock:
+                        out["delivered"] += 1
+                        out["outs"][i] = toks
+                except sd.ShedError:
+                    with lock:
+                        out["shed"] += 1
+                except BaseException as e:
+                    out["errors"].append(repr(e))
+        return go
+
+    return [threading.Thread(target=fire(list(range(k, len(prompts),
+                                                    threads))))
+            for k in range(threads)]
+
+
+def _exact(model, params, prompts, outs) -> bool:
+    """Every delivered stream equals the eager loop's (checked once per
+    distinct prompt)."""
+    seen = {}
+    for p, o in zip(prompts, outs):
+        if o is None:
+            continue
+        key = str(p)
+        if key not in seen:
+            seen[key] = sd.eager_generate(model, params, p, FLEET_NEW)
+        if o != seen[key]:
+            return False
+    return True
+
+
+def run_router_storm(device="cuda", spec: bool = False,
+                     requests: int = 48) -> dict:
+    """The router storm (reference :326-381): 2 replicas behind a
+    ReplicaRouter (breaker 2 errors, cooldown 0.5 s, hedging at p95),
+    Poisson arrivals at 40/s from 8 clients, replica 0's program dispatch
+    made to raise 0.3 s into the storm. The availability columns: dropped
+    (must be 0), hedged, failed over, breaker transitions, p50/p99,
+    tokens/s; and every delivery token-exact against the eager loop."""
+    from mxnet_tpu_torch.serving_router import ReplicaRouter
+
+    prev = os.environ.get("MXNET_SPEC_DECODE")
+    os.environ["MXNET_SPEC_DECODE"] = "1" if spec else "0"
+    try:
+        model, params, kw = _fleet_model(spec, device)
+        engines = [sd.GenerativeEngine(model, params=params,
+                                       pool=sd.PagePool(pages=256, page=8),
+                                       max_rows=8, name=f"rr{i}",
+                                       device=device, **kw)
+                   for i in range(2)]
+        for e in engines:
+            e.warmup(max_len=16)
+        c0 = sd.trace_count() + sd.spec_trace_count()
+        router = ReplicaRouter(engines, name="bench", breaker_errs=2,
+                               breaker_cooldown_s=0.5, hedge_pctl=95)
+        prompts = mk_prompts(np.random.RandomState(7), requests)
+        res = {}
+        threads = _fleet_fire(router, prompts, 8, 40.0, 8, 20_000_000, res)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        time.sleep(0.3)                  # the storm is rolling: kill 0
+
+        def boom(*a, **k):
+            raise RuntimeError("bench replica kill")
+
+        engines[0]._call = boom
+        engines[0]._spec_call = boom
+        for t in threads:
+            t.join(timeout=JOIN_S)
+        wall = time.perf_counter() - t0
+        st = router.stats()
+        from mxnet_tpu_torch import engine as _engine
+        _engine.waitall()
+        out = {
+            "spec": spec, "requests": len(prompts),
+            "delivered": res["delivered"],
+            "dropped": len(prompts) - res["delivered"] - res["shed"],
+            "shed": res["shed"], "errors": res["errors"],
+            "hedged": st["hedges"], "hedge_cancelled": st["hedge_cancelled"],
+            "failed_over": st["failovers"],
+            "breaker_transitions": (st["breaker_opens"]
+                                    + st["breaker_half_opens"]
+                                    + st["breaker_closes"]),
+            "p50_us": st["p50_us"], "p99_us": st["p99_us"],
+            "tokens_s": res["delivered"] * FLEET_NEW / wall,
+            "wall_s": wall,
+            "captures_after_warm": (sd.trace_count() + sd.spec_trace_count()
+                                    - c0),
+            "pool_in_use_after": [e.pool_in_use() for e in engines],
+            "token_exact": _exact(model, params, prompts, res["outs"]),
+        }
+        if spec:
+            out["spec_rounds"] = sum(e.stats()["spec_rounds"]
+                                     for e in engines)
+        router.close()
+        for e in engines:
+            e.close()
+        return out
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_SPEC_DECODE", None)
+        else:
+            os.environ["MXNET_SPEC_DECODE"] = prev
+
+
+def run_elastic_storm(device="cuda", spec: bool = False,
+                      requests: int = 288) -> dict:
+    """The elastic storm (reference :383-470): 1 replica and a
+    FleetSupervisor (1..3 replicas, cooldown 0.4 s, ticks every 50 ms, up
+    at 1.0 queued a replica, down at 0.1) under Poisson arrivals at 60/s
+    from 12 clients; an in-process joiner pays its warm-up captures. The
+    columns: the replica-count timeline, scale events, fleet tokens/s,
+    dropped (must be 0), and every delivery token-exact."""
+    from mxnet_tpu_torch.serving_router import (FleetSupervisor,
+                                                ReplicaRouter)
+
+    prev = os.environ.get("MXNET_SPEC_DECODE")
+    os.environ["MXNET_SPEC_DECODE"] = "1" if spec else "0"
+    try:
+        model, params, kw = _fleet_model(spec, device)
+        made = []
+
+        def spawn():
+            e = sd.GenerativeEngine(model, params=params,
+                                    pool=sd.PagePool(pages=256, page=8),
+                                    max_rows=8, name="elastic",
+                                    device=device, **kw)
+            made.append(e)
+            return e
+
+        first = spawn()
+        first.warmup(max_len=16)
+        router = ReplicaRouter([first], name="elastic", breaker_errs=2,
+                               breaker_cooldown_s=0.5, hedge_pctl=95)
+        sup = FleetSupervisor(router, spawn,
+                              retire=lambda e, i: None, enabled=True,
+                              min_replicas=1, max_replicas=3,
+                              cooldown_s=0.4, interval_s=0.05, up_queue=1.0,
+                              down_queue=0.1, warmup_kwargs={"max_len": 16})
+        sup.start()
+        prompts = mk_prompts(np.random.RandomState(9), requests)
+        res = {}
+        threads = _fleet_fire(router, prompts, 12, 60.0, 10, 30_000_000,
+                              res)
+        timeline = []
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        while any(t.is_alive() for t in threads):
+            timeline.append([round(time.perf_counter() - t0, 2),
+                             router.serving_replicas()])
+            time.sleep(0.05)
+        for t in threads:
+            t.join(timeout=JOIN_S)
+        wall = time.perf_counter() - t0
+        # the burst subsided: the supervisor shrinks back to the floor
+        t_min, t_max = time.perf_counter() + 3.0, time.perf_counter() + 20.0
+        while time.perf_counter() < t_max and (
+                time.perf_counter() < t_min
+                or router.serving_replicas() > 1):
+            timeline.append([round(time.perf_counter() - t0, 2),
+                             router.serving_replicas()])
+            time.sleep(0.05)
+        sup.stop()
+        fleet = router.fleet_stats()
+        from mxnet_tpu_torch import engine as _engine
+        _engine.waitall()
+        out = {
+            "spec": spec, "requests": len(prompts),
+            "delivered": res["delivered"],
+            "dropped": len(prompts) - res["delivered"] - res["shed"],
+            "shed": res["shed"], "errors": res["errors"],
+            "scale_ups": fleet["scale_ups"],
+            "scale_downs": fleet["scale_downs"], "joins": fleet["joins"],
+            "drains": fleet["drains"], "scale_errors": fleet["scale_errors"],
+            "warm_programs": fleet["warm_programs"],
+            "peak_replicas": max((n for _, n in timeline), default=1),
+            "final_replicas": router.serving_replicas(),
+            "replica_timeline": timeline[:400],
+            "fleet_tokens_s": res["delivered"] * FLEET_NEW / wall,
+            "wall_s": wall,
+            "pool_in_use_after": [e.pool_in_use() for e in made],
+            "token_exact": _exact(model, params, prompts, res["outs"]),
+        }
+        router.close()
+        for e in made:
+            e.close()
+        return out
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_SPEC_DECODE", None)
+        else:
+            os.environ["MXNET_SPEC_DECODE"] = prev
+
+
 def run_shared_prefix(users: int = 16, new_tokens: int = 8, device="cuda"
                       ) -> dict:
     """USERS copies of one 32-token system prompt (4 full page-8 blocks),
@@ -595,9 +835,21 @@ def run_speculative(requests: int = 12, new_tokens: int = 24, k: int = 4,
 
 
 def check_bars(decode=None, serve=None, storm=None, prefix=None,
-               spec=None) -> list:
+               spec=None, fleet=None) -> list:
     """The lanes' bars the results miss (empty when all hold)."""
     bad = []
+    for leg in (fleet or {}).values():
+        name = ("router" if "hedged" in leg else "elastic") + \
+            (" spec" if leg["spec"] else "")
+        if leg["dropped"] or leg["errors"]:
+            bad.append(f"{name} storm dropped {leg['dropped']} request(s), "
+                       f"errors {leg['errors'][:2]}")
+        if not leg["token_exact"]:
+            bad.append(f"{name} storm delivered a stream that is not the "
+                       "eager loop's")
+        if any(leg["pool_in_use_after"]):
+            bad.append(f"{name} storm left pages in use "
+                       f"{leg['pool_in_use_after']}")
     if spec is not None:
         if not spec["token_exact"]:
             bad.append("speculative lane not token-exact against the "
@@ -653,14 +905,17 @@ def main() -> int:
     ap.add_argument("--storm", action="store_true")
     ap.add_argument("--shared-prefix", action="store_true")
     ap.add_argument("--speculative", action="store_true")
+    ap.add_argument("--router", action="store_true",
+                    help="the router storm and the elastic storm, each "
+                         "plain and speculative")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=None)
     ap.add_argument("--json", action="store_true")
     args = ap.parse_args()
     if not (args.serve or args.decode or args.storm or args.shared_prefix
-            or args.speculative):
+            or args.speculative or args.router):
         args.serve = args.decode = args.storm = args.shared_prefix = True
-        args.speculative = True
+        args.speculative = args.router = True
     out = {}
     if args.serve:
         out["serving"] = run_serving(requests=args.requests or 64,
@@ -676,10 +931,18 @@ def main() -> int:
     if args.speculative:
         out["speculative"] = run_speculative(requests=args.requests or 12,
                                              device=args.device)
+    if args.router:
+        out["fleet"] = {
+            "router_storm": run_router_storm(args.device),
+            "router_storm_spec": run_router_storm(args.device, spec=True),
+            "elastic_storm": run_elastic_storm(args.device),
+            "elastic_storm_spec": run_elastic_storm(args.device,
+                                                    spec=True)}
     out["bars_missed"] = check_bars(out.get("decode"), out.get("serving"),
                                     out.get("storm"),
                                     out.get("shared_prefix"),
-                                    out.get("speculative"))
+                                    out.get("speculative"),
+                                    out.get("fleet"))
     if torch.device(args.device).type == "cuda":
         import subprocess
 
