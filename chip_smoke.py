@@ -121,12 +121,12 @@ Phases, in order; any failure exits non-zero before the result line:
    their spread (the rule used is printed); 1 capture, 1 dispatch a step
    or call and none after warm-up; launches and fused sites per step as
    eager's; no fallback on a timed step; each call's output its own. Then
-   eager against captured wall (10 host-clock calls, unprofiled), device
-   busy and idle share (of the captured paths: the eager ones are not
-   profiled, and print "not measured"), event span, the host's ms a call
-   and peak memory of each path, and a JSON line of them. The captured
-   wall must be below the eager wall for the LM forward at (4, 128) and
-   the LM train step.
+   eager against captured wall (CAPTURE_TIMED host-clock calls,
+   unprofiled), device busy and idle share (of the captured paths: the
+   eager ones are not profiled, and print "not measured"), event span,
+   the host's ms a call and peak memory of each path, and a JSON line of
+   them. The captured wall must be below the eager wall for the LM
+   forward at (4, 128) and the LM train step.
    Phases 6-7b drive the eager classic loop (MXNET_COMPILED_STEP=0: a
    hybridized block's recorded forward runs eagerly); 8g graphs it.
 8d. ``bench.py``'s ResNet lane through ``parallel.ShardedTrainer``
@@ -382,9 +382,24 @@ Phases, in order; any failure exits non-zero before the result line:
    ``decode_drain``, ``sigterm_drain``, ``sigkill_between_saves``,
    ``corrupt_latest`` and ``loss_spike`` held to
    ``tools/torch_check_recovery_budget.py``'s (a world of one on the card);
-   (b) and (c) run FLEET_WORKERS scenarios at a time. (d)
-   ``tools/torch_check_dispatch_budget.py``'s router and spec lanes on the
-   card. A JSON line holds phase 18's numbers.
+   (b) and (c) run FLEET_WORKERS scenarios at a time. A JSON line holds
+   phase 18's numbers.
+19. The CI gates on the card, one line a lane, any broken budget failing
+   the run: every lane of ``tools/torch_check_dispatch_budget.py``
+   (compiled, AMP, sentinel, one-shot serving, decode, the mesh, fsdp, pp
+   and MoE lanes as meshes of one with their placement checks skipped,
+   router, spec; the eager tape printed; 0 evictions), the telemetry
+   gate's deterministic snapshot and chrome trace
+   (``tools/torch_check_telemetry.py``), and
+   ``tools/torch_check_fusion_budget.py`` at ResNet-50 v1's full width:
+   every fusible site routed on each route with the fused fp32 loss
+   within FIRST_LOSS_RTOL of the unfused, then a captured bf16 step at
+   batch 4, 224², on each route whose traced replay launches
+   B5 and B6 36 times each (epilogue), B4 36 and B8 16 times (conv + BN)
+   and none of them (unfused); the int8 route's refusal. The path's
+   launches are the fusion lanes' forwards and first calls, name
+   ``gates``. A JSON line holds phase 19's numbers, and the script's wall
+   is printed before the kernels' line.
 10. The kernels' JSON line, then the result line.
 
 Exits non-zero without a result when no CUDA device is available, and when
@@ -691,7 +706,10 @@ Z_ULP = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10,
 # CAPTURE_LR_STEP steps: the next steps must take it with no new capture,
 # as the eager runs that take it too show
 CAPTURE_LR_STEP, CAPTURE_LR2 = 3, RESNET_LR / 2
-CAPTURE_TIMED = 10       # host-clock samples of each path, eager and captured
+# host-clock samples of each path, eager and captured, and as many CUDA-event
+# spans and idle-device host times: 5 since phase 19 needed the room (10
+# before, the largest of the cuts that made it)
+CAPTURE_TIMED = 5
 # the routes of the ResNet step under capture (see capture_route)
 CAPTURE_ROUTES = ("unfused", "epilogue", "conv_bn")
 # compile_step(accum_steps=2): windows of 2 x RESNET_BATCH / 2 (the first
@@ -6177,13 +6195,13 @@ def mesh_lm_phase(models, cs, ck, config, card_line, counts,
 
 
 # -- 16. the runtime around the step ------------------------------------------
-RUNTIME_STEPS = 30         # steps of each loop of 16a
+RUNTIME_STEPS = 20         # steps of each loop of 16a (30 before phase 19)
 RUNTIME_DEPTH = 2          # engine.prefetch depth
 RUNTIME_BATCHES = 4        # distinct numpy batches, cycled
 RUNTIME_LOSS_RTOL = 1e-6   # loss metric, device against host accumulation
 SENTINEL_EVERY, SENTINEL_STEPS = 4, 12
 SENTINEL_RTOL = 1e-5       # parameter sum and gradient norm against the host
-SENTINEL_OVERHEAD_EVERY, SENTINEL_OVERHEAD_STEPS = 20, 60
+SENTINEL_OVERHEAD_EVERY, SENTINEL_OVERHEAD_STEPS = 20, 40   # 60 before 19
 DRILL = {"steps": 12, "save_every": 4, "kill_at": 7}
 
 
@@ -6246,7 +6264,7 @@ def counters(mx, engine, metric):
     """The blocking host reads and synchronizations the port counts."""
     from mxnet_tpu_torch.ndarray import ndarray as ndmod
     return {"metric.host_sync": metric.host_sync_count(),
-            "engine.host_sync": engine.sync_count(),
+            "engine.sync": engine.sync_count(),
             "ndarray.host_sync": ndmod.host_sync_count()}
 
 
@@ -7191,13 +7209,12 @@ FLEET_HEDGE_PCTL = 95
 
 
 def port_fleet():
-    """(serving_router, drills, the three fleet gates) beside this file."""
+    """(serving_router, drills, the two fleet gates) beside this file."""
     from mxnet_tpu_torch import drills, serving_router
     from tools import (torch_check_availability_budget,
-                       torch_check_dispatch_budget,
                        torch_check_recovery_budget)
     return (serving_router, drills, torch_check_availability_budget,
-            torch_check_recovery_budget, torch_check_dispatch_budget)
+            torch_check_recovery_budget)
 
 
 def pctl(vals, q):
@@ -7411,26 +7428,88 @@ def fleet_drills_phase(drills, avail, recov, card_line) -> dict:
 def fleet_phase(sd, card_line) -> dict:
     """Phase 18 (see the module docstring)."""
     t0 = time.perf_counter()
-    sr, drills, avail, recov, disp = port_fleet()
+    sr, drills, avail, recov = port_fleet()
     out = {"router": router_phase(sd, sr, card_line)}
     torch.cuda.empty_cache()
     out["drills"] = fleet_drills_phase(drills, avail, recov, card_line)
-    t1 = time.perf_counter()
-    router, spec = disp.measure_router("cuda"), disp.measure_spec("cuda")
-    failures = disp.gate(router, spec)
-    if failures:
-        fail(f"18d: {failures}")
-    out["dispatch"] = {"router": router, "spec": spec}
-    print(f"18d: router lane {router['bare_dispatches']} dispatches bare "
-          f"and routed, +{router['extra_retraces']} captures, "
-          f"+{router['extra_host_syncs']} host syncs; spec lane "
-          f"{spec['programs']} programs (grid {spec['warmup_programs']}), "
-          f"{spec['retraces_after_warm']} captures after warm-up, "
-          f"acceptance {spec['acceptance']:.3f}, "
-          f"{spec['target_dispatches_per_token']:.3f} target dispatches a "
-          f"token; {time.perf_counter() - t1:.1f} s  ok [{card_line}]")
     out["phase_s"] = time.perf_counter() - t0
     print(f"phase 18 took {out['phase_s']:.1f} s")
+    return out
+
+
+_T0 = [time.perf_counter()]
+
+
+def stamp(done: str) -> None:
+    """Print the script's wall so far, after phase(s) ``done``."""
+    print(f"chip_smoke: phase {done} done at "
+          f"{time.perf_counter() - _T0[0]:.1f} s", flush=True)
+
+
+def port_gates():
+    """(the dispatch-budget, telemetry and fusion-budget gates) beside this
+    file."""
+    from tools import (torch_check_dispatch_budget, torch_check_fusion_budget,
+                       torch_check_telemetry)
+    return (torch_check_dispatch_budget, torch_check_telemetry,
+            torch_check_fusion_budget)
+
+
+def _lane_line(row: dict) -> str:
+    return json.dumps({k: v for k, v in row.items()
+                       if k not in ("device", "mode")}, default=str)
+
+
+def gates_phase(card_line, traced) -> dict:
+    """Phase 19 (see the module docstring); the fusion gate's traced
+    replay launches go into ``traced``."""
+    t0 = time.perf_counter()
+    disp, tel, fus = port_gates()
+    out, failures = {}, []
+
+    def lane(name, measure, lane_failures):
+        t = time.perf_counter()
+        row = measure()
+        bad = lane_failures(row)
+        failures.extend(f"{name}: {f}" for f in bad)
+        out[name] = row
+        print(f"19 {name}: {_lane_line(row)} ({time.perf_counter() - t:.1f}"
+              f" s)  {'FAIL' if bad else 'ok'} [{card_line}]", flush=True)
+
+    ev0 = disp.evictions()
+    for name, (measure, lane_failures) in disp.LANES.items():
+        if name in disp.MESH_LANES:
+            def run(measure=measure, name=name):
+                row = measure("cuda", disp.MESH_SPECS[1][name])
+                row["placement"] = "skipped: a mesh of one rank"
+                return row
+        else:
+            def run(measure=measure):
+                return measure("cuda")
+        lane(f"dispatch {name}", run, lane_failures)
+    lane("dispatch eager (not gated)", lambda: disp.measure_eager("cuda"),
+         lambda row: [])
+    lane("dispatch store", lambda: {"evictions_after_warm":
+                                    disp.evictions() - ev0},
+         lambda row: disp.store_failures(row["evictions_after_warm"]))
+    for name in ("check_deterministic_snapshot", "check_chrome_trace"):
+        lane(f"telemetry {name[len('check_'):]}",
+             lambda name=name: {"failures": getattr(tel, name)("cuda")},
+             lambda row: row["failures"])
+    lane("fusion fused", lambda: fus.measure_fused("cuda"),
+         fus.fused_failures)
+    lane("fusion launches", fus.measure_launches, fus.launches_failures)
+    for r in out["fusion launches"]["routes"].values():
+        for k, n in r["traced"].items():
+            if n:
+                traced[k] = traced.get(k, 0) + n
+    lane("fusion int8", lambda: fus.measure_int8("cuda"), fus.int8_failures)
+    if failures:
+        fail("19: " + "; ".join(failures)[:4000])
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 19 took {out['phase_s']:.1f} s: every dispatch-budget "
+          f"lane, the telemetry snapshot and trace, the fusion lanes inside "
+          f"their budgets  ok [{card_line}]")
     return out
 
 
@@ -7438,6 +7517,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    _T0[0] = time.perf_counter()
     models, ck, _build = port()
     mx, config, resnet, nn_ops = port_gluon()
 
@@ -7451,6 +7531,7 @@ def main() -> int:
     epi_err = epilogue_kernel_phase(ck, _build)
     cbn_err = conv_bn_kernel_phase(ck)
     print(f"launch counts after the comparisons: {ck.launch_counts()}")
+    stamp("1-2b")
 
     # -- the LM paths -------------------------------------------------------
     cfg = bert_base(models)
@@ -7473,6 +7554,7 @@ def main() -> int:
                   config)
     del params, requests
     torch.cuda.empty_cache()
+    stamp("3-4")
 
     # -- the ResNet train path ----------------------------------------------
     # phases 6-7b hold the eager classic loop (a hybridized block's
@@ -7486,6 +7568,7 @@ def main() -> int:
     resnet_timings(resnet, config, step, card_line)
     del _net, step
     torch.cuda.empty_cache()
+    stamp("5-7")
 
     # -- the fused conv + batch-norm path ------------------------------------
     cbn_counts, step = resnet_conv_bn_path(mx, ck, resnet, config, nn_ops,
@@ -7495,6 +7578,7 @@ def main() -> int:
     resnet_timings(resnet, config, step, card_line, CONV_BN)
     del step
     torch.cuda.empty_cache()
+    stamp("6c-7b")
 
     set_compiled(config, True)
 
@@ -7526,6 +7610,7 @@ def main() -> int:
         **{f"resnet50_bf16_b{RESNET_BATCH}_{k}": v
            for k, v in cap_resnet.items()}}}))
     torch.cuda.empty_cache()
+    stamp("8-8c")
 
     # -- 8d-8g. ShardedTrainer, accumulation, buckets, the recorded forward
     ck.reset_launch_counts()
@@ -7552,6 +7637,7 @@ def main() -> int:
            with_img_s(v, RESNET_BATCH) for k, v in cap_resnet.items()},
         f"resnet50_classic_loop_bf16_b{RESNET_BATCH}_conv_bn": classic}}))
     torch.cuda.empty_cache()
+    stamp("8d-8g")
 
     # -- 8h. the imperative substrate -----------------------------------------
     specs, registry = port_nd()
@@ -7575,13 +7661,14 @@ def main() -> int:
         f"resnet50_classic_loop_bf16_b{RESNET_BATCH}_conv_bn":
             with_img_s(nd_numbers, RESNET_BATCH)}}))
     torch.cuda.empty_cache()
+    stamp("8h")
 
     # -- 9. int8 --------------------------------------------------------------
     int8_counts, int8_err = int8_path(ck)
     int8_ops_phase(port_int8())
     int8_times = int8_timings(ck, card_line)
-
     torch.cuda.empty_cache()
+    stamp("9")
 
     # -- 11. serving ----------------------------------------------------------
     serving, sd, lat = port_serving()
@@ -7601,6 +7688,7 @@ def main() -> int:
                                   "oneshot": oneshot, "lanes": lanes}},
                      default=str))
     torch.cuda.empty_cache()
+    stamp("11")
 
     # -- 12. speculative decoding ---------------------------------------------
     ck.reset_launch_counts()
@@ -7610,6 +7698,7 @@ def main() -> int:
     print(json.dumps({"speculative": {"card": card_line, **spec}},
                      default=str))
     torch.cuda.empty_cache()
+    stamp("12")
 
     # -- 13. the mixture-of-experts LM ----------------------------------------
     moe_counts, moe_traced = {}, {}
@@ -7621,6 +7710,7 @@ def main() -> int:
           f"{moe_traced}")
     print(json.dumps({"moe": {"card": card_line, **moe}}, default=str))
     torch.cuda.empty_cache()
+    stamp("13")
 
     # -- 14. the mesh of one ----------------------------------------------------
     mesh_counts, mesh_traced = {}, {}
@@ -7634,6 +7724,7 @@ def main() -> int:
           f"replays {mesh_traced}")
     print(json.dumps({"mesh": {"card": card_line, **mesh}}, default=str))
     torch.cuda.empty_cache()
+    stamp("14")
 
     # -- 15. the LM on a mesh ---------------------------------------------------
     mesh_lm_counts, mesh_lm_traced = {}, {}
@@ -7648,6 +7739,7 @@ def main() -> int:
     print(json.dumps({"mesh_lm": {"card": card_line, **mesh_lm}},
                      default=str))
     torch.cuda.empty_cache()
+    stamp("15")
 
     # -- 16. the runtime around the step ----------------------------------------
     runtime_counts, runtime_traced = {}, {}
@@ -7663,6 +7755,7 @@ def main() -> int:
     print(json.dumps({"runtime": {"card": card_line, **runtime}},
                      default=str))
     torch.cuda.empty_cache()
+    stamp("16")
 
     # -- 17. mixed precision --------------------------------------------------
     amp_counts, amp_traced = {}, {}
@@ -7675,17 +7768,37 @@ def main() -> int:
           f"{amp_traced}")
     print(json.dumps({"amp": amp}, default=str))
     torch.cuda.empty_cache()
+    stamp("17")
 
     # -- 18. the serving fleet ------------------------------------------------
     ck.reset_launch_counts()
     fleet = fleet_phase(sd, card_line)
     torch.cuda.synchronize()
     fleet_counts = ck.launch_counts()
-    print(f"phase 18 launch counts of this process's fleet runs (18a, 18d; "
+    print(f"phase 18 launch counts of this process's fleet runs (18a; "
           f"no TPU kernel lies on the fleet paths, and the drills' children "
           f"are processes of their own): {fleet_counts}")
     print(json.dumps({"fleet": {"card": card_line, **fleet}}, default=str))
     torch.cuda.empty_cache()
+    stamp("18")
+
+    # -- 19. the CI gates -----------------------------------------------------
+    ck.reset_launch_counts()
+    gates_traced = {}
+    gates = gates_phase(card_line, gates_traced)
+    torch.cuda.synchronize()
+    gates_counts = ck.launch_counts()
+    if not all(gates_counts.get(k) for k in (*EPI_KERNELS,
+                                              *CONV_BN_KERNELS)):
+        fail(f"19: a kernel of the fusion lanes never launched: "
+             f"{gates_counts}")
+    print(f"phase 19 launch counts of the gates (the fusion lanes' "
+          f"forwards and first calls): counted by the wrappers "
+          f"{gates_counts}; traced on the device in the replays "
+          f"{gates_traced}")
+    print(json.dumps({"gates": {"card": card_line, **gates}}, default=str))
+    torch.cuda.empty_cache()
+    stamp("19")
 
     # -- 10. results --------------------------------------------------------
     paths = {"forward": fwd_counts, "train": train_counts,
@@ -7695,7 +7808,8 @@ def main() -> int:
              "serving": serving_counts, "speculative": spec_counts,
              "moe": moe_counts, "mesh": mesh_counts,
              "mesh_lm": mesh_lm_counts, "runtime": runtime_counts,
-             "amp": amp_counts, "fleet": fleet_counts}
+             "amp": amp_counts, "fleet": fleet_counts,
+             "gates": gates_counts}
 
     # launches the wrappers counted (a capture's once, a replay's not at
     # all), and those a profiler trace saw run in the replays that were
@@ -7704,7 +7818,7 @@ def main() -> int:
                     "compiled_steps": steps_traced, "nd": nd_traced,
                     "moe": moe_traced, "mesh": mesh_traced,
                     "mesh_lm": mesh_lm_traced, "runtime": runtime_traced,
-                    "amp": amp_traced}
+                    "amp": amp_traced, "gates": gates_traced}
 
     def launches(name):
         by_path = {p: c.get(name, 0) for p, c in paths.items()}
@@ -7862,6 +7976,8 @@ def main() -> int:
     print(f"traces of launches by kernel name in this run: {TRACES[0]}; "
           f"{TRACE_LOSS['short']} lost records of their prefix of "
           f"{TRACE_PREFIX + 1} markers, at most {TRACE_LOSS['most']}")
+    print(f"chip_smoke: the whole script took "
+          f"{time.perf_counter() - _T0[0]:.1f} s [{card_line}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,6 +124,13 @@ candidates throughout, and its update program takes the flag of the
 summed gradients. An overflow emits the telemetry event
 ``amp_overflow``.
 
+Every call (reference ``cached_step.py:291-297``) passes the fault site
+``cached_step.step`` first, which fails fast, since a step is not
+idempotent, advances ``telemetry.next_step()``, and runs under the span
+``train_step.step`` (cat ``train_step``, args ``path`` ``compiled`` or
+``eager`` and ``step``; ``Trainer.step_spans``). All three are host work
+around the program: nothing of them is captured.
+
 Setups the reference also runs eagerly (``_eligibility``,
 ``cached_step.py:431-460``) take the eager tape and name their reason in
 ``last_fallback_reason``: ``MXNET_COMPILED_STEP=0``, a parameter with
@@ -143,6 +150,7 @@ import torch
 from . import autograd
 from . import config as _config
 from . import engine as _engine
+from . import faults as _faults
 from . import program_store as _pstore
 from . import serving as _serving
 from . import telemetry as _telemetry
@@ -416,6 +424,14 @@ class TrainStep:
             self._read_flag(pending, "sync", deferred=False)
 
     def __call__(self, *args, batch_size: Optional[int] = None):
+        # the train step's fault site: fail fast, as a step is not
+        # idempotent (recovery is run_elastic's restore and replay)
+        _faults.inject("cached_step.step")
+        step_idx = _telemetry.next_step()
+        with _telemetry.span("train_step.step", cat="train_step") as sp:
+            return self._call_inner(args, batch_size, step_idx, sp)
+
+    def _call_inner(self, args, batch_size, step_idx, sp):
         if batch_size is None:
             batch_size = int(args[0].shape[0]) \
                 if args and getattr(args[0], "shape", ()) else 1
@@ -426,7 +442,10 @@ class TrainStep:
         self.last_fallback_reason = reason
         if reason is not None and (mesh is None or self._specs is None
                                    and reason != "MXNET_COMPILED_STEP=0"):
+            sp.annotate(path="eager", step=step_idx)
             return self._eager_step(args, batch_size)
+        sp.annotate(path="compiled" if reason is None else "eager",
+                    step=step_idx)
         # NDArray arguments (the reference's tests feed mx.nd.array): the
         # program takes their tensors, loss_fn gets them rewrapped, and the
         # loss comes back as an NDArray on the first one's context

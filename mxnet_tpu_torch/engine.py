@@ -26,7 +26,7 @@ Counterpart of ``mxnet_tpu/engine.py``, whole:
   :func:`naive_sync`), and inside ``bulk(n)`` every n-th op does.
 
 Every blocking synchronization this module makes is counted
-(:func:`sync_count`, counter ``engine.host_sync``), so a pipelined loop
+(:func:`sync_count`, counter ``engine.sync``), so a pipelined loop
 can show that it made none.
 """
 from __future__ import annotations
@@ -57,7 +57,7 @@ _TL = threading.local()
 _DRAINABLES: "weakref.WeakSet" = weakref.WeakSet()
 
 _SYNCS = _telemetry.counter(
-    "engine.host_sync",
+    "engine.sync",
     "blocking device synchronizations made through the engine (waitall, "
     "the NaiveEngine per-op barrier, a bulk scope's exit, "
     "engine.synchronize)")
@@ -92,7 +92,7 @@ def amp_lag() -> int:
 
 def sync_count() -> int:
     """Blocking device synchronizations made through :func:`synchronize`
-    (the counter ``engine.host_sync``)."""
+    (the counter ``engine.sync``)."""
     return int(_SYNCS.value)
 
 

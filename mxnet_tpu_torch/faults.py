@@ -50,7 +50,8 @@ SITES = ("serving.infer", "serving.admit", "preemption.drain",
          "engine.prefetch", "spmd.put", "checkpoint.write",
          "checkpoint.async", "checkpoint.restore", "elastic.step",
          "elastic.restore", "sentinel.rollback", "sentinel.quarantine",
-         "router.dispatch", "router.remote", "router.scale")
+         "router.dispatch", "router.remote", "router.scale",
+         "cached_step.step", "trainer.step")
 
 
 class FaultInjected(RuntimeError):

@@ -42,6 +42,7 @@ from typing import Dict, List
 
 import torch
 
+from .. import faults as _faults
 from .. import optimizer as opt
 from ..context import resolve_device
 from .parameter import Parameter
@@ -120,10 +121,21 @@ class Trainer:
         return TrainStep(net, loss_fn, self, bucket=bucket,
                          accum_steps=accum_steps)
 
+    def step_spans(self, limit=None):
+        """The compiled train step's span records (cat ``train_step``, one
+        a ``TrainStep`` call, with its wall, step index and whether it ran
+        compiled or eager), oldest first (reference ``trainer.py:230-237``).
+        """
+        from .. import telemetry as _telemetry
+
+        return _telemetry.spans(cat="train_step", limit=limit)
+
     def step(self, batch_size) -> None:
         """Normalize the gradients by ``batch_size`` and update (with an AMP
         loss scaler, skipping an overflowed update; see the module
-        docstring)."""
+        docstring). The fault site ``trainer.step`` runs first and fails
+        fast: a step is not idempotent, so nothing retries it."""
+        _faults.inject("trainer.step")
         self._optimizer.rescale_grad = self._scale / batch_size
         scaler = getattr(self, "_amp_loss_scaler", None)
         if scaler is not None and self._update_on_kvstore:

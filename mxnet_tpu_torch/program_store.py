@@ -73,6 +73,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 
 from . import config as _config
+from . import telemetry as _telemetry
 
 __all__ = ["Namespace", "ScopeCache", "Program", "VjpProgram",
            "CapturedFunction", "CaptureError", "synchronize",
@@ -90,23 +91,25 @@ ROUTE_KNOBS = ("MXNET_FUSED_EPILOGUE", "MXNET_FUSED_CONV_BN",
 
 class Namespace:
     """One metrics and eviction surface shared by every scope of a family
-    of programs."""
+    of programs. Its counters live in the telemetry registry as
+    ``program_store.<namespace>.<field>`` (family
+    ``program_store.namespace``), as the reference's do."""
 
     def __init__(self, name: str, cap_default: int,
                  cap_env: Optional[str] = None):
         self.name = name
         self.cap_default = cap_default
         self.cap_env = cap_env
-        self._lock = threading.Lock()
-        self._counts = dict.fromkeys(_FIELDS, 0)
+        self._c = _telemetry.CounterGroup(
+            f"program_store.{name}", _FIELDS,
+            f"program-store namespace {name!r}",
+            family="program_store.namespace")
 
     def bump(self, field: str, n: int = 1) -> None:
-        with self._lock:
-            self._counts[field] += n
+        self._c.inc(field, n)
 
     def reset(self) -> None:
-        with self._lock:
-            self._counts = dict.fromkeys(_FIELDS, 0)
+        self._c.reset()
 
     def cap(self) -> int:
         """Programs per scope: the namespace's knob, else its default."""
@@ -117,11 +120,11 @@ class Namespace:
         return cap
 
     def stats(self) -> Dict[str, int]:
-        return dict(self._counts, cap=self.cap())
+        return dict(self._c, cap=self.cap())
 
 
 for _f in _FIELDS:
-    setattr(Namespace, _f, property(lambda self, f=_f: self._counts[f]))
+    setattr(Namespace, _f, property(lambda self, f=_f: self._c[f]))
 del _f
 
 
@@ -270,11 +273,27 @@ def _gc_held():
 def _graph(graph, **kwargs):
     """``torch.cuda.graph(graph, **kwargs)``, safe beside other threads
     (see the module docstring): one capture at a time process-wide, the
-    garbage collector held off, thread-local capture errors."""
+    garbage collector held off, thread-local capture errors. A capture
+    that fails is cleaned up after: ``torch.cuda.graph``'s exit raises
+    from its ``capture_end`` before it restores this thread's stream, and
+    before the device's default generator leaves its capture state (where
+    the next random draw outside a capture raises), so both are put back
+    as they were when the capture began."""
     kwargs.setdefault("capture_error_mode", "thread_local")
     with _CAPTURE_LOCK, _gc_held():
-        with torch.cuda.graph(graph, **kwargs):
-            yield
+        stream = torch.cuda.current_stream()
+        side = kwargs.get("stream")
+        rng = torch.cuda.default_generators[
+            side.device.index if side is not None
+            else torch.cuda.current_device()]
+        before = rng.clone_state()
+        try:
+            with torch.cuda.graph(graph, **kwargs):
+                yield
+        except BaseException:
+            rng.graphsafe_set_state(before)
+            torch.cuda.set_stream(stream)
+            raise
 
 
 def _tensors(out) -> list:
@@ -295,9 +314,9 @@ def _clone(out):
 
 
 class CaptureError(RuntimeError):
-    """A program's body ran eagerly but its CUDA-graph capture failed. The
-    serving engines deliver it to the requests of the call and never fall
-    back to eager for it."""
+    """A program's body ran eagerly but its CUDA-graph capture failed. A
+    train step raises it; ``ServingEngine`` serves the batch's requests
+    through the eager forward instead, as for any failed dispatch."""
 
 
 class Program:

@@ -26,9 +26,13 @@ Counterpart of ``mxnet_tpu/serving.py``:
    ``verify_ulp_accepts``), anything else refusing bucketing for good
    (:attr:`ServingEngine.bucket_refused` keeps the reason) and serving
    exact shapes. The dispatch runs under the ``serving.infer`` fault site:
-   a failure falls back to single requests, and an error reaches exactly
-   the request that caused it. A failed capture
-   (``program_store.CaptureError``) is delivered, never served eagerly.
+   any failure of a batched dispatch, a failed capture
+   (``program_store.CaptureError``) included, falls back to single
+   requests through the eager forward (reference :645-658, :938-953),
+   counted in ``single_fallbacks`` with its cause in ``stats()
+   ["last_fallback"]``, and an error reaches exactly the request whose
+   eager forward raised it. A failed capture's program is not kept, so the
+   next batch of that signature captures again.
 
 The engine runs on the device of the net's parameters and never moves
 them; a CUDA request to a CPU engine raises, and a CUDA engine never runs
@@ -253,6 +257,8 @@ class ServingEngine:
         # sticky refusal: a verify mismatch disables padding and
         # coalescing (outputs that couple across the padded axis)
         self.bucket_refused: Optional[str] = None
+        # the cause of the last batched dispatch served by single requests
+        self.last_fallback: Optional[str] = None
         # (leaf, axis) -> sizes seen; an axis is dynamic once two sizes
         # are seen, and only dynamic non-batch axes are padded
         self._axis_seen: Dict[Tuple, set] = {}
@@ -404,6 +410,7 @@ class ServingEngine:
         out = dict(self._stats)
         out["programs"] = len(self._programs)
         out["bucket_refused"] = self.bucket_refused
+        out["last_fallback"] = self.last_fallback
         out["mesh_devices"] = 1
         lat = sorted(self._latencies)
         if lat:
@@ -659,14 +666,15 @@ class ServingEngine:
                 # dispatch falls back to single requests, never a drop
                 _faults.inject("serving.infer")
                 self._dispatch(group, batched, pad_active)
-            except _pstore.CaptureError as e:
-                # a capture that fails is delivered, not served eagerly
-                for req in group:
-                    self._finish(req, None, e)
             except BaseException as e:
+                # any failure of the batched dispatch, a failed capture
+                # included, serves each request alone through the eager
+                # forward; a failed capture's program was never kept, so
+                # the next batch of its signature captures anew
                 _faults.record_event("serving.infer", "fallback", e,
                                      requests=len(group))
                 self._stats.inc("single_fallbacks", len(group))
+                self.last_fallback = repr(e)
                 self._deliver_fallback(group, cause=e)
             finally:
                 self._staged.task_done()

@@ -707,6 +707,37 @@ def test_captured_step_replays_like_the_eager_tape_on_card(cuda_device,
 
 
 @pytest.mark.cuda
+def test_a_failed_capture_leaves_the_thread_and_generator_clean(
+        cuda_device):
+    """A body that reads a value to the host runs eagerly, then its capture
+    fails: ``CaptureError``, and after it this thread's stream, the
+    device's default generator (a random draw outside a capture), the
+    capture lock and the garbage collector are as before; a clean body
+    then captures and replays."""
+    ns = tps.namespace("hybrid_forward")
+    stream = torch.cuda.current_stream()
+
+    def syncs(a):
+        float(a.sum())
+        return a * 2.0
+
+    x = torch.randn(8, device=cuda_device)
+    prog = tps.Program(ns, syncs, [x], cuda_device)
+    with pytest.raises(tps.CaptureError):
+        prog(x)
+    assert torch.cuda.current_stream() == stream
+    torch.randn(4, device=cuda_device)
+    assert tps._GC_HOLD["depth"] == 0 and gc.isenabled()
+    assert tps._CAPTURE_LOCK.acquire(blocking=False)
+    tps._CAPTURE_LOCK.release()
+    clean = tps.Program(ns, lambda a: a * 3.0, [x], cuda_device)
+    assert torch.equal(clean(x), x * 3.0)             # eager run, capture
+    y = torch.randn(8, device=cuda_device)
+    assert torch.equal(clean(y), y * 3.0)             # a replay
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 def test_hybridized_forward_clones_on_card(cuda_device):
     net = _card_net(cuda_device)
     x, _ = _batch(4, seed=5, hw=32)

@@ -42,8 +42,10 @@ class LazyModule:
 
 def _forbidden(module: str) -> bool:
     # exact package match: "mxnet_tpu_torch" is allowed, "mxnet_tpu" and
-    # "mxnet_tpu.ops" are not
-    return module.split(".")[0] in FORBIDDEN
+    # "mxnet_tpu.ops" are not; nor is the reference's lint ("tools.lint"),
+    # which walks mxnet_tpu/
+    return module.split(".")[0] in FORBIDDEN or \
+        module.split(".")[:2] == ["tools", "lint"]
 
 
 def _imports(path: Path):
@@ -119,6 +121,10 @@ def test_scan_finds_every_port_module():
             "tools/torch_check_availability_budget.py",
             "tools/torch_check_recovery_budget.py",
             "tools/torch_check_dispatch_budget.py",
+            "tools/torch_check_fault_sites.py",
+            "tools/torch_check_telemetry.py",
+            "tools/torch_check_fusion_budget.py",
+            "tools/torch_telemetry_merge.py",
             "chip_smoke.py"} <= names
 
 
@@ -204,7 +210,9 @@ def test_port_cuda_tests_collect_without_jax():
 @pytest.mark.parametrize("module,bad", [
     ("mxnet_tpu_torch", False), ("mxnet_tpu_torch.ops", False),
     ("mxnet_tpu", True), ("mxnet_tpu.models", True), ("jax", True),
-    ("jax.numpy", True), ("jaxlib", True), ("jaxtyping", False)])
+    ("jax.numpy", True), ("jaxlib", True), ("jaxtyping", False),
+    ("tools.lint", True), ("tools.lint.rules", True),
+    ("tools.torch_check_telemetry", False), ("tools.linter", False)])
 def test_forbidden_matches_exact_package(module, bad):
     assert _forbidden(module) is bad
 

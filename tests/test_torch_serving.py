@@ -212,6 +212,139 @@ def test_serving_infer_fault_falls_back_single_request():
         assert _verify_rule(eng.infer(x), ref)
 
 
+def _failing_capture(monkeypatch, times):
+    """Make the next ``times`` first calls of a ``serving`` program fail
+    as a capture fails: its body runs (the eager first run), then
+    ``CaptureError``. Returns the calls that failed."""
+    from mxnet_tpu_torch import program_store as tps
+
+    orig = tps.Program.__call__
+    failed = []
+
+    def call(self, *args):
+        first = not self._called
+        out = orig(self, *args)
+        if first and self._ns.name == "serving" and len(failed) < times:
+            failed.append(tuple(a.shape for a in args))
+            raise tps.CaptureError(
+                "capture of a 'serving' program failed: forced")
+        return out
+
+    monkeypatch.setattr(tps.Program, "__call__", call)
+    return failed
+
+
+def test_failed_capture_serves_the_group_eagerly(monkeypatch):
+    """A failed capture goes the way of every failed batched dispatch
+    (reference ``serving.py:645-658``, ``:938-953``): each request of the
+    group re-runs alone through the eager forward and gets its own
+    exact-shape result, ``single_fallbacks`` counts the group, the cause
+    stays in ``stats()``; the next batch of the signature captures anew,
+    and so does another signature."""
+    net = _mlp(12)
+    rng = onp.random.RandomState(3)
+    xs = [torch.tensor(rng.randn(n, 8), dtype=torch.float32)
+          for n in (1, 2, 1)]
+    failed = _failing_capture(monkeypatch, times=10)
+    tfaults.reset()
+    with serving.ServingEngine(net, max_delay_us=300_000) as eng:
+        res = {}
+
+        def call(i):
+            def go():
+                res[i] = eng.infer(xs[i])
+            return go
+
+        _run_threads([call(i) for i in range(len(xs))])
+        for i, x in enumerate(xs):
+            assert torch.equal(res[i], _eager(net, x)), i
+        st = eng.stats()
+        assert failed and st["single_fallbacks"] == len(xs)
+        assert st["batches"] == 0 and st["programs"] == 0
+        assert "CaptureError" in st["last_fallback"]
+        assert all(e["action"] == "fallback"
+                   for e in tfaults.events("serving.infer"))
+        assert sum(e["requests"] for e in tfaults.events("serving.infer")) \
+            == len(xs)
+        # the failed programs were not kept: the same signature captures
+        # again, and serves batched
+        monkeypatch.undo()
+        t0 = serving.trace_count()
+        out = eng.infer(xs[1])
+        assert serving.trace_count() == t0 + 1
+        assert _verify_rule(out, _eager(net, xs[1]))
+        assert eng.stats()["batches"] == 1
+        assert eng.stats()["single_fallbacks"] == len(xs)
+        out = eng.infer(torch.ones(5, 8))        # another signature
+        assert _verify_rule(out, _eager(net, torch.ones(5, 8)))
+        assert serving.trace_count() == t0 + 2
+
+
+def test_failed_capture_delivers_only_the_eager_error(monkeypatch):
+    """Under a failed capture, a request whose own eager forward raises
+    gets that error; the others of its group are served."""
+    class Picky(tgluon.HybridBlock):
+        def forward(self, x):
+            if bool((x < 0).any()):
+                raise ValueError("negative input")
+            return x + 1.0
+
+    _failing_capture(monkeypatch, times=10)
+    real = Picky.forward
+
+    with serving.ServingEngine(Picky(), max_delay_us=300_000,
+                               device="cpu") as eng:
+        res = {}
+
+        def call(name, x):
+            def go():
+                try:
+                    res[name] = eng.infer(x)
+                except ValueError as e:
+                    res[name] = e
+            return go
+
+        # the batched body itself must run cleanly, so that the capture is
+        # what fails: negative rows raise only outside a program's body
+        from mxnet_tpu_torch import program_store as tps
+
+        def forward(self, x):
+            if tps.in_program():
+                return x + 1.0
+            return real(self, x)
+
+        monkeypatch.setattr(Picky, "forward", forward)
+        _run_threads([call("good", torch.ones(2, 4)),
+                      call("bad", -torch.ones(2, 4))])
+        assert torch.equal(res["good"], torch.full((2, 4), 2.0))
+        assert isinstance(res["bad"], ValueError)
+        assert "CaptureError" in eng.stats()["last_fallback"]
+
+
+def test_failed_capture_matches_the_reference_fallback(monkeypatch):
+    """The same requests through the reference's engine under an injected
+    ``serving.infer`` fault (its single-request fallback) and through the
+    port's under a failed capture: the same outputs within the serving
+    tolerance, and both count every request in ``single_fallbacks``."""
+    jfaults = LazyModule("mxnet_tpu.faults")
+    tnet = _mlp(13, width=16, hidden=32, out=4, layers=2)
+    jnet = _jax_mlp(tnet, 16, 32, 4, 2)
+    rng = onp.random.RandomState(4)
+    reqs = [rng.randn(int(n), 16).astype(onp.float32) for n in (3, 1, 6)]
+    _failing_capture(monkeypatch, times=len(reqs))
+    with serving.ServingEngine(tnet, max_delay_us=200) as eng, \
+            jserving.ServingEngine(jnet, max_delay_us=200) as jeng:
+        with jfaults.active(jfaults.FaultPlan().fail(
+                "serving.infer", times=len(reqs), exc=TimeoutError)):
+            want = [jeng.infer(jmx.nd.array(x)).asnumpy() for x in reqs]
+        got = [eng.infer(x).asnumpy() for x in reqs]
+        assert jeng.stats()["single_fallbacks"] == \
+            eng.stats()["single_fallbacks"] == len(reqs)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert onp.abs(g - w).max() <= REF_TOL
+
+
 def test_serving_request_error_delivered_not_dropped():
     class Picky(tgluon.HybridBlock):
         def forward(self, x):
@@ -419,6 +552,43 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_failed_capture_on_card_served_eagerly_then_captures(cuda_device):
+    """A real capture failure (a host sync in the body, on 6-wide inputs)
+    is served eagerly; the capture lock, the garbage collector's hold and
+    the dispatcher's streams come out clean, and a later signature (8
+    wide) captures and replays."""
+    import gc
+
+    from mxnet_tpu_torch import program_store as tps
+
+    class Syncs(tgluon.HybridBlock):
+        def forward(self, x):
+            if x.shape[1] == 6:
+                float(x.sum())               # no host read in a capture
+            return x * 2.0
+
+    with serving.ServingEngine(Syncs(), max_delay_us=200,
+                               device="cuda") as eng:
+        x6 = torch.randn(3, 6, device=cuda_device)
+        out = eng.infer(x6)
+        assert torch.equal(out, x6 * 2.0)
+        st = eng.stats()
+        assert st["single_fallbacks"] == 1 and st["programs"] == 0
+        assert "CaptureError" in st["last_fallback"]
+        assert tps._GC_HOLD["depth"] == 0 and gc.isenabled()
+        assert tps._CAPTURE_LOCK.acquire(blocking=False)
+        tps._CAPTURE_LOCK.release()
+        t0 = serving.trace_count()
+        x8 = torch.randn(4, 8, device=cuda_device)
+        for _ in range(2):
+            assert torch.equal(eng.infer(x8), x8 * 2.0)
+        assert serving.trace_count() == t0 + 1
+        assert eng.stats()["single_fallbacks"] == 1
+        assert torch.equal(eng.infer(x6), x6 * 2.0)   # eager again
+        torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -5,19 +5,21 @@ mixture-of-experts LM), 14 (the mesh of one), 15 (the LM on a mesh), 16
 preemption drill), 17 (mixed precision: the fp16 conv + batch-norm
 kernels, the AMP steps with the loss scaler and the deferred gate) and 18
 (the serving fleet: the router at full width, the availability and
-recovery drill matrices, the dispatch budget's router and spec lanes) of
-``chip_smoke.py`` alone, on one card: a quicker look at those paths than
-the whole script.
+recovery drill matrices) and 19 (the CI gates: every dispatch-budget lane,
+the telemetry snapshot and trace, the fusion lanes at ResNet-50's width)
+of ``chip_smoke.py`` alone, on one card: a quicker look at those paths
+than the whole script.
 
     python3 tools/torch_chip_smoke_phases.py [11] [12] [13] [14] [15] [16]
-        [17] [18]
+        [17] [18] [19]
 
 A phase may be named more than once (``12 12 12`` runs phase 12 three
-times in one process). With no argument it runs 12 to 18. It
+times in one process). With no argument it runs 12 to 19. It
 builds the port's kernels first (phase 1 of the script: phases 13 and 15
 run the flash-attention kernels, phase 14 the conv + batch-norm and
 epilogue kernels, phase 16 the conv + batch-norm kernels, phase 17 both
-routes' kernels in fp16 and bf16) and exits with
+routes' kernels in fp16 and bf16, phase 19 both routes' in fp32 and bf16)
+and exits with
 the script's failure code at the first failed gate.
 """
 import json
@@ -86,6 +88,12 @@ def main(which) -> int:
             torch.cuda.synchronize()
             print(f"phase 18 launch counts of this process's fleet runs "
                   f"{ck.launch_counts()}")
+        elif phase == "19":
+            traced = {}
+            out = c.gates_phase(card_line, traced)
+            torch.cuda.synchronize()
+            print(f"phase 19 launch counts of the gates "
+                  f"{ck.launch_counts()}, traced in the replays {traced}")
         elif phase == "17":
             counts, traced = {}, {}
             out = c.amp_phase(mx, ck, config, card_line, counts, traced)
@@ -104,4 +112,5 @@ def main(which) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15", "16", "17", "18"]))
+    sys.exit(main(sys.argv[1:] or ["12", "13", "14", "15", "16", "17", "18",
+                                   "19"]))
